@@ -5,7 +5,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports the port, torch, numpy and scipy only, and goes through five
+It imports the port, torch, numpy and scipy only, and goes through eight
 phases, each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
@@ -18,10 +18,27 @@ phases, each printed with its wall time:
 4. whole model: ``cfgs/l1.yaml`` at width 144, depth 2, B=16, N=500, with
    seeded weights whose final Dense and BatchNorm running stats are O(1),
    kernel path against plain path on one pyramid, rtol 5e-4 / atol 5e-5;
-5. serving (the main path): an icosphere and a torus as a
+5. serving (the inference path): an icosphere and a torus as a
    ``qualitative_test`` split, denoised by the inference entry point at
    full width; every output finite and the kernel launched 10 times per
-   batch.
+   batch;
+6. backward kernel vs plain: the KPConv backward kernel against its plain
+   version at the ten flagship shapes (and every influence at the stem
+   shape), d_features and d_kernel_weights at rtol 3e-4 and an atol of
+   1e-5 of the largest gradient; times beside the bound;
+7. whole-model gradients: l1.yaml at width 144, B=16, one batch in train
+   mode under the masked L1 loss; every parameter's gradient through the
+   backward kernel against the plain backward on the same forward graph,
+   and the kernel path against the plain path, each tensor within three
+   times its own float32 noise (its plain gradient against the float64
+   plain path), with a floor (``utils/grad_check.py`` says why); 10
+   forward and 10 backward launches;
+8. training (this slice's path): the training entry point at full width,
+   B=16, N=500, two epochs of 20 steps on an icosphere and a torus as
+   ``train`` and ``val`` splits; every loss finite, parameters and
+   BatchNorm running stats changed, 10 forward and 10 backward launches per
+   step, and the checkpoint reloads through ``infer.load_model``; then a
+   profiler window over five more steps.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -52,7 +69,12 @@ from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
 from deep3dpointclouddenoising_torch.ops import _cuda
 from deep3dpointclouddenoising_torch.ops.kpconv import (
-    kpconv_aggregate, kpconv_aggregate_plain)
+    kpconv_aggregate, kpconv_aggregate_backward,
+    kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
+from deep3dpointclouddenoising_torch.profile_serving import \
+    profile_train_steps
+from deep3dpointclouddenoising_torch.train import __main__ as train_cli
+from deep3dpointclouddenoising_torch.utils import grad_check
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "cfgs", "l1.yaml")
@@ -62,6 +84,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=5e-4, atol=5e-5)
+# backward: the JAX package's gradient rtol; the atol is a fraction of the
+# largest gradient, since d_kernel_weights sums up to 416,000 terms in
+# another order than the plain einsum and d_features is added by atomics
+BWD_RTOL, BWD_ATOL_FRAC = 3e-4, 1e-5
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # flagship forward, B=16, P=15
 FLAGSHIP_CALLS = [
@@ -203,14 +229,17 @@ def phase_kernels(cfg, device):
         "bound_by": "bytes" if bytes_sum >= ops_sum else "operations",
         "library_ms": None,
         "timed_at": "sum over the ten calls of one l1.yaml forward, B=16",
+        "cuda_kernels": ["kpconv_fwd_kernel"],
+        "launches_are": "calls of the wrapper; each launches "
+                        "kpconv_fwd_kernel once",
     }
 
 
 def seeded_model(cfg, device, seed: int = 0):
     """l1.yaml model with seeded weights; the final Dense and every
     BatchNorm's running stats get O(1) values, so the output is O(1)."""
-    torch.manual_seed(seed)
-    model = build_offset_regression(cfg)
+    model = build_offset_regression(cfg,
+                                    torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -229,21 +258,29 @@ def seeded_model(cfg, device, seed: int = 0):
     return model.to(device).eval()
 
 
-def phase_model(cfg, device):
-    """Whole width-144 model, kernel path against plain path on one
-    pyramid."""
-    model = seeded_model(cfg, device)
-    rng = np.random.default_rng(1)
+def patch_batch(cfg, seed: int):
+    """Patch-like input: points on a noisy sphere cap of the patch radius,
+    the last 50 slots of the last cloud padding, O(0.01) target offsets."""
+    rng = np.random.default_rng(seed)
     B, N = int(cfg.batch_size), int(cfg.num_points)
-    # patch-like input: points on a noisy sphere cap of the patch radius,
-    # the last 50 slots of the last cloud padding
     xyz = rng.normal(size=(B, N, 3))
     xyz = cfg.in_radius * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
     xyz = (xyz * rng.random((B, N, 1))).astype(np.float32)
     mask = np.ones((B, N), np.float32)
     mask[-1, -50:] = 0.0
     xyz[-1, -50:] = xyz[-1, :50]
-    xyz_t, mask_t = (torch.from_numpy(a).to(device) for a in (xyz, mask))
+    offsets = (rng.normal(size=(B, N, 3)) * 0.01).astype(np.float32)
+    return {"points": xyz, "mask": mask, "features": xyz.copy(),
+            "offsets": offsets}
+
+
+def phase_model(cfg, device):
+    """Whole width-144 model, kernel path against plain path on one
+    pyramid."""
+    model = seeded_model(cfg, device)
+    batch = patch_batch(cfg, 1)
+    xyz_t, mask_t = (torch.from_numpy(batch[k]).to(device)
+                     for k in ("points", "mask"))
     with torch.inference_mode():
         pyramid = model.make_pyramid(xyz_t, mask_t)
 
@@ -281,9 +318,12 @@ def phase_serving(cfg, device, workdir):
              make_torus())
     out_dir = os.path.join(workdir, "out")
     kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
     dataset, results, seconds = infer.run(CONFIG, data_root, out_dir,
                                           device=device)
     launches = kpconv_aggregate.launches
+    if kpconv_aggregate_backward.launches:
+        raise AssertionError("serving launched the backward kernel")
     batches = -(-len(dataset) // int(cfg.batch_size))
     for res, shape in zip(results, dataset.shapes):
         for key in ("offsets", "denoised"):
@@ -303,6 +343,175 @@ def phase_serving(cfg, device, workdir):
           f"{len(dataset) * int(cfg.num_points) / seconds:.1f} patch "
           f"points/s")
     return launches
+
+
+def kpconv_bwd_bound(B, M, N, K, C, P):
+    """Least times (ms) for one backward call: features, indices, relative
+    positions, masks, kernel points and weights and the upstream gradient
+    read once, d_features and d_kernel_weights written once; operations:
+    12 per (b, m, k, p) for the influence weight, 2 per (b, m, k, p, c)
+    each for the weighted neighbour sum and for wc = sum_p w kw, 2 per
+    (b, m, k, c) for wc * g and its add into d_features, 2 per (b, m, p, c)
+    for d_kernel_weights."""
+    nbytes = 4 * (2 * B * N * C + B * M * K * 5 + P * 3 + 2 * P * C
+                  + B * M * C)
+    flops = (12 * B * M * K * P + 4 * B * M * K * P * C + 2 * B * M * K * C
+             + 2 * B * M * P * C)
+    return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+
+
+def check_grad_close(got, want, what: str):
+    """Backward kernel against plain: rtol BWD_RTOL and an atol of
+    BWD_ATOL_FRAC of the largest entry; returns the max abs error."""
+    scale = want.abs().max().item()
+    max_abs, _ = check_close(got, want, BWD_RTOL, BWD_ATOL_FRAC * scale,
+                             what)
+    return max_abs
+
+
+def phase_backward(cfg, device):
+    """Backward kernel vs plain at the ten flagship shapes (and every
+    influence at the stem shape); returns its JSON record, less
+    launches."""
+    rng = np.random.default_rng(2)
+    B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
+    r0 = float(cfg.radius)
+    rows = [(name, M, N, K, C, mult, "linear")
+            for name, M, N, K, C, mult in FLAGSHIP_CALLS]
+    rows += [("stem LA", 500, 500, 52, 72, 1, infl)
+             for infl in ("gaussian", "constant")]
+    worst_abs, ms_sum, plain_sum, bound_sum = 0.0, 0.0, 0.0, 0.0
+    bytes_sum, ops_sum = 0.0, 0.0
+    print("call M N K C influence | d_feat max_abs, d_kw max_abs | "
+          "kernel_ms plain_ms bound_ms bound_by")
+    for name, M, N, K, C, mult, infl in rows:
+        args, extent = kpconv_inputs(rng, B, M, N, K, C, P, r0 * mult,
+                                     device)
+        g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(
+            np.float32)).to(device)
+        got = kpconv_aggregate_backward(*args, g, extent, infl)
+        torch.cuda.synchronize()
+        want = kpconv_aggregate_backward_plain(*args, g, extent, infl)
+        errs = [check_grad_close(a, b, f"backward {name} {infl} {what}")
+                for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
+        ms = cuda_ms(lambda: kpconv_aggregate_backward(*args, g, extent,
+                                                       infl), 100)
+        plain_ms = cuda_ms(lambda: kpconv_aggregate_backward_plain(
+            *args, g, extent, infl), 10)
+        t_bytes, t_ops = kpconv_bwd_bound(B, M, N, K, C, P)
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        worst_abs = max(worst_abs, *errs)
+        if infl == "linear":
+            ms_sum += ms
+            plain_sum += plain_ms
+            bound_sum += bound_ms
+            bytes_sum += t_bytes
+            ops_sum += t_ops
+        print(f"{name} {M} {N} {K} {C} {infl} | {errs[0]:.3e} {errs[1]:.3e}"
+              f" (|d_kw| max {want[1].abs().max().item():.3e}) | {ms:.5f} "
+              f"{plain_ms:.5f} {bound_ms:.5f} {bound_by}", flush=True)
+    print(f"ten flagship calls (linear), per backward: kernel {ms_sum:.5f} "
+          f"ms, plain {plain_sum:.5f} ms, bound {bound_sum:.5f} ms")
+    return {
+        "name": "kpconv_bwd", "route": "cuda",
+        "source": "deep3dpointclouddenoising_torch/csrc/kpconv_bwd.cu",
+        "replaces": "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:361",
+        "max_abs_err": worst_abs, "ms": ms_sum, "plain_ms": plain_sum,
+        "bound_ms": bound_sum,
+        "bound_by": "bytes" if bytes_sum >= ops_sum else "operations",
+        "library_ms": None,
+        "timed_at": "sum over the ten calls of one l1.yaml backward, B=16",
+        "cuda_kernels": ["kpconv_bwd_kernel", "kpconv_bwd_reduce"],
+        "launches_are": "calls of the wrapper; on the training path each "
+                        "launches kpconv_bwd_kernel and kpconv_bwd_reduce "
+                        "once (the reduction only when d_kernel_weights "
+                        "is needed), and ms times both",
+    }
+
+
+def phase_model_grad(cfg, device):
+    """Train-mode gradients of every parameter of the width-144 model under
+    the masked L1 loss, on one batch and one pyramid: the backward kernel
+    against the plain backward on one forward graph, and the kernel path
+    against the plain path, each tensor within ``grad_check``'s limit from
+    its own float32 noise."""
+    model = build_offset_regression(
+        cfg, torch.Generator().manual_seed(0)).to(device).train()
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in patch_batch(cfg, 3).items()}
+    pyramid = model.make_pyramid(batch["points"], batch["mask"])
+    grads = grad_check.model_gradients(model, pyramid, batch["features"],
+                                       batch["offsets"], batch["mask"])
+    if grads["launches"] != (10, 10):
+        raise AssertionError(
+            f"one train forward and backward launched "
+            f"{grads['launches'][0]} forward and {grads['launches'][1]} "
+            "backward kernels, not 10 and 10")
+    check_close(grads["loss"], grads["plain_loss"], 1e-5, 0.0, "train loss")
+    for what, d, limit, name in grad_check.check_model_gradients(grads):
+        print(f"{what}: {len(grads['names'])} parameter gradients within "
+              f"their limits; nearest {name}: {d:.3e} of limit {limit:.3e}")
+    noise = [(grad_check.max_abs_distance(p, r), n) for n, p, r in zip(
+        grads["names"], grads["plain"], grads["float64"])]
+    print("float32 noise: the plain path misses the float64 plain path by "
+          "up to %.3e of a tensor's max-abs (%s)" % max(noise))
+
+
+def phase_training(cfg, device, workdir):
+    """This slice's path: the training entry point at full width over
+    two-shape train and val splits; returns the kernels' launches in it."""
+    data_root = os.path.join(workdir, "train_data")
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(data_root, split))
+        save_off(os.path.join(data_root, split, "sphere.off"),
+                 make_icosphere(4))
+        save_off(os.path.join(data_root, split, "torus.off"), make_torus())
+    steps_per_epoch, epochs = 20, 2
+    argv = ["--config_file", CONFIG, "--data_root", data_root,
+            "--log_dir", os.path.join(workdir, "log"),
+            "--num_steps", str(steps_per_epoch * int(cfg.batch_size)),
+            "--epochs", str(epochs), "--val_freq", "1", "--device", "cuda"]
+    kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
+    summary = train_cli.main(argv)
+    fwd, bwd = kpconv_aggregate.launches, kpconv_aggregate_backward.launches
+    steps, val_batches = summary["steps"], summary["val_batches"]
+    if steps != steps_per_epoch * epochs:
+        raise AssertionError(f"training took {steps} steps")
+    if (fwd, bwd) != (10 * (steps + val_batches), 10 * steps):
+        raise AssertionError(
+            f"training launched {fwd} forward and {bwd} backward kernels "
+            f"for {steps} steps and {val_batches} val batches")
+    losses = summary["train_losses"] + summary["val_losses"]
+    if len(summary["train_losses"]) != steps \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"training: losses {losses}")
+    trainer = summary["trainer"]
+    initial = build_offset_regression(
+        trainer.cfg, torch.Generator().manual_seed(int(cfg.rng_seed)))
+    start = initial.state_dict()
+    for name, value in trainer.model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if torch.equal(value.cpu(), start[name]):
+            raise AssertionError(f"training left {name} unchanged")
+    model = infer.load_model(trainer.cfg, device, summary["checkpoint"])
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in patch_batch(cfg, 4).items()}
+    with torch.inference_mode():
+        out = model(batch["points"], batch["mask"], batch["features"])
+    if tuple(out.shape) != tuple(batch["points"].shape) \
+            or not torch.isfinite(out).all():
+        raise AssertionError("the reloaded checkpoint gives a bad forward")
+    print(f"steps {steps}, val batches {val_batches}; launches: forward "
+          f"{fwd}, backward {bwd}; train loss first {losses[0]:.6f} last "
+          f"{summary['train_losses'][-1]:.6f}; val loss "
+          f"{summary['val_losses']}; ms per step by epoch (host clock, "
+          f"data loading included): "
+          + ", ".join(f"{ms:.3f}" for ms in summary["ms_per_step"]))
+    profile_train_steps(trainer, batch)
+    return fwd, bwd
 
 
 def main() -> int:
@@ -334,9 +543,20 @@ def main() -> int:
     with phase("whole model"):
         phase_model(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("serving"):
-        record["launches"] = phase_serving(cfg, device, workdir)
+        serving_launches = phase_serving(cfg, device, workdir)
+    with phase("backward kernel vs plain"):
+        bwd_record = phase_backward(cfg, device)
+    with phase("whole-model gradients"):
+        phase_model_grad(cfg, device)
+    with tempfile.TemporaryDirectory() as workdir, phase("training"):
+        train_fwd, train_bwd = phase_training(cfg, device, workdir)
+    # launches: this slice's path (training); every path's in the detail
+    record.update(launches=train_fwd, launches_by_path={
+        "serving": serving_launches, "training": train_fwd})
+    bwd_record.update(launches=train_bwd, launches_by_path={
+        "serving": 0, "training": train_bwd})  # serving checks its 0
     print(smi)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, bwd_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

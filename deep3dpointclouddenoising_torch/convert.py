@@ -16,6 +16,10 @@ PseudoGrid ``kernel_weights``  as is, (P, C)
 BatchNorm's ``num_batches_tracked`` has no Flax counterpart and is set to
 0.  A leaf that fits none of these raises; so does, when ``model`` is given,
 a key that the model lacks or leaves unfilled.
+
+:func:`adam_state_from_optax` carries an optax Adam state (``count``,
+``mu``, ``nu``) over to ``torch.optim.Adam``'s, by the same name table, so
+that a run of the JAX package can go on in the port.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ def params_from_flax(variables: Mapping[str, Any],
         for path, value in _leaves(variables.get(collection, {})):
             *mods, leaf = path
             owner = mods[-1] if mods else ""
-            arr = np.asarray(value, dtype=np.float32)
+            arr = np.array(value, dtype=np.float32)  # a writable copy
             base = ".".join(mods)
             if collection == "params" and owner.startswith("Dense_") \
                     and leaf == "kernel":
@@ -84,6 +88,39 @@ def params_from_flax(variables: Mapping[str, Any],
                 raise ValueError(f"{k}: Flax shape {tuple(v.shape)}, model "
                                  f"shape {tuple(want[k].shape)}")
     return sd
+
+
+def adam_state_from_optax(count, mu: Mapping[str, Any],
+                          nu: Mapping[str, Any], model: nn.Module,
+                          optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer.load_state_dict`` input from the fields of optax's
+    ``ScaleByAdamState``, as numpy: ``count`` (updates done) and the
+    moment trees ``mu`` and ``nu`` of the Flax parameter tree's structure.
+
+    ``optimizer`` is a ``torch.optim.Adam`` (or ``AdamW``) over
+    ``model.parameters()`` in their order, in one group; its hyperparameters
+    are kept.  Each parameter's ``step`` is ``count``; ``exp_avg`` and
+    ``exp_avg_sq`` are ``mu`` and ``nu``, ``Dense`` kernels transposed.
+    """
+    moments = [params_from_flax({"params": tree}) for tree in (mu, nu)]
+    names = [n for n, _ in model.named_parameters()]
+    for sd in moments:
+        if set(sd) != set(names):
+            raise KeyError(
+                f"optax moments do not match the model's parameters: "
+                f"missing {sorted(set(names) - set(sd))[:8]}, unused "
+                f"{sorted(set(sd) - set(names))[:8]}")
+    template = optimizer.state_dict()
+    groups = template["param_groups"]
+    if len(groups) != 1 or len(groups[0]["params"]) != len(names):
+        raise ValueError("the optimizer must hold the model's parameters "
+                         "in one group")
+    step = torch.tensor(float(np.asarray(count)))
+    state = {
+        pid: {"step": step.clone(), "exp_avg": moments[0][name].clone(),
+              "exp_avg_sq": moments[1][name].clone()}
+        for pid, name in zip(groups[0]["params"], names)}
+    return {"state": state, "param_groups": groups}
 
 
 def flax_from_params(state_dict: Mapping[str, torch.Tensor]

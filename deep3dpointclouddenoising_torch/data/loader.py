@@ -20,25 +20,33 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 
 class BatchLoader:
-    """Iterate batches of a dataset exposing ``get(idx)``/``__len__``, in
-    index order; the last batch may be smaller."""
+    """Iterate batches of a dataset exposing ``get(idx, epoch)`` and
+    ``__len__``, in index order.  With ``drop_last`` (the training loader)
+    a ragged last batch is dropped, else it comes smaller."""
 
     PREFETCH = 2     # batches assembled ahead of the consumer
     NUM_WORKERS = 4  # threads assembling one batch
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.drop_last = drop_last
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
 
     def _indices(self):
         n = len(self.dataset)
-        for s in range(0, n, self.batch_size):
+        for s in range(0, len(self) * self.batch_size, self.batch_size):
             yield range(s, min(s + self.batch_size, n))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self.epoch_iter(getattr(self.dataset, "epoch", 0))
+
+    def epoch_iter(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """The batches of ``epoch``'s slice of the dataset."""
         q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
         done = object()
         stop = threading.Event()
@@ -49,8 +57,8 @@ class BatchLoader:
                     for idxs in self._indices():
                         if stop.is_set():
                             return
-                        q.put(collate(list(pool.map(self.dataset.get,
-                                                    idxs))))
+                        q.put(collate(list(pool.map(
+                            lambda i: self.dataset.get(i, epoch), idxs))))
             except BaseException as e:  # re-raised in the consumer
                 q.put(e)
             finally:

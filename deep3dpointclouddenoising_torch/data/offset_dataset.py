@@ -1,23 +1,28 @@
-"""Offset-regression dataset, test splits: shapes -> noisy clouds with
-ground-truth offsets, covered by patches.
+"""Offset-regression dataset: shapes -> noisy clouds with ground-truth
+offsets, cut into patches.
 
-Counterpart of the test-split half of
-``deep3dpointclouddenoising_tpu/data/offset_dataset.py``, with the same
-draws from the same generators, so the same seed gives the same noisy
-clouds and the same patches:
+Counterpart of ``deep3dpointclouddenoising_tpu/data/offset_dataset.py``
+(its numpy path), with the same draws from the same generators, so the same
+seed gives the same noisy clouds and the same patches:
 
 * :func:`process_off_file` normalizes a mesh, samples its surface evenly,
   draws uniform-box outliers, shuffles, adds noise and computes the
   offsets = closest surface point - noisy position;
-* patch centres are the cloud points nearest to a voxel-grid subsampling of
-  the cloud, so the patches cover it;
+* training and validation splits draw a table of patch centres for all
+  epochs up front, half outliers and half inliers interleaved when the
+  clouds have outliers (``_sample_class``, ``_interleave``); test splits
+  take the cloud points nearest to a voxel-grid subsampling of the cloud,
+  so the patches cover it;
 * :meth:`OffsetDataset.get` takes the radius patch sorted by distance,
   pads or truncates it to ``num_points`` with a mask, swaps the centre into
-  slot 0 and recentres it; features are the patch's xyz (or its Fourier
-  features).
+  slot 0, recentres it and, for training, augments points and offsets
+  together; features are the patch's xyz (or its Fourier features).
 
+``self.rng`` is consumed in a fixed order (the Fourier matrix, then each
+uncached shape, then the patch table), which decides every patch.
 Processed shapes are cached as ``.npz`` under ``<data_root>/processed_torch``.
-Training splits come with the training slice.
+The JAX package's fused native patch assembly has a random stream of its own;
+the port follows the numpy path, which is that package's oracle.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import dataclasses
 import glob
 import logging
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -149,26 +154,58 @@ def process_off_file(filepath: str, num_points_per_shape: int,
                      offsets=offsets.astype(np.float32))
 
 
+def _interleave(a_pts, a_clouds, b_pts, b_clouds):
+    pts = np.empty(len(a_pts) + len(b_pts), dtype=np.int64)
+    clouds = np.empty_like(pts)
+    pts[0::2], pts[1::2] = a_pts, b_pts
+    clouds[0::2], clouds[1::2] = a_clouds, b_clouds
+    return pts, clouds
+
+
+def _sample_class(labels_per_cloud: Sequence[np.ndarray], class_id: int,
+                  count: int, rng: np.random.Generator):
+    """``count`` (point, cloud) index pairs of one class across the clouds,
+    shuffled, padded by repetition when the class has fewer points."""
+    pts = np.concatenate([np.nonzero(l == class_id)[0]
+                          for l in labels_per_cloud])
+    clouds = np.concatenate([np.full((l == class_id).sum(), i)
+                             for i, l in enumerate(labels_per_cloud)])
+    perm = rng.permutation(len(pts))
+    pts, clouds = pts[perm], clouds[perm]
+    if len(pts) >= count:
+        return pts[:count], clouds[:count]
+    extra = rng.integers(0, len(pts), count - len(pts))
+    return (np.concatenate([pts, pts[extra]]),
+            np.concatenate([clouds, clouds[extra]]))
+
+
 class OffsetDataset:
-    """Covering patches over ``<data_root>/<split>/*.off`` for a test split
-    (``test`` or ``qualitative_test``)."""
+    """Patches over ``<data_root>/<split>/*.off``: ``num_epochs *
+    num_steps`` sampled centres for ``train`` and ``val``, covering
+    centres for ``test`` and ``qualitative_test``."""
 
     def __init__(self, data_root: str, split: str = "qualitative_test", *,
                  in_radius: float = 2.0, num_points: int = 500,
+                 num_steps: int = 2000, num_epochs: int = 1,
                  noise_type: str = "gaussian", noise_level: float = 5e-3,
                  num_points_per_shape: int = 140000,
-                 outlier_proportion: float = 0.0,
+                 outlier_proportion: float = 0.0, transforms=None,
                  sample_dl_patches: Optional[float] = None,
-                 fourier_features: bool = False, seed: int = 0,
+                 fourier_features: bool = False,
+                 subsampling_parameter: float = 0.0, seed: int = 0,
                  shapes: Optional[Dict[str, TriMesh]] = None):
-        if "test" not in split:
-            raise NotImplementedError(
-                f"split {split!r}: only test splits are ported; training "
-                "data comes with the training slice (ROADMAP.md)")
+        if "test" not in split and num_steps * num_epochs % 2:
+            raise ValueError("the balanced inlier/outlier interleave needs "
+                             "an even num_steps * num_epochs")
         self.split = split
         self.in_radius = in_radius
         self.num_points = num_points
+        self.num_steps = num_steps
+        self.num_epochs = num_epochs
+        self.transforms = transforms
         self.fourier_features = fourier_features
+        self.subsampling_parameter = subsampling_parameter
+        self.epoch = 0
         self.rng = np.random.default_rng(seed)
         self._sample_seed = int(seed)
         self.fourier_B = self.rng.normal(0.0, 12.0, size=(32, 3))
@@ -221,6 +258,27 @@ class OffsetDataset:
         return data
 
     def _build_patch_table(self, sample_dl_patches: float) -> None:
+        if "test" not in self.split:
+            labels = [s.labels for s in self.shapes]
+            total = self.num_epochs * self.num_steps
+            if any((l == 1).any() for l in labels):
+                n_out = total // 2
+                o_pts, o_clouds = _sample_class(labels, 1, n_out, self.rng)
+                i_pts, i_clouds = _sample_class(labels, 0, total - n_out,
+                                                self.rng)
+                self.point_inds, self.cloud_inds = _interleave(
+                    o_pts, o_clouds, i_pts, i_clouds)
+            else:
+                self.point_inds, self.cloud_inds = _sample_class(
+                    labels, 0, total, self.rng)
+            # centre jitter of scale 2 * subsampling_parameter (0 in the
+            # reference runs)
+            self.center_noise = self.rng.normal(
+                scale=2.0 * self.subsampling_parameter,
+                size=(len(self.point_inds), 3)) \
+                if self.subsampling_parameter > 0 \
+                else np.zeros((len(self.point_inds), 3))
+            return
         pts_ls, cloud_ls = [], []
         for i, s in enumerate(self.shapes):
             sub = grid_subsample(s.points, sample_dl_patches)
@@ -230,18 +288,23 @@ class OffsetDataset:
         self.point_inds = np.concatenate(pts_ls)
         self.cloud_inds = np.concatenate(cloud_ls)
         self.num_steps = len(self.point_inds)
+        self.center_noise = np.zeros((len(self.point_inds), 3))
 
     def __len__(self) -> int:
         return self.num_steps
 
-    def get(self, idx: int) -> Dict[str, np.ndarray]:
-        """One covering patch, with a generator seeded by its index."""
-        index = idx % len(self.point_inds)
+    def get(self, idx: int, epoch: Optional[int] = None
+            ) -> Dict[str, np.ndarray]:
+        """Patch ``idx`` of ``epoch``'s slice of the centre table (default
+        ``self.epoch``), with a generator seeded by its table index."""
+        epoch = self.epoch if epoch is None else epoch
+        index = (idx + epoch * self.num_steps) % len(self.point_inds)
         cloud_ind = int(self.cloud_inds[index])
         point_ind = int(self.point_inds[index])
         shape = self.shapes[cloud_ind]
         rng = np.random.default_rng((self._sample_seed, index))
-        pick = shape.points[point_ind].reshape(1, 3)
+        pick = shape.points[point_ind].reshape(1, 3) \
+            + self.center_noise[index].astype(np.float32)
         spatial_index = self.indexes[cloud_ind]
 
         # sorted-by-distance radius query, retried at twice the radius
@@ -269,6 +332,11 @@ class OffsetDataset:
         input_inds[0], input_inds[ci] = input_inds[ci], input_inds[0]
 
         points = shape.points[input_inds] - pick
+        offsets = shape.offsets[input_inds]
+        if self.transforms is not None:
+            stack = self.transforms(np.concatenate([points, offsets]), rng)
+            points = stack[: self.num_points]
+            offsets = stack[self.num_points:]
         feats = fourier_input_mapping(points, self.fourier_B) \
             if self.fourier_features else points
         return {
@@ -276,7 +344,7 @@ class OffsetDataset:
             "mask": mask,
             "features": feats.astype(np.float32),
             "labels": shape.labels[input_inds].astype(np.int32),
-            "offsets": shape.offsets[input_inds].astype(np.float32),
+            "offsets": offsets.astype(np.float32),
             "cloud_ind": np.int64(cloud_ind),
             "input_inds": input_inds.astype(np.int64),
         }

@@ -31,6 +31,7 @@ from .data.loader import BatchLoader
 from .data.meshio import write_ply
 from .data.offset_dataset import OffsetDataset, fourier_input_mapping
 from .models import build_offset_regression
+from .utils.checkpoint import load_model_state
 from .utils.device import resolve_device
 
 
@@ -172,11 +173,12 @@ def make_dataset(cfg: Config, data_root: str,
 def load_model(cfg: Config, device, checkpoint: Optional[str] = None,
                seed: int = 0) -> torch.nn.Module:
     """The offset model in eval mode on ``device``: weights from a
-    checkpoint (a saved ``state_dict``), else initialised from ``seed``."""
-    torch.manual_seed(seed)
-    model = build_offset_regression(cfg)
+    checkpoint (a training checkpoint or a saved ``state_dict``), else
+    initialised by a generator seeded with ``seed``."""
+    model = build_offset_regression(
+        cfg, generator=torch.Generator().manual_seed(seed))
     if checkpoint:
-        model.load_state_dict(torch.load(checkpoint, map_location="cpu"))
+        model.load_state_dict(load_model_state(checkpoint))
     return model.to(device).eval()
 
 

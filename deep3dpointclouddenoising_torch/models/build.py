@@ -6,6 +6,8 @@ encoder -> U-Net offset head, on padded ``(xyz, mask, features)`` batches.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -18,9 +20,12 @@ OFFSET_REG_DIM = 3
 
 
 class OffsetRegressionModel(nn.Module):
-    """U-Net offset regressor: per-point (B, N, 3) displacement."""
+    """U-Net offset regressor: per-point (B, N, 3) displacement.  The
+    initialisers draw from ``generator`` (the global generator when it is
+    ``None``)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.backbone != "resnet":
             raise NotImplementedError(
@@ -33,8 +38,8 @@ class OffsetRegressionModel(nn.Module):
                 f"compute_dtype {cfg.compute_dtype} is not ported yet "
                 "(ROADMAP.md)")
         self.cfg = cfg
-        self.ResNetEncoder_0 = ResNetEncoder(cfg)
-        self.MultiDimHead_0 = MultiDimHead(OFFSET_REG_DIM, cfg)
+        self.ResNetEncoder_0 = ResNetEncoder(cfg, generator)
+        self.MultiDimHead_0 = MultiDimHead(OFFSET_REG_DIM, cfg, generator)
 
     def make_pyramid(self, xyz: torch.Tensor, mask: torch.Tensor
                      ) -> Pyramid:
@@ -52,7 +57,9 @@ class OffsetRegressionModel(nn.Module):
         return self.MultiDimHead_0(pyramid, feats)
 
 
-def build_offset_regression(cfg: Config) -> OffsetRegressionModel:
-    """The offset-regression model (the loss comes with the training
-    slice)."""
-    return OffsetRegressionModel(cfg)
+def build_offset_regression(cfg: Config,
+                            generator: Optional[torch.Generator] = None
+                            ) -> OffsetRegressionModel:
+    """The offset-regression model; its loss is
+    ``losses.build.get_offset_regression_loss(cfg.loss)``."""
+    return OffsetRegressionModel(cfg, generator)

@@ -5,10 +5,17 @@ convolution is a ``Linear`` over the trailing channel axis; BatchNorm takes
 its statistics over (batch, points) per channel.  Submodule names follow the
 Flax parameter tree (``Dense_0``, ``BatchNorm_0``) so that ``convert.py``
 maps names one to one.
+
+Initialisers draw from the ``torch.Generator`` they are given (the global
+one when it is ``None``).  A ``Linear`` draws torch's default
+initialisation from it first, as ``nn.Linear`` does from the global one, so
+a generator seeded with ``s`` gives the weights that ``torch.manual_seed(s)``
+gave before initialisers took a generator.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -20,33 +27,72 @@ import torch.nn.functional as F
 _TRUNC_STD = 0.87962566103423978
 
 
-def he_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+def he_normal_(weight: torch.Tensor, fan_in: int,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
-    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+def linear(in_features: int, out_features: int, bias: bool,
+           generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """``nn.Linear`` with its default initialisation drawn from
+    ``generator`` (``nn.Linear.reset_parameters``'s draws, in its order)."""
+    layer = nn.utils.skip_init(nn.Linear, in_features, out_features,
+                               bias=bias)
+    nn.init.kaiming_uniform_(layer.weight, a=math.sqrt(5),
+                             generator=generator)
+    if bias:
+        bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 0.0
+        nn.init.uniform_(layer.bias, -bound, bound, generator=generator)
+    return layer
 
 
 class ChannelsLastBatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last axis of a (..., C) tensor, eps 1e-5.
+    """BatchNorm over the last axis of a (..., C) tensor, eps 1e-5, with
+    Flax's statistics.
 
     ``momentum`` is torch's (the weight of the new batch statistic), which
-    is one minus Flax's."""
+    is one minus Flax's.  In train mode the input is normalised with the
+    biased variance over all leading slots (padding included), and the
+    running variance is updated with that same biased variance, as Flax
+    does.  ``F.batch_norm`` stores the unbiased one, ``n / (n - 1)`` times
+    the biased, so its running variance is corrected in place from the
+    value before the step: one pass over the input, not two."""
 
     def __init__(self, channels: int, momentum: float = 0.1):
         super().__init__(channels, eps=1e-5, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+        x = x.reshape(-1, shape[-1])
+        if self.training:
+            n = x.shape[0]
+            old_var = self.running_var.clone()
+            out = F.batch_norm(x, self.running_mean, self.running_var,
+                               self.weight, self.bias, True, self.momentum,
+                               self.eps)
+            # r = (1 - m) r_old + m v n/(n-1)  ->  (1 - m) r_old + m v;
+            # through .data, since autograd saved running_var at its
+            # version after the update (train-mode backward never reads it)
+            self.running_var.data.mul_((n - 1) / n).add_(
+                old_var, alpha=(1.0 - self.momentum) / n)
+            self.num_batches_tracked.add_(1)
+        else:
+            out = F.batch_norm(x, self.running_mean, self.running_var,
+                               self.weight, self.bias, False, 0.0, self.eps)
+        return out.reshape(shape)
 
 
 class ConvBN(nn.Module):
     """1x1 conv (Linear, no bias) + BatchNorm, optional ReLU."""
 
     def __init__(self, in_features: int, features: int,
-                 bn_momentum: float = 0.1, relu: bool = True):
+                 bn_momentum: float = 0.1, relu: bool = True,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_features, features, bias=False)
-        he_normal_(self.Dense_0.weight, in_features)
+        self.Dense_0 = linear(in_features, features, False, generator)
+        he_normal_(self.Dense_0.weight, in_features, generator)
         self.BatchNorm_0 = ChannelsLastBatchNorm(features, bn_momentum)
         self.relu = relu
 

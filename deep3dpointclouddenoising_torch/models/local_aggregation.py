@@ -8,6 +8,7 @@ the card is the CUDA kernel at every level, with no size threshold.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -33,7 +34,7 @@ class PseudoGrid(nn.Module):
     summed over neighbours and kernel points."""
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
-                 cfg: Config):
+                 cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         pg = cfg.pseudo_grid
         if pg.KP_influence not in ("constant", "linear", "gaussian"):
@@ -52,11 +53,11 @@ class PseudoGrid(nn.Module):
         std = math.sqrt(2.0 / in_channels)
         self.kernel_weights = nn.Parameter(nn.init.trunc_normal_(
             torch.empty(int(pg.num_kernel_points), in_channels), std=std,
-            a=-2 * std, b=2 * std))
+            a=-2 * std, b=2 * std, generator=generator))
         if pg.output_conv or in_channels != out_channels:
             self.post = "ConvBN_0"
             self.ConvBN_0 = ConvBN(in_channels, out_channels,
-                                   cfg.bn_momentum)
+                                   cfg.bn_momentum, generator=generator)
         else:
             self.post = "BNReLU_0"
             self.BNReLU_0 = BNReLU(out_channels, cfg.bn_momentum)
@@ -74,7 +75,7 @@ class LocalAggregation(nn.Module):
     """Dispatch over aggregation operators."""
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
-                 cfg: Config):
+                 cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         kind = cfg.local_aggregation_type
         if kind != "pseudo_grid":
@@ -82,7 +83,7 @@ class LocalAggregation(nn.Module):
                 f"LocalAggregation {kind} is not ported yet; the port's "
                 "queue is in ROADMAP.md")
         self.PseudoGrid_0 = PseudoGrid(in_channels, out_channels, radius,
-                                       cfg)
+                                       cfg, generator)
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:

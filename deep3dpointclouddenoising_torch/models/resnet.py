@@ -6,7 +6,7 @@ Blocks are named ``Bottleneck_N`` in creation order, as in the Flax tree.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -33,17 +33,21 @@ class Bottleneck(nn.Module):
     identity path to the coarse level."""
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
-                 cfg: Config, strided: bool = False):
+                 cfg: Config, strided: bool = False,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         mid = out_channels // int(cfg.bottleneck_ratio)
         self.strided = strided
-        self.ConvBN_0 = ConvBN(in_channels, mid, cfg.bn_momentum)
-        self.LocalAggregation_0 = LocalAggregation(mid, mid, radius, cfg)
+        self.ConvBN_0 = ConvBN(in_channels, mid, cfg.bn_momentum,
+                               generator=generator)
+        self.LocalAggregation_0 = LocalAggregation(mid, mid, radius, cfg,
+                                                   generator)
         self.ConvBN_1 = ConvBN(mid, out_channels, cfg.bn_momentum,
-                               relu=False)
+                               relu=False, generator=generator)
         if in_channels != out_channels:
             self.ConvBN_2 = ConvBN(in_channels, out_channels,
-                                   cfg.bn_momentum, relu=False)
+                                   cfg.bn_momentum, relu=False,
+                                   generator=generator)
 
     def forward(self, features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
@@ -60,23 +64,27 @@ class Bottleneck(nn.Module):
 class ResNetEncoder(nn.Module):
     """Five-resolution encoder emitting the res1..res5 feature pyramid."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         width, depth = int(cfg.width), int(cfg.depth)
         r0 = float(cfg.radius)
         in_dim = int(cfg.input_features_dim)
         self.depth = depth
-        self.ConvBN_0 = ConvBN(in_dim, width // 2, cfg.bn_momentum)
+        self.ConvBN_0 = ConvBN(in_dim, width // 2, cfg.bn_momentum,
+                               generator=generator)
         self.LocalAggregation_0 = LocalAggregation(width // 2, width // 2,
-                                                   r0, cfg)
-        blocks = [Bottleneck(width // 2, width, r0, cfg)]
+                                                   r0, cfg, generator)
+        blocks = [Bottleneck(width // 2, width, r0, cfg,
+                             generator=generator)]
         ch = width
         for i in range(1, len(cfg.npoints) + 1):
             blocks.append(Bottleneck(ch, ch * 2, r0 * (2.0 ** (i - 1)), cfg,
-                                     strided=True))
+                                     strided=True, generator=generator))
             ch *= 2
             for _ in range(depth - 1):
-                blocks.append(Bottleneck(ch, ch, r0 * (2.0 ** i), cfg))
+                blocks.append(Bottleneck(ch, ch, r0 * (2.0 ** i), cfg,
+                                         generator=generator))
         self.num_blocks = len(blocks)
         for n, block in enumerate(blocks):
             self.add_module(f"Bottleneck_{n}", block)

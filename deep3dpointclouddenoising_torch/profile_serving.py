@@ -9,6 +9,8 @@ Prints, for ``cfgs/l1.yaml`` (width 144, B=16, N=500, seeded weights):
   the busy share of the wall time, and device time by kernel;
 * the KPConv kernel's device time at each of its ten calls, and the host
   time one wrapper call takes to enqueue it;
+* the same for a window of train steps (forward, masked L1, backward,
+  clip and Adam), with the backward kernel's device time per call;
 * the same busy share over a window of the voting loop on two synthetic
   shapes (icosphere and torus, 140000 points each).
 
@@ -32,18 +34,23 @@ from .data.meshio import save_off
 from .data.synthetic import make_icosphere, make_torus
 from .models.build import build_offset_regression
 from .ops.kpconv import kpconv_aggregate
+from .train.trainer import Trainer
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "cfgs", "l1.yaml")
 
 
 def _device_events(prof):
-    """(name, device microseconds) of every kernel the profiler saw."""
+    """(name, device microseconds) of every kernel the profiler saw; the
+    ranges that annotate the device timeline (``Optimizer.step#Adam.step``)
+    are not kernels and are left out."""
     out = []
     for e in prof.events():
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
+        if getattr(e, "is_user_annotation", False):
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             out.append((e.name, us))
     return out
@@ -67,6 +74,35 @@ def _summary(label: str, prof, wall_s: float, steps: int) -> None:
               f"{name[:90]}")
 
 
+def _per_call(prof, kernel: str, steps: int, calls: int = 10) -> None:
+    us = [u for name, u in _device_events(prof) if kernel in name]
+    if len(us) >= calls * steps:
+        per_call = np.asarray(us[:calls * steps]).reshape(steps, calls)
+        print(f"{kernel} device us per call, in launch order: "
+              + " ".join(f"{u:.1f}" for u in per_call.mean(axis=0))
+              + f" (sum {per_call.sum(axis=1).mean() / 1e3:.4f} ms)")
+
+
+def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
+    """A profiler window over ``steps`` train steps on one batch: wall and
+    device time per step, the busy share, device time by kernel, and the
+    KPConv kernels' device time per call."""
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _summary("train step under the profiler", prof, wall, steps)
+    _per_call(prof, "kpconv_fwd_kernel", steps)
+    _per_call(prof, "kpconv_bwd_kernel", steps)
+    _per_call(prof, "kpconv_bwd_reduce", steps)
+
+
 def _batch(cfg, device, seed: int = 1):
     rng = np.random.default_rng(seed)
     B, N = int(cfg.batch_size), int(cfg.num_points)
@@ -85,8 +121,8 @@ def main() -> None:
                          text=True, check=True).stdout.strip())
     device = torch.device("cuda", 0)
     cfg = load_config(CONFIG)
-    torch.manual_seed(0)
-    model = build_offset_regression(cfg).to(device).eval()
+    model = build_offset_regression(
+        cfg, generator=torch.Generator().manual_seed(0)).to(device).eval()
     xyz, mask = _batch(cfg, device)
     with torch.inference_mode():
         for _ in range(3):
@@ -109,13 +145,7 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         _summary("forward under the profiler", prof, wall, steps)
-        kp = [us for name, us in _device_events(prof)
-              if "kpconv_fwd_kernel" in name]
-        if kp:
-            per_call = np.asarray(kp[:10 * steps]).reshape(steps, 10)
-            print("kpconv_fwd device us per call, in forward order: "
-                  + " ".join(f"{u:.1f}" for u in per_call.mean(axis=0))
-                  + f" (sum {per_call.sum(axis=1).mean() / 1e3:.4f} ms)")
+        _per_call(prof, "kpconv_fwd_kernel", steps)
 
         # host-side cost of one wrapper call, from the stem's inputs
         pyr = model.make_pyramid(xyz, mask)
@@ -136,6 +166,11 @@ def main() -> None:
         torch.cuda.synchronize()
         print(f"kpconv_aggregate stem call: {host_us:.1f} us of host time "
               f"per call (enqueue only)")
+
+    trainer = Trainer(cfg, 1, torch.Generator().manual_seed(0), device)
+    profile_train_steps(trainer, {"points": xyz, "mask": mask,
+                                  "features": xyz,
+                                  "offsets": 0.01 * torch.randn_like(xyz)})
 
     with tempfile.TemporaryDirectory() as workdir:
         root = os.path.join(workdir, "qualitative_test")

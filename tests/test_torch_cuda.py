@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
 
 These tests import no JAX, so they run on a machine with a card and no JAX:
 
@@ -6,7 +6,13 @@ These tests import no JAX, so they run on a machine with a card and no JAX:
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up).  Without a
 card they skip.  Tolerances: the aggregation rtol 2e-4 / atol 2e-5, the
-whole model rtol 5e-4 / atol 5e-5, as in the CPU tests against JAX.
+whole model rtol 5e-4 / atol 5e-5, as in the CPU tests against JAX; the
+backward rtol 3e-4 (the JAX package's gradient tolerance) with an atol of
+1e-5 of the largest gradient, since d_kernel_weights sums up to
+B*M*K = 416,000 terms in another order than the plain einsum and
+d_features is added by atomics in an order that changes from run to run;
+whole-model gradients per tensor within three times their own float32
+noise, with a floor (utils/grad_check.py says why).
 """
 import os
 
@@ -18,6 +24,7 @@ from deep3dpointclouddenoising_torch.config import load_config
 from deep3dpointclouddenoising_torch.models import OffsetRegressionModel
 from deep3dpointclouddenoising_torch.models import local_aggregation
 from deep3dpointclouddenoising_torch.ops import kpconv as tkp
+from deep3dpointclouddenoising_torch.utils import grad_check
 
 L1_YAML = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "cfgs", "l1.yaml")
@@ -69,8 +76,42 @@ def test_kpconv_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         tkp.kpconv_aggregate(arrays[0].transpose(1, 2).contiguous()
                              .transpose(1, 2), *arrays[1:], 0.1)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tkp.kpconv_aggregate(arrays[0].requires_grad_(), *arrays[1:], 0.1)
+    g = torch.ones(2, 9, 8, device=card, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        tkp.kpconv_aggregate_backward(*arrays, g, 0.1)
+
+
+def _assert_grad_close(got, want, rtol, atol_frac):
+    torch.testing.assert_close(
+        got, want, rtol=rtol, atol=atol_frac * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
+@pytest.mark.parametrize("M,N,K,C", [(131, 60, 7, 12), (500, 500, 52, 72),
+                                     (3, 15, 26, 1152)])
+def test_kpconv_backward_kernel_matches_plain(card, influence, M, N, K, C):
+    rng = np.random.default_rng(5)
+    arrays = [a.to(card) for a in _inputs(rng, 16, M, N, K, C)]
+    g = torch.from_numpy(rng.normal(size=(16, M, C)).astype(
+        np.float32)).to(card)
+    before = tkp.kpconv_aggregate_backward.launches
+    got = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence)
+    want = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence)
+    torch.cuda.synchronize()
+    assert tkp.kpconv_aggregate_backward.launches == before + 1
+    for a, b in zip(got, want):
+        _assert_grad_close(a, b, 3e-4, 1e-5)
+    # only what is asked for, and the autograd function routes to it
+    d_feat, d_kw = tkp.kpconv_aggregate_backward(
+        *arrays, g, 0.12, influence, need_features=False)
+    assert d_feat is None
+    _assert_grad_close(d_kw, want[1], 3e-4, 1e-5)
+    feat = arrays[0].clone().requires_grad_()
+    out = tkp.kpconv_aggregate(feat, *arrays[1:], 0.12, influence)
+    out.backward(g)
+    assert tkp.kpconv_aggregate_backward.launches == before + 3
+    _assert_grad_close(feat.grad, want[0], 3e-4, 1e-5)
 
 
 @pytest.mark.cuda
@@ -93,3 +134,56 @@ def test_l1_model_kernel_matches_plain(card, monkeypatch):
                             tkp.kpconv_aggregate_plain)
         want = model.MultiDimHead_0(pyr, model.ResNetEncoder_0(pyr, xyz))
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-5)
+
+
+def _l1_model_gradients(card):
+    """grad_check's gradients of the l1.yaml model in train mode on one
+    B=4 batch of points in a ball of radius 0.05."""
+    cfg = load_config(L1_YAML)
+    model = OffsetRegressionModel(
+        cfg, generator=torch.Generator().manual_seed(0)).to(card).train()
+    rng = np.random.default_rng(6)
+    xyz = rng.normal(size=(4, 500, 3))
+    xyz = 0.05 * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True) \
+        * rng.random((4, 500, 1))
+    xyz = torch.from_numpy(xyz.astype(np.float32)).to(card)
+    mask = torch.ones(4, 500, device=card)
+    mask[-1, -40:] = 0.0
+    target = torch.from_numpy(rng.normal(size=(4, 500, 3)).astype(
+        np.float32) * 0.01).to(card)
+    pyr = model.make_pyramid(xyz, mask)
+    return grad_check.model_gradients(model, pyr, xyz, target, mask)
+
+
+@pytest.mark.cuda
+def test_l1_model_gradients_kernel_match_plain(card):
+    """Train-mode gradients of every parameter under the masked L1 loss on
+    one batch and one pyramid: through the backward kernel against the
+    plain backward on the same forward graph, and the kernel path against
+    the plain path, each tensor within three times its own float32 noise
+    (utils/grad_check.py)."""
+    grads = _l1_model_gradients(card)
+    assert grads["launches"] == (10, 10)
+    torch.testing.assert_close(grads["loss"], grads["plain_loss"],
+                               rtol=1e-5, atol=0)
+    assert len(grad_check.check_model_gradients(grads)) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1])   # d_features, d_kernel_weights
+def test_grad_check_catches_a_scaled_backward(card, monkeypatch, which):
+    """The whole-model check fails when every backward call returns one of
+    its two gradients 10% too large."""
+    backward = tkp.kpconv_aggregate_backward
+
+    def scaled(*args, **kwargs):
+        grads = list(backward(*args, **kwargs))
+        if grads[which] is not None:
+            grads[which] = grads[which] * 1.1
+        return tuple(grads)
+
+    scaled.launches = 0
+    monkeypatch.setattr(tkp, "kpconv_aggregate_backward", scaled)
+    grads = _l1_model_gradients(card)
+    with pytest.raises(AssertionError, match="gradient of"):
+        grad_check.check_model_gradients(grads)

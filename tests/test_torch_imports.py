@@ -35,7 +35,11 @@ def test_port_has_every_module_of_the_slice():
                  "models.local_aggregation", "models.resnet",
                  "models.heads", "models.build", "utils.spatial",
                  "data.meshio", "data.synthetic", "data.offset_dataset",
-                 "data.loader"):
+                 "data.loader", "data.transforms", "losses.masked",
+                 "losses.build", "train.lr_schedule", "train.trainer",
+                 "train.__main__", "utils.metrics", "utils.checkpoint",
+                 "utils.grad_check",
+                 "profile_serving"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
