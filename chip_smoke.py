@@ -14,10 +14,15 @@ phases, each printed with its wall time:
 3. kernel vs plain: the KPConv kernel against its plain PyTorch version at
    the ten shapes of one flagship forward (``cfgs/l1.yaml``, B=16), with
    masked slots, a padded query row and M not a multiple of the tile;
-   rtol 2e-4 / atol 2e-5; times with CUDA events beside the bound;
+   rtol 2e-4 / atol 2e-5; the wrapper's time (CUDA events) and the
+   kernel's device time per call (torch.profiler) beside the bound;
 4. whole model: ``cfgs/l1.yaml`` at width 144, depth 2, B=16, N=500, with
    seeded weights whose final Dense and BatchNorm running stats are O(1),
-   kernel path against plain path on one pyramid, rtol 5e-4 / atol 5e-5;
+   kernel path against plain path on one pyramid, each output element
+   within the larger of rtol 5e-4 / atol 5e-5 and three times its own
+   float32 noise (the plain path against the plain path in float64;
+   ``utils/grad_check.check_forward``), the element nearest its limit
+   printed;
 5. serving (the inference path): an icosphere and a torus as a
    ``qualitative_test`` split, denoised by the inference entry point at
    full width; every output finite and the kernel launched 10 times per
@@ -25,7 +30,9 @@ phases, each printed with its wall time:
 6. backward kernel vs plain: the KPConv backward kernel against its plain
    version at the ten flagship shapes (and every influence at the stem
    shape), d_features and d_kernel_weights at rtol 3e-4 and an atol of
-   1e-5 of the largest gradient; times beside the bound;
+   1e-5 of the largest gradient, for the training path's variant and for
+   the variant that also returns d_rel (held the same way); times beside
+   the bound;
 7. whole-model gradients: l1.yaml at width 144, B=16, one batch in train
    mode under the masked L1 loss; every parameter's gradient through the
    backward kernel against the plain backward on the same forward graph,
@@ -43,9 +50,15 @@ phases, each printed with its wall time:
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a card.
+
+``python3 chip_smoke.py --only-kernels`` runs phases 1-3 and prints the
+forward kernel's JSON record: copied into another checkout, it measures
+that checkout's kernel the same way, for comparing two versions in one
+call.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -56,6 +69,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from deep3dpointclouddenoising_torch import infer
 from deep3dpointclouddenoising_torch.config import load_config
@@ -82,6 +96,9 @@ CONFIG = os.path.join(ROOT, "cfgs", "l1.yaml")
 # and float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+# dense TF32 tensor-core FLOP/s (same sheet); 3xTF32 spends three of them
+# on each float32 multiply-add of the neighbour contraction
+PEAK_TF32_FLOP_S = 495e12
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=5e-4, atol=5e-5)
 # backward: the JAX package's gradient rtol; the atol is a fraction of the
@@ -158,6 +175,40 @@ def kpconv_bound(B, M, N, K, C, P):
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
 
 
+def kpconv_bound_3xtf32(B, M, N, K, C, P):
+    """kpconv_bound with the neighbour contraction (2 per (b, m, k, p, c))
+    on the tensor cores as 3xTF32, three TF32 operations for each, and the
+    influence weights and the kernel-point sum on the float32 units."""
+    t_bytes, _ = kpconv_bound(B, M, N, K, C, P)
+    t_ops = (3 * 2 * B * M * K * P * C / PEAK_TF32_FLOP_S
+             + (12 * B * M * K * P + 2 * B * M * P * C) / PEAK_F32_FLOP_S)
+    return t_bytes, t_ops * 1e3
+
+
+def device_us(fn, kernel: str, iters: int) -> float:
+    """Device microseconds per call of the CUDA kernels whose name holds
+    ``kernel``, from torch.profiler over ``iters`` calls of ``fn``: for each
+    such kernel the mean over the launches the profiler recorded, summed
+    over the kernels.  The profiler does not always record every launch of
+    a window (on the H100 machine it once kept 21 of 50), so the mean is
+    over those it kept; raises when it kept none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if kernel in e.name \
+                and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                getattr(e, "device_time_total", 0.0))
+    if not by_name:
+        raise AssertionError(f"the profiler saw no {kernel} kernel")
+    return sum(sum(us) / len(us) for us in by_name.values())
+
+
 def kpconv_inputs(rng, B, M, N, K, C, P, radius, device):
     """Random aggregation inputs: neighbours inside the ball, about 30%
     masked slots, and the last query row padded as the model pads it (all
@@ -187,10 +238,12 @@ def phase_kernels(cfg, device):
             for name, M, N, K, C, mult in FLAGSHIP_CALLS]
     rows += [("stem LA", 500, 500, 52, 72, 1, infl)
              for infl in ("gaussian", "constant")]
-    worst_abs, ms_sum, plain_sum, bound_sum = 0.0, 0.0, 0.0, 0.0
-    bytes_sum, ops_sum = 0.0, 0.0
-    print("call M N K C influence | max_abs max_rel | kernel_ms plain_ms "
-          "bound_ms bound_by")
+    worst_abs = 0.0
+    sums = dict(ms=0.0, device_us=0.0, plain_ms=0.0, bound_ms=0.0,
+                bytes=0.0, ops=0.0, bound_3xtf32=0.0)
+    per_call = {}
+    print("call M N K C influence | max_abs max_rel | kernel_ms device_us "
+          "plain_ms bound_ms bound_by bound_3xtf32_ms")
     for name, M, N, K, C, mult, infl in rows:
         args, extent = kpconv_inputs(rng, B, M, N, K, C, P, r0 * mult,
                                      device)
@@ -201,34 +254,47 @@ def phase_kernels(cfg, device):
             max_abs, max_rel = check_close(
                 got, want, what=f"kpconv {name} {infl}", **KERNEL_TOL)
             ms = cuda_ms(lambda: kpconv_aggregate(*args, extent, infl), 200)
+            dev_us = device_us(
+                lambda: kpconv_aggregate(*args, extent, infl),
+                "kpconv_fwd_kernel", 50)
             plain_ms = cuda_ms(
                 lambda: kpconv_aggregate_plain(*args, extent, infl), 20)
         t_bytes, t_ops = kpconv_bound(B, M, N, K, C, P)
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_tc = max(kpconv_bound_3xtf32(B, M, N, K, C, P))
         worst_abs = max(worst_abs, max_abs)
         if infl == "linear":
-            ms_sum += ms
-            plain_sum += plain_ms
-            bound_sum += bound_ms
-            bytes_sum += t_bytes
-            ops_sum += t_ops
+            per_call[name] = dev_us
+            for key, v in (("ms", ms), ("device_us", dev_us),
+                           ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                           ("bytes", t_bytes), ("ops", t_ops),
+                           ("bound_3xtf32", bound_tc)):
+                sums[key] += v
         print(f"{name} {M} {N} {K} {C} {infl} | {max_abs:.3e} "
-              f"{max_rel:.3e} | {ms:.5f} {plain_ms:.5f} {bound_ms:.5f} "
-              f"{bound_by}", flush=True)
-    print(f"ten flagship calls (linear), per forward: kernel {ms_sum:.5f} "
-          f"ms, plain {plain_sum:.5f} ms, bound {bound_sum:.5f} ms")
+              f"{max_rel:.3e} | {ms:.5f} {dev_us:.2f} {plain_ms:.5f} "
+              f"{bound_ms:.5f} {bound_by} {bound_tc:.5f}", flush=True)
+    print(f"ten flagship calls (linear), per forward: kernel {sums['ms']:.5f}"
+          f" ms, device {sums['device_us'] / 1e3:.5f} ms, plain "
+          f"{sums['plain_ms']:.5f} ms, bound {sums['bound_ms']:.5f} ms "
+          f"(3xTF32 rate: {sums['bound_3xtf32']:.5f} ms)")
     return {
         "name": "kpconv_fwd", "route": "cuda",
         "source": "deep3dpointclouddenoising_torch/csrc/kpconv_fwd.cu",
         "replaces": "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:142",
         "also_replaces":
             "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:98",
-        "max_abs_err": worst_abs, "ms": ms_sum, "plain_ms": plain_sum,
-        "bound_ms": bound_sum,
-        "bound_by": "bytes" if bytes_sum >= ops_sum else "operations",
+        "max_abs_err": worst_abs, "ms": sums["ms"],
+        "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+        "bound_by": "bytes" if sums["bytes"] >= sums["ops"]
+        else "operations",
         "library_ms": None,
-        "timed_at": "sum over the ten calls of one l1.yaml forward, B=16",
+        "device_ms": sums["device_us"] / 1e3,
+        "device_us_per_call": per_call,
+        "bound_ms_3xtf32": sums["bound_3xtf32"],
+        "timed_at": "sum over the ten calls of one l1.yaml forward, B=16; "
+                    "ms: CUDA events around back-to-back wrapper calls "
+                    "(host enqueue included); device_ms: torch.profiler",
         "cuda_kernels": ["kpconv_fwd_kernel"],
         "launches_are": "calls of the wrapper; each launches "
                         "kpconv_fwd_kernel once",
@@ -276,7 +342,8 @@ def patch_batch(cfg, seed: int):
 
 def phase_model(cfg, device):
     """Whole width-144 model, kernel path against plain path on one
-    pyramid."""
+    pyramid, each output element within the larger of MODEL_TOL and three
+    times its own float32 noise (``grad_check.check_forward``)."""
     model = seeded_model(cfg, device)
     batch = patch_batch(cfg, 1)
     xyz_t, mask_t = (torch.from_numpy(batch[k]).to(device)
@@ -284,27 +351,36 @@ def phase_model(cfg, device):
     with torch.inference_mode():
         pyramid = model.make_pyramid(xyz_t, mask_t)
 
-        def head(pyr):
-            return model.MultiDimHead_0(
-                pyr, model.ResNetEncoder_0(pyr, xyz_t))
+        def head(m, feats):
+            return m.MultiDimHead_0(pyramid, m.ResNetEncoder_0(pyramid,
+                                                               feats))
 
         kpconv_aggregate.launches = 0
-        got = head(pyramid)
+        got = head(model, xyz_t)
         torch.cuda.synchronize()
         if kpconv_aggregate.launches != 10:
             raise AssertionError(f"forward launched the kernel "
                                  f"{kpconv_aggregate.launches} times, not 10")
         # the plain path: the same modules with the plain version swapped
-        # in for the wrapper, on the same pyramid
+        # in for the wrapper, on the same pyramid; and the same in float64
         local_aggregation.kpconv_aggregate = kpconv_aggregate_plain
-        want = head(pyramid)
-        local_aggregation.kpconv_aggregate = kpconv_aggregate
-        max_abs, max_rel = check_close(got, want, what="whole model",
-                                       **MODEL_TOL)
+        try:
+            want = head(model, xyz_t)
+            want64 = head(copy.deepcopy(model).double(), xyz_t.double())
+        finally:
+            local_aggregation.kpconv_aggregate = kpconv_aggregate
+        worst = grad_check.check_forward(got, want, want64, **MODEL_TOL)
+        fixed = ((got - want).abs() - MODEL_TOL["rtol"] * want.abs()
+                 > MODEL_TOL["atol"]).sum().item()
+        noise = (want.double() - want64).abs().max().item()
         fwd_ms = cuda_ms(lambda: model(xyz_t, mask_t, xyz_t), 10)
     print(f"output {tuple(got.shape)}, |out| max {want.abs().max().item():.3f}"
-          f"; kernel vs plain: max abs {max_abs:.3e}, max rel {max_rel:.3e}"
-          f"; full forward (pyramid included) {fwd_ms:.3f} ms")
+          f"; kernel vs plain: max abs {worst['max_abs']:.3e}; nearest its "
+          f"limit: output {worst['index']} = {worst['plain']:.6g}, off by "
+          f"{worst['diff']:.3e} of limit {worst['limit']:.3e}; float32 "
+          f"noise (plain vs float64) up to {noise:.3e}; elements over rtol "
+          f"{MODEL_TOL['rtol']} / atol {MODEL_TOL['atol']} alone: {fixed}; "
+          f"full forward (pyramid included) {fwd_ms:.3f} ms")
 
 
 def phase_serving(cfg, device, workdir):
@@ -381,21 +457,37 @@ def phase_backward(cfg, device):
     rows += [("stem LA", 500, 500, 52, 72, 1, infl)
              for infl in ("gaussian", "constant")]
     worst_abs, ms_sum, plain_sum, bound_sum = 0.0, 0.0, 0.0, 0.0
-    bytes_sum, ops_sum = 0.0, 0.0
-    print("call M N K C influence | d_feat max_abs, d_kw max_abs | "
-          "kernel_ms plain_ms bound_ms bound_by")
+    bytes_sum, ops_sum, dev_sum = 0.0, 0.0, 0.0
+    print("call M N K C influence | d_feat, d_kw, d_rel max_abs | "
+          "kernel_ms device_us plain_ms bound_ms bound_by | with d_rel: "
+          "kernel_ms")
     for name, M, N, K, C, mult, infl in rows:
         args, extent = kpconv_inputs(rng, B, M, N, K, C, P, r0 * mult,
                                      device)
         g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(
             np.float32)).to(device)
+        # the training path's variant (no d_rel), then the one with d_rel
         got = kpconv_aggregate_backward(*args, g, extent, infl)
+        got_rel = kpconv_aggregate_backward(*args, g, extent, infl,
+                                            need_rel=True)
         torch.cuda.synchronize()
-        want = kpconv_aggregate_backward_plain(*args, g, extent, infl)
+        want = kpconv_aggregate_backward_plain(*args, g, extent, infl,
+                                               need_rel=True)
+        if got[2] is not None:
+            raise AssertionError("backward returned d_rel unasked")
         errs = [check_grad_close(a, b, f"backward {name} {infl} {what}")
                 for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
+        errs += [check_grad_close(a, b, f"backward {name} {infl} {what}, "
+                                  "d_rel variant")
+                 for a, b, what in zip(got_rel, want,
+                                       ("d_feat", "d_kw", "d_rel"))]
+        errs = [max(errs[0], errs[2]), max(errs[1], errs[3]), errs[4]]
         ms = cuda_ms(lambda: kpconv_aggregate_backward(*args, g, extent,
                                                        infl), 100)
+        dev_us = device_us(lambda: kpconv_aggregate_backward(
+            *args, g, extent, infl), "kpconv_bwd", 20)
+        rel_ms = cuda_ms(lambda: kpconv_aggregate_backward(
+            *args, g, extent, infl, need_rel=True), 20)
         plain_ms = cuda_ms(lambda: kpconv_aggregate_backward_plain(
             *args, g, extent, infl), 10)
         t_bytes, t_ops = kpconv_bwd_bound(B, M, N, K, C, P)
@@ -408,11 +500,15 @@ def phase_backward(cfg, device):
             bound_sum += bound_ms
             bytes_sum += t_bytes
             ops_sum += t_ops
+            dev_sum += dev_us
         print(f"{name} {M} {N} {K} {C} {infl} | {errs[0]:.3e} {errs[1]:.3e}"
-              f" (|d_kw| max {want[1].abs().max().item():.3e}) | {ms:.5f} "
-              f"{plain_ms:.5f} {bound_ms:.5f} {bound_by}", flush=True)
+              f" {errs[2]:.3e} (|d_kw| max {want[1].abs().max().item():.3e},"
+              f" |d_rel| max {want[2].abs().max().item():.3e}) | {ms:.5f} "
+              f"{dev_us:.2f} {plain_ms:.5f} {bound_ms:.5f} {bound_by} | "
+              f"{rel_ms:.5f}", flush=True)
     print(f"ten flagship calls (linear), per backward: kernel {ms_sum:.5f} "
-          f"ms, plain {plain_sum:.5f} ms, bound {bound_sum:.5f} ms")
+          f"ms, device {dev_sum / 1e3:.5f} ms, plain {plain_sum:.5f} ms, "
+          f"bound {bound_sum:.5f} ms")
     return {
         "name": "kpconv_bwd", "route": "cuda",
         "source": "deep3dpointclouddenoising_torch/csrc/kpconv_bwd.cu",
@@ -421,7 +517,9 @@ def phase_backward(cfg, device):
         "bound_ms": bound_sum,
         "bound_by": "bytes" if bytes_sum >= ops_sum else "operations",
         "library_ms": None,
-        "timed_at": "sum over the ten calls of one l1.yaml backward, B=16",
+        "device_ms": dev_sum / 1e3,
+        "timed_at": "sum over the ten calls of one l1.yaml backward, B=16; "
+                    "device_ms: torch.profiler, kernel and reduction",
         "cuda_kernels": ["kpconv_bwd_kernel", "kpconv_bwd_reduce"],
         "launches_are": "calls of the wrapper; on the training path each "
                         "launches kpconv_bwd_kernel and kpconv_bwd_reduce "
@@ -514,7 +612,11 @@ def phase_training(cfg, device, workdir):
     return fwd, bwd
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only-kernels"]):
+        print("usage: chip_smoke.py [--only-kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -540,6 +642,10 @@ def main() -> int:
                     print("  " + line.strip())
     with phase("kernel vs plain"):
         record = phase_kernels(cfg, device)
+    if argv:  # the forward kernel's phase alone, for comparing checkouts
+        print(smi)
+        print(json.dumps({"kernels": [record]}))
+        return 0
     with phase("whole model"):
         phase_model(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("serving"):

@@ -59,13 +59,17 @@ def _neighborhood(query_xyz, support_xyz, query_mask, support_mask,
     return Neighborhood(idx=idx, mask=msk, rel_xyz=rel, radius=radius)
 
 
-@torch.no_grad()
 def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
                   radius: float, sample_dl: float,
                   nsamples: List[int], npoints: List[int],
                   build_self: bool = True,
                   build_up: bool = True) -> Pyramid:
     """Build the geometry pyramid for one batch of padded clouds.
+
+    Indices, masks and subsampled positions carry no gradient (the JAX
+    package's ``stop_gradient``s); the relative positions do, so a loss
+    reaches ``xyz`` through the level-0 and first pool neighbourhoods, as
+    in JAX.
 
     Args:
       xyz: (B, N, 3); mask: (B, N) float {0,1}.

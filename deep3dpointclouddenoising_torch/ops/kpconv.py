@@ -8,8 +8,10 @@ function is
                              * kw[p,c] * feat[b, idx[b,m,k], c]
 
 :func:`kpconv_aggregate` is differentiable in ``features`` and
-``kernel_weights`` (the counterpart of the JAX ``custom_vjp``); ``idx``,
-``rel``, ``mask`` and ``kpoints`` are constants.  For CUDA tensors the
+``kernel_weights``, and in ``rel`` as the JAX package's oracle path is
+(its jnp reference differentiated by ``jax.grad``; the Pallas ``custom_vjp``
+returns zeros for ``rel``); ``idx``, ``mask`` and ``kpoints`` are
+constants.  For CUDA tensors the
 forward launches ``csrc/kpconv_fwd.cu`` and the backward
 ``csrc/kpconv_bwd.cu``; for CPU tensors both are the plain versions
 :func:`kpconv_aggregate_plain` and :func:`kpconv_aggregate_backward_plain`.
@@ -60,6 +62,28 @@ def _masked_weights(rel, mask, kpoints, extent: float, influence: str):
     return influence_weights(sq, extent, influence) * mask[..., None]
 
 
+def _weight_slopes(rel, mask, kpoints, extent: float, influence: str):
+    """``(dw, diff)``: ``diff`` (B, M, K, P, 3) = rel - kp and ``dw``
+    (B, M, K, P) with d w / d rel = dw * diff, w the masked influence.
+
+    Linear: -1 / (extent d) where 0 < d and the influence is not clamped,
+    else 0 (the where-guarded sqrt's subgradient at d = 0, as in JAX);
+    gaussian: -2 infl / gauss_denom; constant: 0."""
+    diff = rel[..., None, :] - kpoints[None, None, None, :, :]
+    sq = torch.sum(diff * diff, dim=-1)
+    if influence == "linear":
+        pos = sq > 0.0
+        d = torch.sqrt(torch.where(pos, sq, 1.0))
+        live = pos & (1.0 - d / extent > 0.0)
+        dw = torch.where(live, -1.0 / (extent * d), 0.0)
+    elif influence == "gaussian":
+        denom = gaussian_denominator(extent)
+        dw = -2.0 * torch.exp(-sq / denom) / denom
+    else:
+        dw = torch.zeros_like(sq)
+    return dw * mask[..., None], diff
+
+
 def kpconv_aggregate_reference(grouped: torch.Tensor, rel: torch.Tensor,
                                mask: torch.Tensor, kpoints: torch.Tensor,
                                kernel_weights: torch.Tensor, *,
@@ -88,22 +112,26 @@ def kpconv_aggregate_plain(features, idx, rel, mask, kpoints, kernel_weights,
 def kpconv_aggregate_backward_plain(
         features, idx, rel, mask, kpoints, kernel_weights, grad_out,
         extent: float, influence: str = "linear", need_features: bool = True,
-        need_kernel_weights: bool = True
-) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        need_kernel_weights: bool = True, need_rel: bool = False
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
     """The plain version of the backward kernel: ``(d_features,
-    d_kernel_weights)`` for the upstream gradient ``grad_out`` (B, M, C),
-    ``None`` for what is not needed.  The closed form of ``_vjp_bwd``'s jnp
-    path (``pallas_kpconv.py:545-572``):
+    d_kernel_weights, d_rel)`` for the upstream gradient ``grad_out``
+    (B, M, C), ``None`` for what is not needed.  The closed form of
+    ``_vjp_bwd``'s jnp path (``pallas_kpconv.py:545-572``):
 
     * ``wc = einsum(w, kw)``, ``d_feat`` = ``wc * g`` added back to the
       neighbours' support rows by ``index_add_`` over the flattened
       ``(B, M*K)`` indices;
-    * ``d_kw = einsum(w, grouped, g)``.
+    * ``d_kw = einsum(w, grouped, g)``;
+    * ``d_rel = sum_p dw * (rel - kp) * einsum(grouped, g, kw)``, the
+      gradient ``jax.grad`` takes through ``kpconv_aggregate_reference``
+      (``_weight_slopes`` gives ``dw``).
     """
     B, M, K = idx.shape
     N, C = features.shape[1:]
     w = _masked_weights(rel, mask, kpoints, extent, influence)
-    d_features = d_kw = None
+    d_features = d_kw = d_rel = None
     if need_features:
         wc = torch.einsum("bmkp,pc->bmkc", w, kernel_weights)
         d_grouped = (wc * grad_out[:, :, None, :]).reshape(B * M * K, C)
@@ -119,7 +147,13 @@ def kpconv_aggregate_backward_plain(
                               group_features(features, idx))
         d_kw = torch.einsum("bmpc,bmc->pc", per_kp, grad_out).to(
             kernel_weights.dtype)
-    return d_features, d_kw
+    if need_rel:
+        dw, diff = _weight_slopes(rel, mask, kpoints, extent, influence)
+        # h[b,m,k,p] = sum_c kw[p,c] g[b,m,c] feat[b, idx[b,m,k], c]
+        h = torch.einsum("bmkc,bmpc->bmkp", group_features(features, idx),
+                         grad_out[:, :, None, :] * kernel_weights)
+        d_rel = torch.einsum("bmkp,bmkpx->bmkx", dw * h, diff).to(rel.dtype)
+    return d_features, d_kw, d_rel
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -130,7 +164,7 @@ def _library(name: str) -> ctypes.CDLL:
         if name == "kpconv_fwd":
             fn.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
         else:
-            fn.argtypes = [vp] * 10 + [i] * 7 + [f, f, i, i, i, vp]
+            fn.argtypes = [vp] * 11 + [i] * 7 + [f, f, i, i, i, i, vp]
             lib.kpconv_bwd_num_slots.argtypes = [i, i]
             lib.kpconv_bwd_num_slots.restype = i
         fn.restype = i
@@ -199,23 +233,26 @@ def _forward_kernel(features, idx, rel, mask, kpoints, kernel_weights,
 def kpconv_aggregate_backward(
         features, idx, rel, mask, kpoints, kernel_weights, grad_out,
         extent: float, influence: str = "linear", need_features: bool = True,
-        need_kernel_weights: bool = True
-) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """``(d_features, d_kernel_weights)`` of the aggregation for the
-    upstream gradient ``grad_out`` (B, M, C); ``None`` for what is not
+        need_kernel_weights: bool = True, need_rel: bool = False
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """``(d_features, d_kernel_weights, d_rel)`` of the aggregation for
+    the upstream gradient ``grad_out`` (B, M, C); ``None`` for what is not
     needed.
 
     CUDA tensors go through ``csrc/kpconv_bwd.cu`` (one call launches the
     kernel and, for ``d_kernel_weights``, its fixed-order reduction;
     ``kpconv_aggregate_backward.launches`` counts calls that launch), CPU
     tensors through :func:`kpconv_aggregate_backward_plain`.  The kernel
-    adds ``d_features`` with float32 atomics, so it is not bitwise
-    reproducible from run to run.
+    adds ``d_features`` and ``d_rel`` with float32 atomics, so they are not
+    bitwise reproducible from run to run.  Asking for ``d_rel`` selects the
+    kernel's variant that computes it; without it the kernel is the one
+    training runs.
     """
     if features.device.type == "cpu":
         return kpconv_aggregate_backward_plain(
             features, idx, rel, mask, kpoints, kernel_weights, grad_out,
-            extent, influence, need_features, need_kernel_weights)
+            extent, influence, need_features, need_kernel_weights, need_rel)
     B, N, M, K, C, P = _check_cuda_inputs(features, idx, rel, mask, kpoints,
                                           kernel_weights, influence)
     dev = features.device
@@ -224,12 +261,13 @@ def kpconv_aggregate_backward(
     d_features = torch.zeros_like(features) if need_features else None
     d_kw = torch.empty((P, C), dtype=torch.float32, device=dev) \
         if need_kernel_weights else None
-    if not (need_features or need_kernel_weights):
-        return d_features, d_kw
+    d_rel = torch.zeros_like(rel) if need_rel else None
+    if not (need_features or need_kernel_weights or need_rel):
+        return d_features, d_kw, d_rel
     if B * M * C == 0:
         if d_kw is not None:
             d_kw.zero_()
-        return d_features, d_kw
+        return d_features, d_kw, d_rel
     lib = _library("kpconv_bwd")
     part = torch.empty((lib.kpconv_bwd_num_slots(B, M), P, C),
                        dtype=torch.float32, device=dev) \
@@ -238,15 +276,15 @@ def kpconv_aggregate_backward(
     rc = lib.kpconv_bwd(
         features.data_ptr(), idx.data_ptr(), rel.data_ptr(), mask.data_ptr(),
         kpoints.data_ptr(), kernel_weights.data_ptr(), grad_out.data_ptr(),
-        ptr(d_features), ptr(d_kw), ptr(part), B, N, M, K, C, P,
-        INFLUENCES[influence], float(extent),
+        ptr(d_features), ptr(d_kw), ptr(part), ptr(d_rel), B, N, M, K, C,
+        P, INFLUENCES[influence], float(extent),
         gaussian_denominator(float(extent)), int(need_features),
-        int(need_kernel_weights), dev.index or 0,
+        int(need_kernel_weights), int(need_rel), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kpconv_bwd kernel launch failed: CUDA error {rc}")
     kpconv_aggregate_backward.launches += 1
-    return d_features, d_kw
+    return d_features, d_kw, d_rel
 
 
 class _KPConvAggregate(torch.autograd.Function):
@@ -268,11 +306,11 @@ class _KPConvAggregate(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad_out):
         features, idx, rel, mask, kpoints, kernel_weights = ctx.saved_tensors
-        d_features, d_kw = kpconv_aggregate_backward(
+        d_features, d_kw, d_rel = kpconv_aggregate_backward(
             features, idx, rel, mask, kpoints, kernel_weights, grad_out,
             ctx.extent, ctx.influence, ctx.needs_input_grad[0],
-            ctx.needs_input_grad[5])
-        return d_features, None, None, None, None, d_kw, None, None
+            ctx.needs_input_grad[5], ctx.needs_input_grad[2])
+        return d_features, None, d_rel, None, None, d_kw, None, None
 
 
 def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
@@ -292,8 +330,8 @@ def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
       extent: influence extent.
       influence: 'linear' | 'gaussian' | 'constant'.
 
-    Returns (B, M, C) float32, differentiable in ``features`` and
-    ``kernel_weights``.  CUDA tensors go through the kernels
+    Returns (B, M, C) float32, differentiable in ``features``,
+    ``kernel_weights`` and ``rel``.  CUDA tensors go through the kernels
     (``kpconv_aggregate.launches`` counts the forward's launches), CPU
     tensors through the plain versions.
     """

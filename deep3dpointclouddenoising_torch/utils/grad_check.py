@@ -1,4 +1,14 @@
-"""Whole-model gradients through the KPConv kernels against the plain path.
+"""Whole-model outputs and gradients through the KPConv kernels against the
+plain path, each held to its own float32 noise.
+
+:func:`check_forward` holds a forward's output element by element to the
+larger of a fixed tolerance and ``NOISE_FACTOR`` times that element's own
+float32 noise (the plain float32 path against the plain float64 path on
+the same pyramid): outputs of thousands carry float32 rounding of ~1e-4
+of themselves through the network, so a fixed rtol alone fails on some
+weights for no fault of the kernel.
+
+The rest of this module does the same for gradients.
 
 Every parameter's train-mode gradient under the masked L1 loss, on one batch
 and one neighbour pyramid, four ways:
@@ -45,6 +55,34 @@ from ..ops import kpconv as kpconv_ops
 NOISE_FACTOR = 3.0
 SAME_GRAPH_FLOOR = 1e-5
 FULL_PATH_FLOOR = 2e-2
+
+
+def check_forward(got: torch.Tensor, plain: torch.Tensor,
+                  float64: torch.Tensor, rtol: float, atol: float) -> Dict:
+    """Hold ``got`` to the float32 plain output ``plain``, element by
+    element, within the larger of ``atol + rtol |plain|`` and
+    ``NOISE_FACTOR |plain - float64|``; raises AssertionError naming the
+    element furthest over its limit.  Returns the element nearest its
+    limit: ``index``, ``diff``, ``limit``, ``got``, ``plain`` and the
+    largest ``max_abs`` difference."""
+    if not torch.isfinite(got).all():
+        raise AssertionError("forward: non-finite output")
+    got, plain, ref = got.double(), plain.double(), float64.double()
+    diff = (got - plain).abs()
+    limit = torch.maximum(atol + rtol * plain.abs(),
+                          NOISE_FACTOR * (plain - ref).abs())
+    flat = int(torch.argmax(diff / limit))
+    index = tuple(int(i) for i in torch.unravel_index(
+        torch.tensor(flat), diff.shape))
+    worst = dict(index=index, diff=diff[index].item(),
+                 limit=limit[index].item(), got=got[index].item(),
+                 plain=plain[index].item(), max_abs=diff.max().item())
+    if worst["diff"] > worst["limit"]:
+        raise AssertionError(
+            f"forward: output {index} = {worst['got']:.7g} differs from "
+            f"plain {worst['plain']:.7g} by {worst['diff']:.3e} (limit "
+            f"{worst['limit']:.3e})")
+    return worst
 
 
 def max_abs_distance(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -5,8 +5,11 @@ These tests import no JAX, so they run on a machine with a card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up).  Without a
-card they skip.  Tolerances: the aggregation rtol 2e-4 / atol 2e-5, the
-whole model rtol 5e-4 / atol 5e-5, as in the CPU tests against JAX; the
+card they skip.  Tolerances: the aggregation rtol 2e-4 / atol 2e-5 (its
+d_rel as the other gradients below); the whole model, element by element,
+the larger of rtol 5e-4 / atol 5e-5 (as in the CPU tests against JAX) and
+three times the element's own float32 noise, the plain float32 path
+against the plain float64 path (grad_check.check_forward); the
 backward rtol 3e-4 (the JAX package's gradient tolerance) with an atol of
 1e-5 of the largest gradient, since d_kernel_weights sums up to
 B*M*K = 416,000 terms in another order than the plain einsum and
@@ -14,6 +17,7 @@ d_features is added by atomics in an order that changes from run to run;
 whole-model gradients per tensor within three times their own float32
 noise, with a floor (utils/grad_check.py says why).
 """
+import copy
 import os
 
 import numpy as np
@@ -97,29 +101,56 @@ def test_kpconv_backward_kernel_matches_plain(card, influence, M, N, K, C):
         np.float32)).to(card)
     before = tkp.kpconv_aggregate_backward.launches
     got = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence)
-    want = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence)
+    want = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence,
+                                               need_rel=True)
     torch.cuda.synchronize()
     assert tkp.kpconv_aggregate_backward.launches == before + 1
+    assert got[2] is None
+    for a, b in zip(got[:2], want):
+        _assert_grad_close(a, b, 3e-4, 1e-5)
+    # with d_rel (the kernel's DREL variant)
+    got = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence,
+                                        need_rel=True)
     for a, b in zip(got, want):
         _assert_grad_close(a, b, 3e-4, 1e-5)
     # only what is asked for, and the autograd function routes to it
-    d_feat, d_kw = tkp.kpconv_aggregate_backward(
+    d_feat, d_kw, d_rel = tkp.kpconv_aggregate_backward(
         *arrays, g, 0.12, influence, need_features=False)
-    assert d_feat is None
+    assert d_feat is None and d_rel is None
     _assert_grad_close(d_kw, want[1], 3e-4, 1e-5)
     feat = arrays[0].clone().requires_grad_()
-    out = tkp.kpconv_aggregate(feat, *arrays[1:], 0.12, influence)
+    rel = arrays[2].clone().requires_grad_()
+    out = tkp.kpconv_aggregate(feat, arrays[1], rel, *arrays[3:], 0.12,
+                               influence)
     out.backward(g)
-    assert tkp.kpconv_aggregate_backward.launches == before + 3
+    assert tkp.kpconv_aggregate_backward.launches == before + 4
     _assert_grad_close(feat.grad, want[0], 3e-4, 1e-5)
+    _assert_grad_close(rel.grad, want[2], 3e-4, 1e-5)
 
 
-@pytest.mark.cuda
-def test_l1_model_kernel_matches_plain(card, monkeypatch):
+def _l1_model_outputs(card, monkeypatch, aggregate=None):
+    """The l1.yaml model's eval output on one B=4 pyramid through the
+    kernel (or ``aggregate`` in its place), the plain path's and the plain
+    path's in float64, and the kernel's launches.  BatchNorm running stats
+    and the final Dense get O(1) values, as chip_smoke.py's seeded model
+    does: the head's 1e-4 init would leave outputs that atol 5e-5 hides."""
     cfg = load_config(L1_YAML)
     torch.manual_seed(0)
-    model = OffsetRegressionModel(cfg).to(card).eval()
+    model = OffsetRegressionModel(cfg).eval()
     rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.from_numpy(
+                    rng.normal(size=buf.shape).astype(np.float32) * 0.5))
+            elif name.endswith("running_var"):
+                buf.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 2.0, size=buf.shape).astype(np.float32)))
+        dense = model.MultiDimHead_0.Dense_0
+        for param in (dense.weight, dense.bias):
+            param.copy_(torch.from_numpy(
+                rng.normal(size=tuple(param.shape)).astype(np.float32)))
+    model = model.to(card)
     xyz = rng.normal(size=(4, 500, 3))
     xyz = 0.05 * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True) \
         * rng.random((4, 500, 1))
@@ -128,12 +159,72 @@ def test_l1_model_kernel_matches_plain(card, monkeypatch):
     with torch.no_grad():
         pyr = model.make_pyramid(xyz, mask)
         before = tkp.kpconv_aggregate.launches
+        if aggregate is not None:
+            monkeypatch.setattr(local_aggregation, "kpconv_aggregate",
+                                aggregate)
         got = model.MultiDimHead_0(pyr, model.ResNetEncoder_0(pyr, xyz))
-        assert tkp.kpconv_aggregate.launches == before + 10
+        launches = tkp.kpconv_aggregate.launches - before
         monkeypatch.setattr(local_aggregation, "kpconv_aggregate",
                             tkp.kpconv_aggregate_plain)
         want = model.MultiDimHead_0(pyr, model.ResNetEncoder_0(pyr, xyz))
-    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-5)
+        model64 = copy.deepcopy(model).double()
+        want64 = model64.MultiDimHead_0(
+            pyr, model64.ResNetEncoder_0(pyr, xyz.double()))
+    return got, want, want64, launches
+
+
+@pytest.mark.cuda
+def test_l1_model_kernel_matches_plain(card, monkeypatch):
+    """Each output element within the larger of rtol 5e-4 / atol 5e-5 and
+    three times its own float32 noise (grad_check.check_forward)."""
+    got, want, want64, launches = _l1_model_outputs(card, monkeypatch)
+    assert launches == 10
+    grad_check.check_forward(got, want, want64, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_forward_check_catches_one_scaled_aggregation(card, monkeypatch):
+    """The whole-model forward check fails when the stem's aggregation
+    returns its output 1e-3 too large."""
+    calls = []
+
+    def scaled(*args):
+        out = tkp.kpconv_aggregate(*args)
+        calls.append(1)
+        return out * (1.0 + 1e-3) if len(calls) == 1 else out
+
+    got, want, want64, _ = _l1_model_outputs(card, monkeypatch, scaled)
+    assert len(calls) == 10
+    with pytest.raises(AssertionError, match="forward: output"):
+        grad_check.check_forward(got, want, want64, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
+@pytest.mark.parametrize("case", [
+    # (B, M, N, K, C, P): ragged M, C off the tile and off 4, K = 1 and
+    # 65, P = 1 and 16, N = 1
+    (2, 1, 20, 9, 24, 15), (2, 9, 20, 9, 24, 15), (4, 31, 40, 12, 40, 15),
+    (2, 17, 30, 10, 8, 15), (2, 17, 30, 10, 72, 15),
+    (2, 5, 30, 10, 1160, 15), (2, 17, 30, 10, 13, 15),
+    (2, 17, 30, 10, 6, 15), (2, 17, 30, 1, 40, 15), (2, 17, 70, 65, 40, 15),
+    (2, 17, 30, 10, 40, 1), (2, 17, 30, 10, 40, 16), (2, 17, 1, 10, 40, 15),
+])
+def test_kpconv_kernel_edges_match_plain(card, influence, case):
+    """The forward kernel at the edges of its tiling, against plain at
+    rtol 2e-4 / atol 2e-5; the first query row of each cloud has its mask
+    all zero."""
+    B, M, N, K, C, P = case
+    rng = np.random.default_rng(7)
+    arrays = _inputs(rng, B, M, N, K, C, P)
+    arrays[3][:, 0] = 0.0
+    arrays = [a.to(card) for a in arrays]
+    with torch.no_grad():
+        got = tkp.kpconv_aggregate(*arrays, 0.12, influence)
+        want = tkp.kpconv_aggregate_plain(*arrays, 0.12, influence)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    assert got[:, 0].abs().max() == 0
 
 
 def _l1_model_gradients(card):
