@@ -31,8 +31,12 @@ phases, each printed with its wall time:
    version at the ten flagship shapes (and every influence at the stem
    shape), d_features and d_kernel_weights at rtol 3e-4 and an atol of
    1e-5 of the largest gradient, for the training path's variant and for
-   the variant that also returns d_rel (held the same way); times beside
-   the bound;
+   the variant that also returns d_rel (held the same way); the training
+   path's d_features and d_kernel_weights bitwise equal between two calls;
+   times beside the bound over the live edges (float32, and at the 3xTF32
+   rate); then the ten calls on a real pyramid's neighbourhoods (the
+   batch of phase 7), each held the same way, with its live edges and
+   in-degrees;
 7. whole-model gradients: l1.yaml at width 144, B=16, one batch in train
    mode under the masked L1 loss; every parameter's gradient through the
    backward kernel against the plain backward on the same forward graph,
@@ -51,9 +55,9 @@ The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a card.
 
-``python3 chip_smoke.py --only-kernels`` runs phases 1-3 and prints the
-forward kernel's JSON record: copied into another checkout, it measures
-that checkout's kernel the same way, for comparing two versions in one
+``python3 chip_smoke.py --only-kernels`` runs phases 1-3 and 6 and prints
+the two kernels' JSON records: copied into another checkout, it measures
+that checkout's kernels the same way, for comparing two versions in one
 call.
 """
 from __future__ import annotations
@@ -62,6 +66,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,7 +88,7 @@ from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
 from deep3dpointclouddenoising_torch.ops import _cuda
 from deep3dpointclouddenoising_torch.ops.kpconv import (
-    kpconv_aggregate, kpconv_aggregate_backward,
+    invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
 from deep3dpointclouddenoising_torch.profile_serving import \
     profile_train_steps
@@ -99,6 +104,8 @@ PEAK_F32_FLOP_S = 67e12
 # dense TF32 tensor-core FLOP/s (same sheet); 3xTF32 spends three of them
 # on each float32 multiply-add of the neighbour contraction
 PEAK_TF32_FLOP_S = 495e12
+# profiler windows device_us takes before it gives up on an empty one
+PROFILER_WINDOWS = 3
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=5e-4, atol=5e-5)
 # backward: the JAX package's gradient rtol; the atol is a fraction of the
@@ -185,28 +192,37 @@ def kpconv_bound_3xtf32(B, M, N, K, C, P):
     return t_bytes, t_ops * 1e3
 
 
-def device_us(fn, kernel: str, iters: int) -> float:
+def device_us(fn, kernel: str, iters: int, by_kernel: bool = False):
     """Device microseconds per call of the CUDA kernels whose name holds
-    ``kernel``, from torch.profiler over ``iters`` calls of ``fn``: for each
-    such kernel the mean over the launches the profiler recorded, summed
-    over the kernels.  The profiler does not always record every launch of
-    a window (on the H100 machine it once kept 21 of 50), so the mean is
-    over those it kept; raises when it kept none."""
+    ``kernel`` ("" for every kernel), from torch.profiler over ``iters``
+    calls of ``fn``: for each such kernel the mean over the launches the
+    profiler recorded, summed over the kernels (with ``by_kernel``, also
+    the means by kernel name).  The profiler does not always record every
+    launch of a window (on the H100 machine it once kept 21 of 50, and
+    now and then none), so the mean is over those it kept, and a window in
+    which it kept none is taken again, up to PROFILER_WINDOWS times;
+    raises when every window came back empty."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if kernel in e.name \
-                and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(
-                getattr(e, "device_time_total", 0.0))
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if kernel in e.name \
+                    and e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    getattr(e, "device_time_total", 0.0))
+        if by_name:
+            break
     if not by_name:
-        raise AssertionError(f"the profiler saw no {kernel} kernel")
-    return sum(sum(us) / len(us) for us in by_name.values())
+        raise AssertionError(f"the profiler saw no {kernel} kernel in "
+                             f"{PROFILER_WINDOWS} windows")
+    means = {name: sum(us) / len(us) for name, us in by_name.items()}
+    total = sum(means.values())
+    return (total, means) if by_kernel else total
 
 
 def kpconv_inputs(rng, B, M, N, K, C, P, radius, device):
@@ -421,19 +437,30 @@ def phase_serving(cfg, device, workdir):
     return launches
 
 
-def kpconv_bwd_bound(B, M, N, K, C, P):
-    """Least times (ms) for one backward call: features, indices, relative
-    positions, masks, kernel points and weights and the upstream gradient
-    read once, d_features and d_kernel_weights written once; operations:
-    12 per (b, m, k, p) for the influence weight, 2 per (b, m, k, p, c)
-    each for the weighted neighbour sum and for wc = sum_p w kw, 2 per
-    (b, m, k, c) for wc * g and its add into d_features, 2 per (b, m, p, c)
-    for d_kernel_weights."""
+def kpconv_bwd_bound(B, M, N, K, C, P, live):
+    """Least times (ms) for one backward call of the training path (d_features
+    and d_kernel_weights) with ``live`` live edges (mask != 0): features,
+    indices, relative positions, masks, kernel points and weights and the
+    upstream gradient read once, d_features and d_kernel_weights written
+    once; float32 operations as the function needs them, grouped by support
+    (H[b,n,p,c] = sum of w g over the edges that name n): 2 per (live edge,
+    p, c) for H, 12 per (live edge, p) for the influence weights, and 2 per
+    (b, n, p, c) for each of d_features = sum_p kw H and d_kernel_weights =
+    sum_{b,n} feat H.  A masked edge has weight 0 and costs nothing."""
     nbytes = 4 * (2 * B * N * C + B * M * K * 5 + P * 3 + 2 * P * C
                   + B * M * C)
-    flops = (12 * B * M * K * P + 4 * B * M * K * P * C + 2 * B * M * K * C
-             + 2 * B * M * P * C)
+    flops = 2 * live * P * C + 12 * live * P + 4 * B * N * P * C
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+
+
+def kpconv_bwd_bound_3xtf32(B, M, N, K, C, P, live):
+    """kpconv_bwd_bound with H's contraction on the tensor cores as 3xTF32,
+    three TF32 operations for each of its 2 per (live edge, p, c), and the
+    influence weights and both epilogues on the float32 units."""
+    t_bytes, _ = kpconv_bwd_bound(B, M, N, K, C, P, live)
+    t_ops = (3 * 2 * live * P * C / PEAK_TF32_FLOP_S
+             + (12 * live * P + 4 * B * N * P * C) / PEAK_F32_FLOP_S)
+    return t_bytes, t_ops * 1e3
 
 
 def check_grad_close(got, want, what: str):
@@ -445,10 +472,52 @@ def check_grad_close(got, want, what: str):
     return max_abs
 
 
+def check_reproducible(args, g, extent, infl, what: str):
+    """Two calls of the training path's backward give bitwise equal
+    d_features and d_kernel_weights."""
+    first = kpconv_aggregate_backward(*args, g, extent, infl)
+    second = kpconv_aggregate_backward(*args, g, extent, infl)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_feat", "d_kw"), first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"backward {what}: {name} differs between "
+                                 "two calls on the same inputs")
+
+
+def pyramid_calls(cfg, device):
+    """The ten aggregations' neighbourhoods of one flagship forward on a
+    real pyramid (``patch_batch(cfg, 3)`` through ``make_pyramid``):
+    (name, idx, rel, feature mask, radius multiple) each, the feature mask
+    all ones for padding queries as the model makes it."""
+    model = build_offset_regression(cfg, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    batch = patch_batch(cfg, 3)
+    xyz, mask = (torch.from_numpy(batch[k]).to(device)
+                 for k in ("points", "mask"))
+    with torch.no_grad():
+        pyr = model.make_pyramid(xyz, mask)
+    levels, trans = pyr.levels, pyr.transitions
+    nbrs = [(levels[0].self_nbr, levels[0].mask)] * 2
+    for i in range(1, len(levels)):
+        nbrs += [(trans[i - 1].pool_nbr, levels[i].mask),
+                 (levels[i].self_nbr, levels[i].mask)]
+    calls = []
+    for (name, M, N, K, C, mult), (nbr, qmask) in zip(FLAGSHIP_CALLS, nbrs):
+        if tuple(nbr.idx.shape) != (int(cfg.batch_size), M, K):
+            raise AssertionError(f"pyramid call {name}: idx "
+                                 f"{tuple(nbr.idx.shape)}, expected M={M}, "
+                                 f"K={K}")
+        fmask = (nbr.mask + (1.0 - qmask[:, :, None])).contiguous()
+        calls.append((name, M, N, K, C, mult, nbr.idx.contiguous(),
+                      nbr.rel_xyz.contiguous(), fmask))
+    return calls
+
+
 def phase_backward(cfg, device):
     """Backward kernel vs plain at the ten flagship shapes (and every
-    influence at the stem shape); returns its JSON record, less
-    launches."""
+    influence at the stem shape), bitwise reproducible at each; then the
+    ten calls on a real pyramid's neighbourhoods; returns its JSON record,
+    less launches."""
     rng = np.random.default_rng(2)
     B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
     r0 = float(cfg.radius)
@@ -456,11 +525,13 @@ def phase_backward(cfg, device):
             for name, M, N, K, C, mult in FLAGSHIP_CALLS]
     rows += [("stem LA", 500, 500, 52, 72, 1, infl)
              for infl in ("gaussian", "constant")]
-    worst_abs, ms_sum, plain_sum, bound_sum = 0.0, 0.0, 0.0, 0.0
-    bytes_sum, ops_sum, dev_sum = 0.0, 0.0, 0.0
+    worst_abs = 0.0
+    sums = dict(ms=0.0, device_us=0.0, plain_ms=0.0, bound_ms=0.0,
+                bytes=0.0, ops=0.0, bound_3xtf32=0.0)
+    per_call, per_kernel = {}, {}
     print("call M N K C influence | d_feat, d_kw, d_rel max_abs | "
-          "kernel_ms device_us plain_ms bound_ms bound_by | with d_rel: "
-          "kernel_ms")
+          "kernel_ms device_us plain_ms bound_ms bound_by "
+          "bound_3xtf32_ms | with d_rel: kernel_ms")
     for name, M, N, K, C, mult, infl in rows:
         args, extent = kpconv_inputs(rng, B, M, N, K, C, P, r0 * mult,
                                      device)
@@ -482,50 +553,109 @@ def phase_backward(cfg, device):
                  for a, b, what in zip(got_rel, want,
                                        ("d_feat", "d_kw", "d_rel"))]
         errs = [max(errs[0], errs[2]), max(errs[1], errs[3]), errs[4]]
-        ms = cuda_ms(lambda: kpconv_aggregate_backward(*args, g, extent,
-                                                       infl), 100)
-        dev_us = device_us(lambda: kpconv_aggregate_backward(
-            *args, g, extent, infl), "kpconv_bwd", 20)
+        check_reproducible(args, g, extent, infl, f"{name} {infl}")
+        call = lambda: kpconv_aggregate_backward(  # noqa: E731
+            *args, g, extent, infl)
+        ms = cuda_ms(call, 100)
+        dev_us, kernels = device_us(call, "kpconv_bwd", 20, by_kernel=True)
         rel_ms = cuda_ms(lambda: kpconv_aggregate_backward(
             *args, g, extent, infl, need_rel=True), 20)
         plain_ms = cuda_ms(lambda: kpconv_aggregate_backward_plain(
             *args, g, extent, infl), 10)
-        t_bytes, t_ops = kpconv_bwd_bound(B, M, N, K, C, P)
+        live = int((args[3] != 0).sum().item())
+        t_bytes, t_ops = kpconv_bwd_bound(B, M, N, K, C, P, live)
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_tc = max(kpconv_bwd_bound_3xtf32(B, M, N, K, C, P, live))
         worst_abs = max(worst_abs, *errs)
         if infl == "linear":
-            ms_sum += ms
-            plain_sum += plain_ms
-            bound_sum += bound_ms
-            bytes_sum += t_bytes
-            ops_sum += t_ops
-            dev_sum += dev_us
+            per_call[name] = dev_us
+            for kname, us in kernels.items():
+                short = re.search(r"kpconv_bwd_\w+", kname).group(0)
+                per_kernel[short] = per_kernel.get(short, 0.0) + us
+            for key, v in (("ms", ms), ("device_us", dev_us),
+                           ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                           ("bytes", t_bytes), ("ops", t_ops),
+                           ("bound_3xtf32", bound_tc)):
+                sums[key] += v
         print(f"{name} {M} {N} {K} {C} {infl} | {errs[0]:.3e} {errs[1]:.3e}"
               f" {errs[2]:.3e} (|d_kw| max {want[1].abs().max().item():.3e},"
               f" |d_rel| max {want[2].abs().max().item():.3e}) | {ms:.5f} "
-              f"{dev_us:.2f} {plain_ms:.5f} {bound_ms:.5f} {bound_by} | "
-              f"{rel_ms:.5f}", flush=True)
-    print(f"ten flagship calls (linear), per backward: kernel {ms_sum:.5f} "
-          f"ms, device {dev_sum / 1e3:.5f} ms, plain {plain_sum:.5f} ms, "
-          f"bound {bound_sum:.5f} ms")
+              f"{dev_us:.2f} {plain_ms:.5f} {bound_ms:.5f} "
+              f"{bound_by} {bound_tc:.5f} | {rel_ms:.5f}", flush=True)
+    print(f"ten flagship calls (linear), per backward: kernel "
+          f"{sums['ms']:.5f} ms, device {sums['device_us'] / 1e3:.5f} ms, "
+          f"plain {sums['plain_ms']:.5f} ms, bound {sums['bound_ms']:.5f} ms"
+          f" (3xTF32 rate: {sums['bound_3xtf32']:.5f} ms); by kernel, ms: "
+          + ", ".join(f"{k} {v / 1e3:.5f}" for k, v in per_kernel.items()),
+          flush=True)
+    pyramid = phase_backward_pyramid(cfg, device)
     return {
         "name": "kpconv_bwd", "route": "cuda",
         "source": "deep3dpointclouddenoising_torch/csrc/kpconv_bwd.cu",
         "replaces": "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:361",
-        "max_abs_err": worst_abs, "ms": ms_sum, "plain_ms": plain_sum,
-        "bound_ms": bound_sum,
-        "bound_by": "bytes" if bytes_sum >= ops_sum else "operations",
+        "max_abs_err": worst_abs, "ms": sums["ms"],
+        "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+        "bound_by": "bytes" if sums["bytes"] >= sums["ops"]
+        else "operations",
         "library_ms": None,
-        "device_ms": dev_sum / 1e3,
-        "timed_at": "sum over the ten calls of one l1.yaml backward, B=16; "
-                    "device_ms: torch.profiler, kernel and reduction",
-        "cuda_kernels": ["kpconv_bwd_kernel", "kpconv_bwd_reduce"],
+        "device_ms": sums["device_us"] / 1e3,
+        "device_us_per_call": per_call,
+        "device_ms_by_kernel": {k: v / 1e3 for k, v in per_kernel.items()},
+        "bound_ms_3xtf32": sums["bound_3xtf32"],
+        "device_ms_pyramid": pyramid,
+        "timed_at": "sum over the ten calls of one l1.yaml backward, B=16, "
+                    "random neighbourhoods (device_ms_pyramid: a real "
+                    "pyramid's); device_ms: torch.profiler, every "
+                    "kpconv_bwd kernel of a call",
+        "cuda_kernels": ["kpconv_bwd_invert", "kpconv_bwd_kernel",
+                         "kpconv_bwd_reduce", "kpconv_bwd_drel"],
         "launches_are": "calls of the wrapper; on the training path each "
-                        "launches kpconv_bwd_kernel and kpconv_bwd_reduce "
-                        "once (the reduction only when d_kernel_weights "
-                        "is needed), and ms times both",
+                        "launches kpconv_bwd_invert, kpconv_bwd_kernel and "
+                        "kpconv_bwd_reduce once (the reduction only when "
+                        "d_kernel_weights is needed), and ms times all "
+                        "three; kpconv_bwd_drel only when d_rel is asked "
+                        "for, which training does not",
     }
+
+
+def phase_backward_pyramid(cfg, device):
+    """The ten backward calls on a real pyramid's neighbourhoods: each
+    against plain and bitwise reproducible, with its live edges, in-degree
+    mean and max, and device time; returns the ten calls' device ms."""
+    rng = np.random.default_rng(5)
+    B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
+    r0 = float(cfg.radius)
+    total_us = 0.0
+    print("real pyramid (patch_batch(cfg, 3)): call M N K C | live edges / "
+          "slots, in-degree mean max | d_feat, d_kw max_abs | device_us")
+    for name, M, N, K, C, mult, idx, rel, fmask in pyramid_calls(cfg,
+                                                                  device):
+        extent = 2.0 * r0 * mult / 5.0
+        kp = torch.from_numpy(create_kernel_points(1.5 * extent, P)).to(
+            device)
+        feat, kw, g = (torch.from_numpy(a.astype(np.float32)).to(device)
+                       for a in (rng.normal(size=(B, N, C)),
+                                 rng.normal(size=(P, C)) * math.sqrt(2.0 / C),
+                                 rng.normal(size=(B, M, C))))
+        args = (feat, idx, rel, fmask, kp, kw)
+        got = kpconv_aggregate_backward(*args, g, extent, "linear")
+        torch.cuda.synchronize()
+        want = kpconv_aggregate_backward_plain(*args, g, extent, "linear")
+        errs = [check_grad_close(a, b, f"pyramid backward {name} {what}")
+                for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
+        check_reproducible(args, g, extent, "linear", f"pyramid {name}")
+        dev_us = device_us(lambda: kpconv_aggregate_backward(
+            *args, g, extent, "linear"), "kpconv_bwd", 20)
+        total_us += dev_us
+        offsets, _ = invert_neighbors_plain(idx, fmask, N)
+        live = int(offsets[:, -1].sum().item())
+        deg = int(offsets.diff(dim=1).max().item())
+        print(f"{name} {M} {N} {K} {C} | {live} / {B * M * K}, "
+              f"{live / (B * N):.1f} {deg} | "
+              f"{errs[0]:.3e} {errs[1]:.3e} | {dev_us:.2f}", flush=True)
+    print(f"real pyramid, ten calls: device {total_us / 1e3:.5f} ms")
+    return total_us / 1e3
 
 
 def phase_model_grad(cfg, device):
@@ -642,9 +772,11 @@ def main(argv=None) -> int:
                     print("  " + line.strip())
     with phase("kernel vs plain"):
         record = phase_kernels(cfg, device)
-    if argv:  # the forward kernel's phase alone, for comparing checkouts
+    if argv:  # the kernels' phases alone, for comparing checkouts
+        with phase("backward kernel vs plain"):
+            bwd_record = phase_backward(cfg, device)
         print(smi)
-        print(json.dumps({"kernels": [record]}))
+        print(json.dumps({"kernels": [record, bwd_record]}))
         return 0
     with phase("whole model"):
         phase_model(cfg, device)

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exports plain C launchers.  It is compiled at first
 use by ``nvcc`` into a shared library under ``build/kernels/`` at the
 checkout's root (listed in ``.gitignore``) and loaded with ``ctypes``.  The
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt.  No PyTorch headers are involved, so a build takes seconds.  A
-missing ``nvcc`` or a failed build raises with the compiler's output; there
-is no fallback.
+file name carries a hash of the source, of every header under ``csrc/``
+(``*.cuh``, which a source may include) and of the flags, so an edited
+source or header is rebuilt.  No PyTorch headers are involved, so a build
+takes seconds.  A missing ``nvcc`` or a failed build raises with the
+compiler's output; there is no fallback.
 """
 from __future__ import annotations
 
@@ -48,9 +49,18 @@ def _nvcc() -> str:
     return path
 
 
+def _headers() -> List[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cuh"))
+
+
 def _lib_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [source_path(name)] + _headers():
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

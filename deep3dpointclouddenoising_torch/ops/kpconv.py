@@ -16,7 +16,11 @@ forward launches ``csrc/kpconv_fwd.cu`` and the backward
 ``csrc/kpconv_bwd.cu``; for CPU tensors both are the plain versions
 :func:`kpconv_aggregate_plain` and :func:`kpconv_aggregate_backward_plain`.
 ``kpconv_aggregate.launches`` and ``kpconv_aggregate_backward.launches``
-count the kernels' launches.
+count the kernels' launches.  The backward kernel works on inverted
+neighbourhoods (the edges that name each support,
+:func:`invert_neighbors_plain`);
+:func:`kpconv_aggregate_backward_inverted_plain` is its form in plain
+tensor ops, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -156,6 +160,81 @@ def kpconv_aggregate_backward_plain(
     return d_features, d_kw, d_rel
 
 
+def invert_neighbors_plain(idx: torch.Tensor, mask: torch.Tensor, N: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the backward's inversion kernel: the live edges
+    (``mask != 0``) of each cloud grouped by the support they name.
+
+    Returns ``offsets`` (B, N + 1) int32, the CSR offsets, and ``edges``
+    (B, M*K) int32: cloud b's flat edge ids ``m*K + k`` of support n at
+    ``edges[b, offsets[b, n]:offsets[b, n + 1]]``, ascending (the kernel's
+    order), and -1 past ``offsets[b, N]``.  Indices outside ``[0, N)`` are
+    dropped, as the kernel drops them.  The kernel stores the same lists
+    cut by slices of 4096 edge ids (a support's list is its slices' lists
+    in slice order) and the backward kernel reads them so.
+    """
+    B, M, K = idx.shape
+    E = M * K
+    keys = idx.reshape(B, E).long()
+    live = (mask.reshape(B, E) != 0) & (keys >= 0) & (keys < N)
+    keys = torch.where(live, keys, N)  # dead edges sort last
+    order = torch.sort(keys, dim=1, stable=True).indices
+    counts = torch.zeros(B, N + 1, dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, keys, torch.ones_like(keys))
+    offsets = torch.zeros(B, N + 1, dtype=torch.long, device=idx.device)
+    offsets[:, 1:] = torch.cumsum(counts[:, :N], dim=1)
+    slot = torch.arange(E, device=idx.device)[None, :]
+    edges = torch.where(slot < offsets[:, N:], order, -1)
+    return offsets.to(torch.int32), edges.to(torch.int32)
+
+
+def kpconv_aggregate_backward_inverted_plain(
+        features, idx, rel, mask, kpoints, kernel_weights, grad_out,
+        extent: float, influence: str = "linear", need_features: bool = True,
+        need_kernel_weights: bool = True
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(d_features, d_kernel_weights)`` in the backward kernel's form, in
+    plain tensor ops: over the inverted neighbourhoods of
+    :func:`invert_neighbors_plain`,
+
+        H[b,n,p,c]    = sum_{(m,k): idx[b,m,k] = n} w[b,m,k,p] g[b,m,c]
+        d_feat[b,n,c] = sum_p kw[p,c] H[b,n,p,c]
+        d_kw[p,c]     = sum_{b,n} feat[b,n,c] H[b,n,p,c]
+
+    ``None`` for what is not needed.  The same function as
+    :func:`kpconv_aggregate_backward_plain`, summed in another order.
+    """
+    B, M, K = idx.shape
+    N, C = features.shape[1:]
+    P = kpoints.shape[0]
+    offsets, edges = invert_neighbors_plain(idx, mask, N)
+    # one row per listed edge, cloud by cloud in list order: its cloud,
+    # support and flat edge id
+    dev = idx.device
+    degree = (offsets[:, 1:] - offsets[:, :-1]).long()
+    cloud = torch.repeat_interleave(torch.arange(B, device=dev),
+                                    degree.sum(1))
+    support = torch.repeat_interleave(
+        torch.arange(N, device=dev).repeat(B), degree.reshape(-1))
+    listed = torch.arange(M * K, device=dev)[None, :] \
+        < offsets[:, N:].long()
+    edge = edges[listed].long()
+    w = _masked_weights(rel, mask, kpoints, extent, influence).reshape(
+        B, M * K, P)[cloud, edge]                                # (L, P)
+    g = grad_out[cloud, edge // K]                               # (L, C)
+    H = torch.zeros(B * N, P, C, dtype=grad_out.dtype, device=grad_out.device)
+    H.index_add_(0, cloud * N + support, w[:, :, None] * g[:, None, :])
+    H = H.reshape(B, N, P, C)
+    d_features = d_kw = None
+    if need_features:
+        d_features = torch.einsum("pc,bnpc->bnc", kernel_weights, H).to(
+            features.dtype)
+    if need_kernel_weights:
+        d_kw = torch.einsum("bnc,bnpc->pc", features, H).to(
+            kernel_weights.dtype)
+    return d_features, d_kw
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = _cuda.load(name)
     fn = getattr(lib, name)
@@ -164,9 +243,11 @@ def _library(name: str) -> ctypes.CDLL:
         if name == "kpconv_fwd":
             fn.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
         else:
-            fn.argtypes = [vp] * 11 + [i] * 7 + [f, f, i, i, i, i, vp]
+            fn.argtypes = [vp] * 12 + [i] * 7 + [f, f, i, i, i, i, vp]
             lib.kpconv_bwd_num_slots.argtypes = [i, i]
             lib.kpconv_bwd_num_slots.restype = i
+            lib.kpconv_bwd_scratch_ints.argtypes = [i] * 4
+            lib.kpconv_bwd_scratch_ints.restype = ctypes.c_longlong
         fn.restype = i
     return lib
 
@@ -240,14 +321,15 @@ def kpconv_aggregate_backward(
     the upstream gradient ``grad_out`` (B, M, C); ``None`` for what is not
     needed.
 
-    CUDA tensors go through ``csrc/kpconv_bwd.cu`` (one call launches the
-    kernel and, for ``d_kernel_weights``, its fixed-order reduction;
-    ``kpconv_aggregate_backward.launches`` counts calls that launch), CPU
-    tensors through :func:`kpconv_aggregate_backward_plain`.  The kernel
-    adds ``d_features`` and ``d_rel`` with float32 atomics, so they are not
-    bitwise reproducible from run to run.  Asking for ``d_rel`` selects the
-    kernel's variant that computes it; without it the kernel is the one
-    training runs.
+    CUDA tensors go through ``csrc/kpconv_bwd.cu``: one call launches the
+    inversion of ``idx`` (``kpconv_bwd_invert``), the per-support gather and
+    contraction (``kpconv_bwd_kernel``) and, for ``d_kernel_weights``, its
+    fixed-order reduction (``kpconv_bwd_reduce``), with no float atomics, so
+    ``d_features`` and ``d_kernel_weights`` are bitwise reproducible;
+    ``kpconv_aggregate_backward.launches`` counts calls that launch.  CPU
+    tensors go through :func:`kpconv_aggregate_backward_plain`.  Asking for
+    ``d_rel`` adds ``kpconv_bwd_drel``, which adds ``d_rel`` with float32
+    atomics (not bitwise reproducible).
     """
     if features.device.type == "cpu":
         return kpconv_aggregate_backward_plain(
@@ -258,26 +340,30 @@ def kpconv_aggregate_backward(
     dev = features.device
     grad_out = grad_out.contiguous()
     _check("grad_out", grad_out, torch.float32, (B, M, C), dev)
-    d_features = torch.zeros_like(features) if need_features else None
+    d_features = torch.empty_like(features) if need_features else None
     d_kw = torch.empty((P, C), dtype=torch.float32, device=dev) \
         if need_kernel_weights else None
     d_rel = torch.zeros_like(rel) if need_rel else None
     if not (need_features or need_kernel_weights or need_rel):
         return d_features, d_kw, d_rel
-    if B * M * C == 0:
-        if d_kw is not None:
-            d_kw.zero_()
+    if B * N * C == 0 or M * K == 0:
+        for t in (d_features, d_kw):
+            if t is not None:
+                t.zero_()
         return d_features, d_kw, d_rel
     lib = _library("kpconv_bwd")
-    part = torch.empty((lib.kpconv_bwd_num_slots(B, M), P, C),
+    part = torch.empty((lib.kpconv_bwd_num_slots(B, N), P, C),
                        dtype=torch.float32, device=dev) \
         if need_kernel_weights else None
+    scratch = torch.empty(lib.kpconv_bwd_scratch_ints(B, N, M, K),
+                          dtype=torch.int32, device=dev) \
+        if need_features or need_kernel_weights else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.kpconv_bwd(
         features.data_ptr(), idx.data_ptr(), rel.data_ptr(), mask.data_ptr(),
         kpoints.data_ptr(), kernel_weights.data_ptr(), grad_out.data_ptr(),
-        ptr(d_features), ptr(d_kw), ptr(part), ptr(d_rel), B, N, M, K, C,
-        P, INFLUENCES[influence], float(extent),
+        ptr(d_features), ptr(d_kw), ptr(part), ptr(d_rel), ptr(scratch), B,
+        N, M, K, C, P, INFLUENCES[influence], float(extent),
         gaussian_denominator(float(extent)), int(need_features),
         int(need_kernel_weights), int(need_rel), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)

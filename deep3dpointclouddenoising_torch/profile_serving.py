@@ -8,9 +8,13 @@ Prints, for ``cfgs/l1.yaml`` (width 144, B=16, N=500, seeded weights):
 * a ``torch.profiler`` window over a few forwards: device time per forward,
   the busy share of the wall time, and device time by kernel;
 * the KPConv kernel's device time at each of its ten calls, and the host
-  time one wrapper call takes to enqueue it;
-* the same for a window of train steps (forward, masked L1, backward,
-  clip and Adam), with the backward kernel's device time per call;
+  time one call of the forward's and of the backward's wrapper takes to
+  enqueue its kernels at the stem;
+* the wall time of a train step (forward, masked L1, backward, clip and
+  Adam; synchronised, no profiler), then the same as for the forward over
+  a profiler window of train steps, with the backward's kernels' device
+  time per call (inversion, per-support kernel, reduction) and per step,
+  and the host time of the aggregation's autograd nodes per call;
 * the same busy share over a window of the voting loop on two synthetic
   shapes (icosphere and torus, 140000 points each).
 
@@ -33,7 +37,7 @@ from .config import load_config
 from .data.meshio import save_off
 from .data.synthetic import make_icosphere, make_torus
 from .models.build import build_offset_regression
-from .ops.kpconv import kpconv_aggregate
+from .ops.kpconv import kpconv_aggregate, kpconv_aggregate_backward
 from .train.trainer import Trainer
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
@@ -83,13 +87,48 @@ def _per_call(prof, kernel: str, steps: int, calls: int = 10) -> None:
               + f" (sum {per_call.sum(axis=1).mean() / 1e3:.4f} ms)")
 
 
+def _enqueue_us(fn, args, calls: int) -> float:
+    """Host microseconds per call of ``fn(*args)``, the card left to run:
+    ``calls`` calls enqueued one after another, with no synchronisation
+    inside the timed loop."""
+    for _ in range(5):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host_us
+
+
+def _host_us_per_call(prof, key: str, steps: int) -> None:
+    """Host time per call of the profiler's CPU ops whose name holds
+    ``key``, children included (an autograd node: its wrapper, allocations
+    and launches)."""
+    for avg in prof.key_averages():
+        if key in avg.key and avg.count:
+            print(f"{avg.key}: {avg.cpu_time_total / avg.count:.1f} us of "
+                  f"host time per call, {avg.count / steps:.1f} calls per "
+                  f"step")
+
+
 def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
-    """A profiler window over ``steps`` train steps on one batch: wall and
-    device time per step, the busy share, device time by kernel, and the
-    KPConv kernels' device time per call."""
+    """Wall time per train step on one batch, synchronised at the end of
+    20 steps with no profiler; then a profiler window over ``steps`` train
+    steps: wall and device time per step, the busy share, device time by
+    kernel, the KPConv kernels' device time per call and the host time of
+    the aggregation's autograd nodes per call."""
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        print(f"train step: {(time.perf_counter() - t0) / 20 * 1e3:.3f} ms "
+              f"wall per step (20 steps, synchronised, no profiler)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -99,8 +138,12 @@ def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
         wall = time.perf_counter() - t0
     _summary("train step under the profiler", prof, wall, steps)
     _per_call(prof, "kpconv_fwd_kernel", steps)
-    _per_call(prof, "kpconv_bwd_kernel", steps)
-    _per_call(prof, "kpconv_bwd_reduce", steps)
+    for kernel in ("kpconv_bwd_invert", "kpconv_bwd_kernel",
+                   "kpconv_bwd_reduce"):  # the training path's backward
+        _per_call(prof, kernel, steps)
+    us = sum(u for name, u in _device_events(prof) if "kpconv_bwd" in name)
+    print(f"kpconv_bwd kernels together: {us / steps / 1e3:.4f} ms per step")
+    _host_us_per_call(prof, "KPConvAggregate", steps)
 
 
 def _batch(cfg, device, seed: int = 1):
@@ -155,17 +198,14 @@ def main() -> None:
         fmask = (nbr.mask + (1.0 - mask[:, :, None])).contiguous()
         args = (feats, nbr.idx, nbr.rel_xyz, fmask, la.kpoints,
                 la.kernel_weights, la.extent, la.influence)
-        for _ in range(5):
-            kpconv_aggregate(*args)
-        torch.cuda.synchronize()
-        n = 200
-        t0 = time.perf_counter()
-        for _ in range(n):
-            kpconv_aggregate(*args)
-        host_us = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
-        print(f"kpconv_aggregate stem call: {host_us:.1f} us of host time "
-              f"per call (enqueue only)")
+        print(f"kpconv_aggregate stem call: "
+              f"{_enqueue_us(kpconv_aggregate, args, 200):.1f} us of host "
+              f"time per call (enqueue only)")
+        grad_out = torch.randn_like(feats)
+        bwd_args = args[:6] + (grad_out,) + args[6:]
+        print(f"kpconv_aggregate_backward stem call: "
+              f"{_enqueue_us(kpconv_aggregate_backward, bwd_args, 100):.1f} "
+              f"us of host time per call (enqueue only)")
 
     trainer = Trainer(cfg, 1, torch.Generator().manual_seed(0), device)
     profile_train_steps(trainer, {"points": xyz, "mask": mask,

@@ -12,8 +12,8 @@ three times the element's own float32 noise, the plain float32 path
 against the plain float64 path (grad_check.check_forward); the
 backward rtol 3e-4 (the JAX package's gradient tolerance) with an atol of
 1e-5 of the largest gradient, since d_kernel_weights sums up to
-B*M*K = 416,000 terms in another order than the plain einsum and
-d_features is added by atomics in an order that changes from run to run;
+B*M*K = 416,000 terms and d_features up to thousands (a sink support), in
+another order than the plain einsum and index_add_;
 whole-model gradients per tensor within three times their own float32
 noise, with a floor (utils/grad_check.py says why).
 """
@@ -278,3 +278,79 @@ def test_grad_check_catches_a_scaled_backward(card, monkeypatch, which):
     grads = _l1_model_gradients(card)
     with pytest.raises(AssertionError, match="gradient of"):
         grad_check.check_model_gradients(grads)
+
+def _backward_edge_inputs(rng, influence, case):
+    """Backward inputs for one edge case: ``case`` is (B, M, N, K, C, P,
+    layout); layout "sink" sends every edge of the first half of the
+    queries (more than half of the live edges) to support 3, "holes" keeps
+    every index in the lower half of the supports (the upper half has
+    in-degree 0); the first query row of each cloud has its mask all zero."""
+    B, M, N, K, C, P, layout = case
+    arrays = _inputs(rng, B, M, N, K, C, P)
+    if layout == "sink":
+        arrays[1][:, :M // 2 + 1] = min(3, N - 1)
+        arrays[3][:, :M // 2 + 1] = 1.0
+    elif layout == "holes":
+        arrays[1] = arrays[1] % max(1, N // 2)
+    arrays[3][:, 0] = 0.0
+    g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(np.float32))
+    return arrays, g
+
+
+BACKWARD_EDGE_CASES = [
+    # (B, M, N, K, C, P, layout): a ragged support tile (N = 13, 60), C off
+    # the tile and off 4 (6, 13) and at its edges (72, 1160), K = 1 and 65,
+    # P = 1 and 16, N = 1 (every edge on one row), N = 2100 (two support
+    # ranges in the inversion, and two slices of edge ids), sinks (one
+    # across ten slices), in-degree-0 supports
+    (2, 17, 13, 10, 40, 15, "random"), (4, 31, 60, 12, 24, 15, "random"),
+    (2, 17, 30, 10, 6, 15, "random"), (2, 17, 30, 10, 13, 15, "random"),
+    (2, 17, 30, 10, 72, 15, "random"), (2, 5, 30, 10, 1160, 15, "random"),
+    (2, 17, 30, 1, 40, 15, "random"), (2, 17, 70, 65, 40, 15, "random"),
+    (2, 17, 30, 10, 40, 1, "random"), (2, 17, 30, 10, 40, 16, "random"),
+    (2, 17, 1, 10, 40, 15, "random"), (2, 400, 2100, 12, 24, 15, "random"),
+    (2, 200, 40, 30, 72, 15, "sink"), (1, 1000, 50, 40, 16, 15, "sink"),
+    (2, 17, 200, 3, 40, 15, "holes"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
+@pytest.mark.parametrize("case", BACKWARD_EDGE_CASES)
+def test_kpconv_backward_kernel_edges_match_plain(card, influence, case):
+    """The backward kernel at the edges of its tiling and of the inverted
+    neighbourhoods, against plain at rtol 3e-4 and an atol of 1e-5 of the
+    largest gradient; supports no live edge names get exact zeros."""
+    arrays, g = _backward_edge_inputs(np.random.default_rng(8), influence,
+                                      case)
+    arrays, g = [a.to(card) for a in arrays], g.to(card)
+    got = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence)
+    want = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], want[:2]):
+        _assert_grad_close(a, b, 3e-4, 1e-5)
+    N = arrays[0].shape[1]
+    offsets, _ = tkp.invert_neighbors_plain(arrays[1].cpu(), arrays[3].cpu(),
+                                            N)
+    idle = (offsets[:, 1:] == offsets[:, :-1]).to(card)
+    if idle.any():
+        assert got[0][idle].abs().max().item() == 0
+    if case[-1] == "holes":
+        assert idle.sum().item() >= N // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(16, 500, 500, 52, 72, 15, "random"),
+                                  (16, 3, 3, 26, 1152, 15, "random"),
+                                  (2, 200, 40, 30, 72, 15, "sink")])
+def test_kpconv_backward_kernel_is_deterministic(card, case):
+    """Two calls on the same inputs give bitwise equal d_features and
+    d_kernel_weights: no float atomics on the training path."""
+    arrays, g = _backward_edge_inputs(np.random.default_rng(9), "linear",
+                                      case)
+    arrays, g = [a.to(card) for a in arrays], g.to(card)
+    first = tkp.kpconv_aggregate_backward(*arrays, g, 0.12)
+    second = tkp.kpconv_aggregate_backward(*arrays, g, 0.12)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
