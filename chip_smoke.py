@@ -5,7 +5,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports the port, torch, numpy and scipy only, and goes through eight
+It imports the port, torch, numpy and scipy only, and goes through nine
 phases, each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
@@ -49,7 +49,23 @@ phases, each printed with its wall time:
    ``train`` and ``val`` splits; every loss finite, parameters and
    BatchNorm running stats changed, 10 forward and 10 backward launches per
    step, and the checkpoint reloads through ``infer.load_model``; then a
-   profiler window over five more steps.
+   profiler window over five more steps;
+9. deployment (this slice's path): the synthetic shape tree written by
+   ``make_synthetic_dataset``; two short trainings through the train entry
+   point at width 144 with one ``--log_dir``,
+   ``cfgs/synthetic_quality_diverse.yaml`` and
+   ``cfgs/synthetic_quality_stable_low.yaml`` (``diverse_levels``), each
+   DEPLOY_STEPS steps on clouds of DEPLOY_TRAIN_POINTS points; then the
+   inference entry point on two held-out shapes (DEPLOY_SHAPES) of 140,000
+   points at gaussian sigma 0.1% and 0.5% with the diverse checkpoint and
+   ``--checkpoint_low auto``: the ``_stable_low`` sibling is found, every
+   cloud routes LOW at 0.1% and HIGH at 0.5%, the forward kernel runs 10
+   times for each model a batch is routed to, and each level runs with
+   host voting and with ``--device_voting``, whose offsets agree per point
+   within rtol 1e-5 / atol 1e-6 (and once more at ``--num_votes 2``);
+   ``compute_cd`` on every output tree with and without ``--device``, the
+   two tables within rtol 1e-5 per entry, and ``measure_performance`` once.
+   The weights are barely trained, so no CD ratio is held to a value.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -76,7 +92,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from deep3dpointclouddenoising_torch import infer
+from deep3dpointclouddenoising_torch import compute_cd, infer, \
+    make_synthetic_dataset, measure_performance
 from deep3dpointclouddenoising_torch.config import load_config
 from deep3dpointclouddenoising_torch.data.meshio import save_off
 from deep3dpointclouddenoising_torch.data.synthetic import (make_icosphere,
@@ -112,6 +129,18 @@ MODEL_TOL = dict(rtol=5e-4, atol=5e-5)
 # largest gradient, since d_kernel_weights sums up to 416,000 terms in
 # another order than the plain einsum and d_features is added by atomics
 BWD_RTOL, BWD_ATOL_FRAC = 3e-4, 1e-5
+# deployment phase: the two configs trained (the second sets
+# diverse_levels), steps of each, points per training and validation cloud
+# (cut from 140,000), the two held-out shapes denoised (the two of the four
+# with the fewest patches at 140,000 points), the eval noise levels and
+# whether each routes low, and the device-vs-host vote tolerance
+DEPLOY_CONFIGS = ("synthetic_quality_diverse", "synthetic_quality_stable_low")
+DEPLOY_STEPS = 10
+DEPLOY_TRAIN_POINTS = 20000
+DEPLOY_SHAPES = ("cylinder_t", "ellipsoid_t")
+DEPLOY_LEVELS = ((0.001, True), (0.005, False))
+VOTE_TOL = dict(rtol=1e-5, atol=1e-6)
+CD_RTOL = 1e-5
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # flagship forward, B=16, P=15
 FLAGSHIP_CALLS = [
@@ -411,9 +440,10 @@ def phase_serving(cfg, device, workdir):
     out_dir = os.path.join(workdir, "out")
     kpconv_aggregate.launches = 0
     kpconv_aggregate_backward.launches = 0
-    dataset, results, seconds = infer.run(CONFIG, data_root, out_dir,
-                                          device=device)
+    summary = infer.run(CONFIG, data_root, out_dir, device=device)
     launches = kpconv_aggregate.launches
+    dataset, results, seconds = (summary[k] for k in ("dataset", "results",
+                                                      "seconds"))
     if kpconv_aggregate_backward.launches:
         raise AssertionError("serving launched the backward kernel")
     batches = -(-len(dataset) // int(cfg.batch_size))
@@ -742,6 +772,164 @@ def phase_training(cfg, device, workdir):
     return fwd, bwd
 
 
+def train_short(config: str, data_root: str, log_dir: str, cfg):
+    """``DEPLOY_STEPS`` steps of the train entry point at full width on
+    clouds of ``DEPLOY_TRAIN_POINTS`` points; returns the forward and
+    backward kernel launches."""
+    argv = ["--config_file", os.path.join(ROOT, "cfgs", config + ".yaml"),
+            "--data_root", data_root, "--log_dir", log_dir,
+            "--num_steps", str(DEPLOY_STEPS * int(cfg.batch_size)),
+            "--epochs", "1", "--val_freq", "1", "--num_points_per_shape",
+            str(DEPLOY_TRAIN_POINTS), "--device", "cuda"]
+    kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
+    summary = train_cli.main(argv)
+    fwd, bwd = kpconv_aggregate.launches, kpconv_aggregate_backward.launches
+    steps, val_batches = summary["steps"], summary["val_batches"]
+    if steps != DEPLOY_STEPS or (fwd, bwd) != (
+            10 * (steps + val_batches), 10 * steps):
+        raise AssertionError(
+            f"{config}: {steps} steps, {val_batches} val batches, {fwd} "
+            f"forward and {bwd} backward launches")
+    losses = summary["train_losses"] + summary["val_losses"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{config}: losses {losses}")
+    print(f"{config}: {steps} steps, val batches {val_batches}; launches: "
+          f"forward {fwd}, backward {bwd}; train loss first {losses[0]:.6f}"
+          f" last {summary['train_losses'][-1]:.6f}; val loss "
+          f"{summary['val_losses']}", flush=True)
+    return fwd, bwd
+
+
+def routed_infer(argv, batch: int, votes: int, expect_low_ckpt: str,
+                 expect_low: bool):
+    """One run of the inference entry point with ``--checkpoint_low auto``
+    (batches of ``batch`` patches, ``votes`` vote rounds): the sibling
+    found, every cloud routed as expected, outputs finite, and 10 forward
+    launches for each model each batch is routed to; returns the summary,
+    the launches and the points per second."""
+    kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
+    summary = infer.main(argv)
+    launches = kpconv_aggregate.launches
+    if kpconv_aggregate_backward.launches:
+        raise AssertionError("inference launched the backward kernel")
+    if summary["checkpoint_low"] != expect_low_ckpt:
+        raise AssertionError(f"--checkpoint_low auto found "
+                             f"{summary['checkpoint_low']}, not "
+                             f"{expect_low_ckpt}")
+    dataset, route = summary["dataset"], summary["route_low"]
+    if route != [expect_low] * len(dataset.shapes):
+        raise AssertionError(
+            f"routes {route} (sigmas {summary['sigmas']}), expected all "
+            f"{'LOW' if expect_low else 'HIGH'}")
+    models = sum(len({route[int(c)] for c in dataset.cloud_inds[s:s + batch]})
+                 for s in range(0, len(dataset), batch))
+    if launches != 10 * models * votes:
+        raise AssertionError(f"routed voting launched the forward kernel "
+                             f"{launches} times, not {10 * models * votes}")
+    for res, shape in zip(summary["results"], dataset.shapes):
+        if res["offsets"].shape != shape.points.shape \
+                or not np.isfinite(res["offsets"]).all():
+            raise AssertionError("routed voting: bad offsets")
+    n_points = sum(len(s.points) for s in dataset.shapes)
+    return summary, launches, n_points / summary["seconds"]
+
+
+def check_votes(got, want, what: str) -> float:
+    """Device voting's offsets against host voting's, per point within
+    VOTE_TOL; returns the max abs difference."""
+    return max(check_close(torch.from_numpy(g["offsets"]).double(),
+                           torch.from_numpy(w["offsets"]).double(),
+                           what=f"{what}: device voting against host voting",
+                           **VOTE_TOL)[0]
+               for g, w in zip(got["results"], want["results"]))
+
+
+def cd_tables(out_dir: str):
+    """compute_cd on an output tree with the host KD-tree and on the card;
+    the two tables within CD_RTOL per entry; returns the host table and
+    the largest relative difference."""
+    host = compute_cd.main(["--in_dir", out_dir])
+    card = compute_cd.main(["--in_dir", out_dir, "--device"])
+    worst = 0.0
+    for name, row in host.items():
+        for key, v in row.items():
+            rel = abs(card[name][key] - v) / abs(v)
+            if rel > CD_RTOL:
+                raise AssertionError(f"compute_cd --device {name} {key}: "
+                                     f"{card[name][key]} against {v}")
+            worst = max(worst, rel)
+    return host, worst
+
+
+def phase_deployment(cfg, workdir):
+    """This slice's path: shape tree, two short trainings, routed voting on
+    host and device, the Chamfer and performance tables; returns the
+    forward and backward kernel launches in it."""
+    tree = os.path.join(workdir, "shapes")
+    make_synthetic_dataset.write_tree(tree, verbose=False)
+    log_dir = os.path.join(workdir, "log")
+    fwd = bwd = 0
+    for config in DEPLOY_CONFIGS:
+        f, b = train_short(config, tree, log_dir, cfg)
+        fwd, bwd = fwd + f, bwd + b
+    deploy_root = os.path.join(workdir, "deploy")
+    os.makedirs(os.path.join(deploy_root, "qualitative_test"))
+    for name in DEPLOY_SHAPES:
+        with open(os.path.join(tree, "qualitative_test", name + ".off")) as f:
+            text = f.read()
+        with open(os.path.join(deploy_root, "qualitative_test",
+                               name + ".off"), "w") as f:
+            f.write(text)
+    config = os.path.join(ROOT, "cfgs", DEPLOY_CONFIGS[0] + ".yaml")
+    batch = int(load_config(config).batch_size)
+    ckpt = os.path.join(log_dir, DEPLOY_CONFIGS[0], "current.pt")
+    low = os.path.join(log_dir, DEPLOY_CONFIGS[1], "current.pt")
+    runs = [(level, low_expected, 1) for level, low_expected in DEPLOY_LEVELS]
+    runs.append((DEPLOY_LEVELS[-1][0], DEPLOY_LEVELS[-1][1], 2))
+    for level, expect_low, votes in runs:
+        pair = {}
+        for voting in ("host", "device"):
+            out_dir = os.path.join(workdir, f"out_{level}_{votes}_{voting}")
+            argv = ["--config_file", config, "--data_root", deploy_root,
+                    "--out_dir", out_dir,
+                    "--checkpoint", ckpt, "--checkpoint_low", "auto",
+                    "--noise_type", "gaussian", "--noise_level", str(level),
+                    "--num_votes", str(votes), "--device", "cuda"]
+            if voting == "device":
+                argv.append("--device_voting")
+            summary, launches, pps = routed_infer(argv, batch, votes, low,
+                                                  expect_low)
+            fwd += launches
+            pair[voting] = summary
+            table, cd_rel = cd_tables(out_dir)
+            print(f"deploy sigma {level} votes {votes} {voting} voting: "
+                  f"{pps:.1f} points/s ({summary['seconds']:.3f} s), "
+                  f"forward launches {launches}; est sigma "
+                  + ", ".join(f"{s:.4e}" for s in summary["sigmas"])
+                  + " -> " + ("LOW" if expect_low else "HIGH")
+                  + "; CD ratio " + ", ".join(
+                      f"{n} {r['ratio']:.4f}" for n, r in table.items())
+                  + f" (--device tables within {cd_rel:.2e} relative)",
+                  flush=True)
+        worst = check_votes(pair["device"], pair["host"],
+                            f"sigma {level}, {votes} votes")
+        t0 = time.perf_counter()
+        infer._patch_tables(pair["device"]["dataset"], batch)
+        tables = time.perf_counter() - t0
+        print(f"deploy sigma {level} votes {votes}: device vs host offsets "
+              f"max abs diff {worst:.3e} (rtol {VOTE_TOL['rtol']} / atol "
+              f"{VOTE_TOL['atol']}); the host's patch tables alone take "
+              f"{tables:.3f} s of device voting's "
+              f"{pair['device']['seconds']:.3f} s", flush=True)
+    perf = measure_performance.main(["--in_dir", os.path.join(
+        workdir, f"out_{DEPLOY_LEVELS[-1][0]}_1_device")])
+    if not all(np.isfinite(list(r.values())).all() for r in perf.values()):
+        raise AssertionError(f"measure_performance: {perf}")
+    return fwd, bwd
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only-kernels"]):
@@ -788,11 +976,15 @@ def main(argv=None) -> int:
         phase_model_grad(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("training"):
         train_fwd, train_bwd = phase_training(cfg, device, workdir)
-    # launches: this slice's path (training); every path's in the detail
-    record.update(launches=train_fwd, launches_by_path={
-        "serving": serving_launches, "training": train_fwd})
-    bwd_record.update(launches=train_bwd, launches_by_path={
-        "serving": 0, "training": train_bwd})  # serving checks its 0
+    with tempfile.TemporaryDirectory() as workdir, phase("deployment"):
+        deploy_fwd, deploy_bwd = phase_deployment(cfg, workdir)
+    # launches: this slice's path (deployment); every path's in the detail
+    record.update(launches=deploy_fwd, launches_by_path={
+        "serving": serving_launches, "training": train_fwd,
+        "deployment": deploy_fwd})
+    bwd_record.update(launches=deploy_bwd, launches_by_path={
+        "serving": 0, "training": train_bwd,  # inference checks its 0
+        "deployment": deploy_bwd})
     print(smi)
     print(json.dumps({"kernels": [record, bwd_record]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,15 @@
 """Mesh and point-cloud IO and geometry (numpy + scipy).
 
-A copy of what the test split needs from
+A copy of what the port needs from
 ``deep3dpointclouddenoising_tpu/data/meshio.py``: OFF reading and writing,
-binary PLY writing, area-weighted and even surface sampling, and the
-closest point on a triangle mesh.  Same arithmetic and the same draws from
-the generator that is passed in.
+binary PLY writing, ascii and binary PLY reading, area-weighted and even
+surface sampling, and the closest point on a triangle mesh.  Same
+arithmetic and the same draws from the generator that is passed in.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy.spatial import cKDTree
@@ -70,7 +70,7 @@ def save_off(path: str, mesh: TriMesh) -> None:
 
 
 # --------------------------------------------------------------------------
-# PLY IO (binary little-endian write)
+# PLY IO (binary little-endian write; ascii and binary read)
 # --------------------------------------------------------------------------
 def write_ply(path: str, arrays: Sequence[np.ndarray],
               names: Sequence[str]) -> None:
@@ -105,6 +105,53 @@ def write_ply(path: str, arrays: Sequence[np.ndarray],
             f.write(f"property float {p}\n".encode())
         f.write(b"end_header\n")
         rec.tofile(f)
+
+
+_PLY_TYPES = {
+    "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
+    "int": "<i4", "int32": "<i4", "uint": "<u4", "uint32": "<u4",
+    "short": "<i2", "ushort": "<u2", "char": "<i1", "uchar": "<u1",
+    "int8": "<i1", "uint8": "<u1", "int16": "<i2", "uint16": "<u2",
+}
+
+
+def read_ply(path: str) -> Dict[str, np.ndarray]:
+    """Read per-vertex properties from an ascii or binary_little_endian PLY.
+
+    Returns a dict of property name -> (N,) array, plus 'vertex' -> (N, 3)
+    when x/y/z are present.
+    """
+    with open(path, "rb") as f:
+        header = []
+        while True:
+            line = f.readline().decode("ascii").strip()
+            header.append(line)
+            if line == "end_header":
+                break
+        fmt = next(l for l in header if l.startswith("format")).split()[1]
+        props: List[Tuple[str, str]] = []
+        n = 0
+        in_vertex = False
+        for line in header:
+            parts = line.split()
+            if parts[0] == "element":
+                in_vertex = parts[1] == "vertex"
+                if in_vertex:
+                    n = int(parts[2])
+            elif parts[0] == "property" and in_vertex:
+                props.append((parts[2], _PLY_TYPES[parts[1]]))
+        if fmt == "ascii":
+            data = np.loadtxt(f, max_rows=n).reshape(n, len(props))
+            out = {p: data[:, i].astype(np.float32)
+                   for i, (p, _) in enumerate(props)}
+        else:
+            dtype = np.dtype([(p, t) for p, t in props])
+            rec = np.fromfile(f, dtype=dtype, count=n)
+            out = {p: np.asarray(rec[p]) for p, _ in props}
+    if all(k in out for k in ("x", "y", "z")):
+        out["vertex"] = np.stack(
+            [out["x"], out["y"], out["z"]], axis=1).astype(np.float32)
+    return out
 
 
 # --------------------------------------------------------------------------

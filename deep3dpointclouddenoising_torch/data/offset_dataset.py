@@ -73,15 +73,16 @@ class ShapeData:
 
 
 def _add_noise(pos: np.ndarray, gt: np.ndarray, noise_type: str,
-               noise_level: float, rng: np.random.Generator) -> np.ndarray:
-    """Noise for the inliers; 'diverse' mixes the sigmas of
-    ``DIVERSE_LEVELS`` (percent) over the points."""
+               noise_level: float, rng: np.random.Generator,
+               levels: Optional[Sequence[float]] = None) -> np.ndarray:
+    """Noise for the inliers; 'diverse' mixes the sigmas of ``levels``
+    (percent; default ``DIVERSE_LEVELS``) over the points."""
     inlier = gt == 0
     n_in = int(inlier.sum())
     if n_in == 0:
         return pos
     if noise_type == "diverse":
-        levels = DIVERSE_LEVELS
+        levels = list(levels or DIVERSE_LEVELS)
         per_bin = n_in // len(levels)
         noises = []
         used = 0
@@ -111,8 +112,10 @@ def _add_noise(pos: np.ndarray, gt: np.ndarray, noise_type: str,
 def process_off_file(filepath: str, num_points_per_shape: int,
                      outlier_proportion: float, noise_type: str,
                      noise_level: float, rng: np.random.Generator,
-                     mesh: Optional[TriMesh] = None) -> ShapeData:
-    """One shape's noisy cloud and ground-truth offsets."""
+                     mesh: Optional[TriMesh] = None,
+                     levels: Optional[Sequence[float]] = None) -> ShapeData:
+    """One shape's noisy cloud and ground-truth offsets; ``levels`` as in
+    :func:`_add_noise`."""
     n_out = int(num_points_per_shape * outlier_proportion)
     n_in = num_points_per_shape - n_out
 
@@ -140,13 +143,14 @@ def process_off_file(filepath: str, num_points_per_shape: int,
     order = rng.permutation(num_points_per_shape)
     pos, gt = pos[order], gt[order]
 
-    noisy = _add_noise(pos, gt, noise_type, noise_level, rng)
+    noisy = _add_noise(pos, gt, noise_type, noise_level, rng, levels=levels)
     closest, _ = closest_point_on_mesh(shape, noisy)
     offsets = closest - noisy
 
     if noise_type == "diverse":
         # labels become "offset larger than the largest sigma"
-        gt = (np.linalg.norm(offsets, axis=1) > max(DIVERSE_LEVELS) / 100.0) \
+        max_lvl = max(levels or DIVERSE_LEVELS)
+        gt = (np.linalg.norm(offsets, axis=1) > max_lvl / 100.0) \
             .astype(np.int32)
 
     return ShapeData(mesh=shape, points=noisy.astype(np.float32),
@@ -193,7 +197,8 @@ class OffsetDataset:
                  sample_dl_patches: Optional[float] = None,
                  fourier_features: bool = False,
                  subsampling_parameter: float = 0.0, seed: int = 0,
-                 shapes: Optional[Dict[str, TriMesh]] = None):
+                 shapes: Optional[Dict[str, TriMesh]] = None,
+                 diverse_levels: Optional[Sequence[float]] = None):
         if "test" not in split and num_steps * num_epochs % 2:
             raise ValueError("the balanced inlier/outlier interleave needs "
                              "an even num_steps * num_epochs")
@@ -226,7 +231,12 @@ class OffsetDataset:
                 f"no .off shapes under {data_root}/{split}")
         self.cloud_names = names
 
-        levels = list(DIVERSE_LEVELS) \
+        # diverse_levels (percent) overrides the sigma set of both diverse
+        # regimes: diverse_stable replicates the shapes per level, diverse
+        # mixes the levels over each cloud's points
+        self.diverse_levels = list(diverse_levels) if diverse_levels \
+            else None
+        levels = list(self.diverse_levels or DIVERSE_LEVELS) \
             if noise_type == "diverse_stable" else [noise_level]
         self.shapes: List[ShapeData] = []
         for lvl in levels:
@@ -246,14 +256,18 @@ class OffsetDataset:
 
     def _load_or_process(self, name, noise_type, noise_level, npts, outprop,
                          mesh=None) -> ShapeData:
+        # a custom sigma mix is baked into the cloud: its own cache entry
+        lvl_tag = "" if not (self.diverse_levels and noise_type == "diverse") \
+            else "_lv" + "-".join(f"{l:g}" for l in self.diverse_levels)
         tag = (f"{name.replace(os.sep, '_')}_{noise_type}_{noise_level:.2e}"
-               f"_{npts:06d}_{outprop:.2f}.npz")
+               f"_{npts:06d}_{outprop:.2f}{lvl_tag}.npz")
         cache = os.path.join(self.cache_dir, tag)
         if os.path.exists(cache):
             return ShapeData.load(cache)
         data = process_off_file(
             os.path.join(self.data_root, name + ".off"), npts, outprop,
-            noise_type, noise_level, rng=self.rng, mesh=mesh)
+            noise_type, noise_level, rng=self.rng, mesh=mesh,
+            levels=self.diverse_levels)
         data.save(cache)
         return data
 

@@ -1,8 +1,8 @@
-"""Procedural test meshes: an icosphere and a torus with enough triangles
-that closest-point queries behave as on densely triangulated shapes.
+"""Procedural test meshes: spheres, ellipsoids, boxes, cylinders and tori
+with enough triangles that closest-point queries behave as on densely
+triangulated shapes.
 
-A copy of ``make_icosphere`` and ``make_torus`` from
-``deep3dpointclouddenoising_tpu/data/synthetic.py``.
+A copy of ``deep3dpointclouddenoising_tpu/data/synthetic.py``.
 """
 from __future__ import annotations
 
@@ -48,6 +48,85 @@ def make_icosphere(subdivisions: int = 3, radius: float = 1.0) -> TriMesh:
         faces = np.asarray(new_faces, dtype=np.int64)
 
     return TriMesh(verts * radius, faces)
+
+
+def make_ellipsoid(subdivisions: int = 3,
+                   radii=(1.0, 0.7, 0.45)) -> TriMesh:
+    """Anisotropically scaled icosphere."""
+    m = make_icosphere(subdivisions)
+    return TriMesh(m.vertices * np.asarray(radii)[None, :], m.faces)
+
+
+def make_box(n: int = 8, size=(1.0, 0.8, 0.6)) -> TriMesh:
+    """Axis-aligned box with each face triangulated on an n x n grid."""
+    sx, sy, sz = size
+    verts = []
+    faces = []
+
+    def add_face(origin, eu, ev):
+        base = len(verts)
+        for i in range(n + 1):
+            for j in range(n + 1):
+                verts.append(origin + eu * (i / n) + ev * (j / n))
+        for i in range(n):
+            for j in range(n):
+                a = base + i * (n + 1) + j
+                b = a + (n + 1)
+                faces.append([a, b, b + 1])
+                faces.append([a, b + 1, a + 1])
+
+    o = np.array([-sx, -sy, -sz])
+    ex, ey, ez = (np.array([2 * sx, 0, 0]), np.array([0, 2 * sy, 0]),
+                  np.array([0, 0, 2 * sz]))
+    add_face(o, ex, ey)                 # bottom (z = -sz)
+    add_face(o + ez, ey, ex)            # top
+    add_face(o, ey, ez)                 # x = -sx
+    add_face(o + ex, ez, ey)            # x = +sx
+    add_face(o, ez, ex)                 # y = -sy
+    add_face(o + ey, ex, ez)            # y = +sy
+    return TriMesh(np.asarray(verts, np.float64),
+                   np.asarray(faces, np.int64))
+
+
+def make_cylinder(n_seg: int = 48, n_height: int = 16, radius: float = 0.5,
+                  height: float = 2.0, n_cap: int = 6) -> TriMesh:
+    """Closed cylinder: triangulated side wall + fan-ring caps."""
+    us = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    verts = []
+    for h in np.linspace(-height / 2, height / 2, n_height + 1):
+        for u in us:
+            verts.append([radius * np.cos(u), radius * np.sin(u), h])
+    faces = []
+    for i in range(n_height):
+        for j in range(n_seg):
+            a = i * n_seg + j
+            b = i * n_seg + (j + 1) % n_seg
+            c = (i + 1) * n_seg + (j + 1) % n_seg
+            d = (i + 1) * n_seg + j
+            faces += [[a, b, c], [a, c, d]]
+    # caps: concentric rings down to a center vertex
+    for sign, ring0 in ((-1.0, 0), (1.0, n_height * n_seg)):
+        prev = list(range(ring0, ring0 + n_seg))
+        z = sign * height / 2
+        for r_i in range(1, n_cap):
+            r = radius * (1.0 - r_i / n_cap)
+            base = len(verts)
+            for u in us:
+                verts.append([r * np.cos(u), r * np.sin(u), z])
+            cur = list(range(base, base + n_seg))
+            for j in range(n_seg):
+                a, b = prev[j], prev[(j + 1) % n_seg]
+                c, d = cur[(j + 1) % n_seg], cur[j]
+                faces += [[a, b, c], [a, c, d]] if sign > 0 else \
+                    [[a, c, b], [a, d, c]]
+            prev = cur
+        center = len(verts)
+        verts.append([0.0, 0.0, z])
+        for j in range(n_seg):
+            a, b = prev[j], prev[(j + 1) % n_seg]
+            faces.append([a, b, center] if sign > 0 else [a, center, b])
+    return TriMesh(np.asarray(verts, np.float64),
+                   np.asarray(faces, np.int64))
 
 
 def make_torus(major: float = 1.0, minor: float = 0.35,

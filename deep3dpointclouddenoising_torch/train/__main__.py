@@ -35,7 +35,8 @@ from ..utils.metrics import AverageMeter
 from .trainer import Trainer
 
 _OVERRIDES = ("batch_size", "num_points", "width", "num_steps", "epochs",
-              "base_learning_rate", "weight_decay", "rng_seed", "val_freq")
+              "base_learning_rate", "weight_decay", "rng_seed", "val_freq",
+              "num_points_per_shape")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -54,6 +55,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--base_learning_rate", type=float)
     p.add_argument("--weight_decay", type=float)
     p.add_argument("--val_freq", type=int)
+    p.add_argument("--num_points_per_shape", type=int,
+                   help="points of each processed training and validation "
+                        "cloud")
     p.add_argument("--log_dir", default="log")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
@@ -81,9 +85,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     cfg = load_config(args.config_file,
                       {k: getattr(args, k) for k in _OVERRIDES
                        if getattr(args, k) is not None})
-    if list(cfg.diverse_levels):
-        raise NotImplementedError("diverse_levels is not ported yet "
-                                  "(ROADMAP.md)")
     cfg.data_root = args.data_root
     log_dir = os.path.join(args.log_dir, cfg.experiment_name or "run")
     common = dict(
@@ -92,7 +93,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         noise_level=cfg.noise_level,
         num_points_per_shape=cfg.num_points_per_shape,
         outlier_proportion=cfg.outlier_percentage,
-        fourier_features=bool(cfg.fourier_features), seed=cfg.rng_seed)
+        fourier_features=bool(cfg.fourier_features), seed=cfg.rng_seed,
+        diverse_levels=list(cfg.diverse_levels) or None)
     train_ds = OffsetDataset(cfg.data_root, "train",
                              num_epochs=int(cfg.epochs),
                              transforms=build_train_transforms(cfg),

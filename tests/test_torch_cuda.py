@@ -354,3 +354,60 @@ def test_kpconv_backward_kernel_is_deterministic(card, case):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+
+
+# -- the deployed protocol's device paths -------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "near_duplicates"])
+def test_device_nn_dists_match_kdtree(card, case):
+    """The brute-force NN distances on the card against the host KD-tree at
+    20,000 points, rtol 1e-6 (float32 against float64)."""
+    from deep3dpointclouddenoising_torch import evaluate
+    rng = np.random.default_rng(12)
+    y = rng.normal(size=(20000, 3)).astype(np.float32)
+    if case == "random":
+        x = rng.normal(size=(20000, 3)).astype(np.float32)
+    else:
+        step = rng.normal(size=y.shape)
+        step *= rng.uniform(1e-4, 1e-3, size=(len(y), 1)) / np.linalg.norm(
+            step, axis=1, keepdims=True)
+        x = (y + step).astype(np.float32)
+    got = evaluate._nn_dists_device(x, y, device=card)
+    np.testing.assert_allclose(got, evaluate._nn_dists(x, y), rtol=1e-6)
+    table = evaluate.chamfer_ratio_table([y], [x], [x], device=True)
+    want = evaluate.chamfer_ratio_table([y], [x], [x])
+    np.testing.assert_allclose(table["mean"]["cd_noisy"],
+                               want["mean"]["cd_noisy"], rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_votes", [1, 2])
+def test_device_voting_matches_host_voting(card, tmp_path, num_votes):
+    """Device voting through the kernel path of a small l1.yaml model
+    against host voting on a two-shape tree: per point within rtol 1e-5 /
+    atol 1e-6, with the same forward launches."""
+    from deep3dpointclouddenoising_torch import infer
+    from deep3dpointclouddenoising_torch.data.offset_dataset import \
+        OffsetDataset
+    from deep3dpointclouddenoising_torch.data.synthetic import (
+        make_icosphere, make_torus)
+    cfg = load_config(L1_YAML, {"width": 16, "num_points": 128})
+    ds = OffsetDataset(str(tmp_path), "qualitative_test", in_radius=0.3,
+                       num_points=128, num_points_per_shape=3000,
+                       sample_dl_patches=0.2, seed=1,
+                       shapes={"qualitative_test/sphere": make_icosphere(2),
+                               "qualitative_test/torus": make_torus()})
+    torch.manual_seed(0)
+    predict = infer.make_predict_fn(OffsetRegressionModel(cfg).to(card))
+    before = tkp.kpconv_aggregate.launches
+    host = infer.predict_offsets_voting(predict, ds, 16, num_votes)
+    mid = tkp.kpconv_aggregate.launches
+    dev = infer.predict_offsets_voting_device(predict, ds, 16, num_votes,
+                                              device=card)
+    batches = -(-len(ds) // 16)
+    assert mid - before == tkp.kpconv_aggregate.launches - mid \
+        == 10 * batches * num_votes
+    for h, d in zip(host, dev):
+        assert np.isfinite(d).all() and np.abs(h).max() > 0
+        np.testing.assert_allclose(d, h, rtol=1e-5, atol=1e-6)

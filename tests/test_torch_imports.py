@@ -39,7 +39,9 @@ def test_port_has_every_module_of_the_slice():
                  "losses.build", "train.lr_schedule", "train.trainer",
                  "train.__main__", "utils.metrics", "utils.checkpoint",
                  "utils.grad_check",
-                 "profile_serving"):
+                 "profile_serving", "evaluate", "compute_cd",
+                 "measure_performance", "make_synthetic_dataset",
+                 "data.device_sampler"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
