@@ -5,7 +5,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports the port, torch, numpy and scipy only, and goes through nine
+It imports the port, torch, numpy and scipy only, and goes through ten
 phases, each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
@@ -66,6 +66,27 @@ phases, each printed with its wall time:
    ``compute_cd`` on every output tree with and without ``--device``, the
    two tables within rtol 1e-5 per entry, and ``measure_performance`` once.
    The weights are barely trained, so no CD ratio is held to a value.
+10. cleaning (this slice's path), on phase 9's shape tree: the
+   full-cleaning train entry point on ``cfgs/synthetic_quality_cleaning.yaml``
+   and the train entry point on ``cfgs/synthetic_quality_chamfer_l1.yaml``
+   at width 144, DEPLOY_STEPS steps each on clouds of DEPLOY_TRAIN_POINTS
+   points, every loss finite and 10 forward and 10 backward launches per
+   step; then ``infer --full_cleaning`` on CLEANING_SHAPE alone at full
+   size (140,000 points, 40% box outliers, gaussian sigma 0.5%) with host
+   voting and with ``--device_voting``, one vote each, CLEANING_BATCHES
+   batches and 10 forward launches per batch on each path; device offsets
+   and outlier probabilities within rtol 1e-5 / atol 1e-6 of the host's,
+   ``keep`` identical but for points within 1e-6 of the 0.5 threshold
+   (counted); the points/s, the points removed, the removal's precision
+   and recall against ``gt_outlier`` and the ``compute_cd`` tables (with
+   and without ``--device``); then the Chamfer-L1 loss and its gradient
+   on one real B=16, N=500 batch on the card against the same call on the
+   CPU: matched indices equal but at near-ties (a squared-distance gap
+   under 1e-6 of the distance, counted), the value within rtol 1e-5, the
+   gradient within rtol 1e-4 / atol 1e-6 of its max-abs on the rows no
+   tie touches; then a profiler window over train steps of each of the
+   two models on a validation batch.  No CD ratio, precision or recall is
+   held to a value.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -93,11 +114,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from deep3dpointclouddenoising_torch import compute_cd, infer, \
-    make_synthetic_dataset, measure_performance
+    make_synthetic_dataset, measure_performance, train_full_cleaning
 from deep3dpointclouddenoising_torch.config import load_config
+from deep3dpointclouddenoising_torch.data.loader import BatchLoader
 from deep3dpointclouddenoising_torch.data.meshio import save_off
+from deep3dpointclouddenoising_torch.data.offset_dataset import OffsetDataset
 from deep3dpointclouddenoising_torch.data.synthetic import (make_icosphere,
                                                             make_torus)
+from deep3dpointclouddenoising_torch.losses import chamfer
+from deep3dpointclouddenoising_torch.losses.build import \
+    get_offset_regression_loss
 from deep3dpointclouddenoising_torch.models import local_aggregation
 from deep3dpointclouddenoising_torch.models.build import \
     build_offset_regression
@@ -141,6 +167,20 @@ DEPLOY_SHAPES = ("cylinder_t", "ellipsoid_t")
 DEPLOY_LEVELS = ((0.001, True), (0.005, False))
 VOTE_TOL = dict(rtol=1e-5, atol=1e-6)
 CD_RTOL = 1e-5
+# cleaning phase: the full-cleaning and Chamfer configs trained, the shape
+# cleaned (40% box outliers, gaussian sigma 0.5%), its batches of 16 at
+# 140,000 points (12,078 patches), the band around the outlier threshold
+# where host and device may decide apart, and the Chamfer tie and gradient
+# tolerances
+CLEANING_CONFIG = "synthetic_quality_cleaning"
+CHAMFER_CONFIG = "synthetic_quality_chamfer_l1"
+CLEANING_SHAPE = "cylinder_t"
+CLEANING_LEVEL = 0.005
+CLEANING_BATCHES = 755
+KEEP_BAND = 1e-6
+TIE_GAP = 1e-6
+CHAMFER_RTOL = 1e-5
+CHAMFER_GRAD_TOL = dict(rtol=1e-4, atol_frac=1e-6)
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # flagship forward, B=16, P=15
 FLAGSHIP_CALLS = [
@@ -772,10 +812,12 @@ def phase_training(cfg, device, workdir):
     return fwd, bwd
 
 
-def train_short(config: str, data_root: str, log_dir: str, cfg):
-    """``DEPLOY_STEPS`` steps of the train entry point at full width on
-    clouds of ``DEPLOY_TRAIN_POINTS`` points; returns the forward and
-    backward kernel launches."""
+def train_short(config: str, data_root: str, log_dir: str, cfg,
+                entry=train_cli.main):
+    """``DEPLOY_STEPS`` steps of a train entry point (``entry``, the
+    offset one by default) at full width on clouds of
+    ``DEPLOY_TRAIN_POINTS`` points; returns the forward and backward
+    kernel launches and the entry point's summary."""
     argv = ["--config_file", os.path.join(ROOT, "cfgs", config + ".yaml"),
             "--data_root", data_root, "--log_dir", log_dir,
             "--num_steps", str(DEPLOY_STEPS * int(cfg.batch_size)),
@@ -783,7 +825,7 @@ def train_short(config: str, data_root: str, log_dir: str, cfg):
             str(DEPLOY_TRAIN_POINTS), "--device", "cuda"]
     kpconv_aggregate.launches = 0
     kpconv_aggregate_backward.launches = 0
-    summary = train_cli.main(argv)
+    summary = entry(argv)
     fwd, bwd = kpconv_aggregate.launches, kpconv_aggregate_backward.launches
     steps, val_batches = summary["steps"], summary["val_batches"]
     if steps != DEPLOY_STEPS or (fwd, bwd) != (
@@ -797,8 +839,9 @@ def train_short(config: str, data_root: str, log_dir: str, cfg):
     print(f"{config}: {steps} steps, val batches {val_batches}; launches: "
           f"forward {fwd}, backward {bwd}; train loss first {losses[0]:.6f}"
           f" last {summary['train_losses'][-1]:.6f}; val loss "
-          f"{summary['val_losses']}", flush=True)
-    return fwd, bwd
+          f"{summary['val_losses']}; ms per step (host clock, data loading "
+          f"included) {summary['ms_per_step'][0]:.3f}", flush=True)
+    return fwd, bwd, summary
 
 
 def routed_infer(argv, batch: int, votes: int, expect_low_ckpt: str,
@@ -872,7 +915,7 @@ def phase_deployment(cfg, workdir):
     log_dir = os.path.join(workdir, "log")
     fwd = bwd = 0
     for config in DEPLOY_CONFIGS:
-        f, b = train_short(config, tree, log_dir, cfg)
+        f, b, _ = train_short(config, tree, log_dir, cfg)
         fwd, bwd = fwd + f, bwd + b
     deploy_root = os.path.join(workdir, "deploy")
     os.makedirs(os.path.join(deploy_root, "qualitative_test"))
@@ -930,6 +973,237 @@ def phase_deployment(cfg, workdir):
     return fwd, bwd
 
 
+def cleaning_infer(argv, batch: int, voting: str):
+    """One run of ``infer --full_cleaning`` on CLEANING_SHAPE: 10 forward
+    launches for each of CLEANING_BATCHES batches of ``batch`` patches, no
+    backward launch, every output finite and each kept point denoised;
+    returns the summary and the launches."""
+    kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
+    summary = infer.main(argv)
+    launches = kpconv_aggregate.launches
+    if kpconv_aggregate_backward.launches:
+        raise AssertionError("cleaning launched the backward kernel")
+    dataset = summary["dataset"]
+    batches = -(-len(dataset) // batch)
+    if (batches, launches) != (CLEANING_BATCHES, 10 * CLEANING_BATCHES):
+        raise AssertionError(
+            f"{voting} cleaning: {len(dataset)} patches, {batches} batches, "
+            f"{launches} forward launches; expected {CLEANING_BATCHES} "
+            f"batches and {10 * CLEANING_BATCHES} launches")
+    for res, shape in zip(summary["results"], dataset.shapes):
+        n = len(shape.points)
+        if res["offsets"].shape != (n, 3) \
+                or res["outlier_prob"].shape != (n,) \
+                or not np.isfinite(res["offsets"]).all() \
+                or not np.isfinite(res["outlier_prob"]).all() \
+                or res["denoised"].shape != (int(res["keep"].sum()), 3):
+            raise AssertionError(f"{voting} cleaning: bad outputs")
+    return summary, launches
+
+
+def compare_cleaning(dev, host):
+    """Device cleaning against host cleaning per point: offsets and outlier
+    probabilities within VOTE_TOL, ``keep`` identical but within KEEP_BAND
+    of 0.5; returns the max abs differences, the points in the band with a
+    probability other than 0.5, and those at exactly 0.5 on both paths (a
+    point no patch covered has no vote: logit 0, dropped on both)."""
+    offs = check_votes(dev, host, "full cleaning")
+    band = unvoted = 0
+    for d, h in zip(dev["results"], host["results"]):
+        prob = check_close(
+            torch.from_numpy(d["outlier_prob"]).double(),
+            torch.from_numpy(h["outlier_prob"]).double(),
+            what="full cleaning: device outlier probability against host",
+            **VOTE_TOL)[0]
+        near = (np.abs(h["outlier_prob"] - infer.OUTLIER_THRESHOLD)
+                < KEEP_BAND) \
+            | (np.abs(d["outlier_prob"] - infer.OUTLIER_THRESHOLD)
+               < KEEP_BAND)
+        apart = (d["keep"] != h["keep"]) & ~near
+        if apart.any():
+            raise AssertionError(f"full cleaning: {int(apart.sum())} points "
+                                 "kept on one path and dropped on the other")
+        half = (h["outlier_prob"] == 0.5) & (d["outlier_prob"] == 0.5)
+        band += int((near & ~half).sum())
+        unvoted += int(half.sum())
+    return offs, prob, band, unvoted
+
+
+def removal_scores(res):
+    """Points removed, and the removal's precision and recall against the
+    ground-truth outlier labels."""
+    removed = ~res["keep"]
+    outlier = res["labels"] == 1
+    hit = int((removed & outlier).sum())
+    return (int(removed.sum()), hit / max(int(removed.sum()), 1),
+            hit / max(int(outlier.sum()), 1))
+
+
+def chamfer_ties(x, y, y_mask, idx_a, idx_b):
+    """Where two nearest-neighbour searches of x in y matched different
+    points: a tie when the two matches' squared distances (float64) differ
+    by at most TIE_GAP of the smaller; raises on any other mismatch;
+    returns the tie mask (B, P1)."""
+    xd, yd = x.double(), y.double()
+
+    def d2(idx):
+        return ((xd - torch.gather(yd, 1, idx[..., None].expand(-1, -1, 3)))
+                ** 2).sum(-1)
+
+    da, db = d2(idx_a), d2(idx_b)
+    apart = idx_a != idx_b
+    tie = apart & ((da - db).abs() <= TIE_GAP * torch.minimum(da, db))
+    if (apart & ~tie).any():
+        raise AssertionError(
+            f"Chamfer search: {int((apart & ~tie).sum())} matches differ "
+            "between the card and the CPU beyond a near-tie")
+    return tie & (y_mask.sum(1, keepdim=True) > 0)
+
+
+def val_batch(tcfg, tree):
+    """The first validation batch (B=16, N=500) of the tree at
+    DEPLOY_TRAIN_POINTS points per cloud, with the config's noise and
+    outliers."""
+    ds = OffsetDataset(tree, "val", in_radius=tcfg.in_radius,
+                       num_points=tcfg.num_points, num_steps=16,
+                       num_epochs=1, noise_type=tcfg.noise_type,
+                       noise_level=tcfg.noise_level,
+                       num_points_per_shape=DEPLOY_TRAIN_POINTS,
+                       outlier_proportion=tcfg.outlier_percentage,
+                       seed=tcfg.rng_seed)
+    return next(iter(BatchLoader(ds, int(tcfg.batch_size)).epoch_iter(0)))
+
+
+def phase_chamfer_loss(trainer, batch):
+    """The Chamfer-L1 loss and its gradient in ``pred`` on one real batch
+    (``pred`` is the trained model's forward), on the card against the
+    same call on the CPU."""
+    tcfg = trainer.cfg
+    card = {k: torch.from_numpy(batch[k]).cuda()
+            for k in ("points", "mask", "features", "offsets")}
+    trainer.model.eval()
+    with torch.no_grad():
+        pred = trainer.model(card["points"], card["mask"], card["features"])
+    loss_fn = get_offset_regression_loss(tcfg.loss)
+    out = {}
+    for where, dev in (("cuda", torch.device("cuda")),
+                       ("cpu", torch.device("cpu"))):
+        p = pred.detach().to(dev).requires_grad_(True)
+        points, mask, offsets = (card[k].to(dev)
+                                 for k in ("points", "mask", "offsets"))
+        loss = loss_fn(p, offsets, mask, points)
+        loss.backward()
+        clean, denoised = points + offsets, points + p.detach()
+        out[where] = dict(
+            loss=loss.item(), grad=p.grad.cpu(),
+            idx_x=chamfer.nearest_indices(clean, denoised, mask).cpu(),
+            idx_y=chamfer.nearest_indices(denoised, clean, mask).cpu())
+    clean = (card["points"] + card["offsets"]).cpu()
+    denoised = (card["points"] + pred).cpu()
+    mask = card["mask"].cpu()
+    g, c = out["cuda"], out["cpu"]
+    tie_x = chamfer_ties(clean, denoised, mask, g["idx_x"], c["idx_x"])
+    tie_y = chamfer_ties(denoised, clean, mask, g["idx_y"], c["idx_y"])
+    # rows of pred whose gradient a tie can move: the matches of a tied
+    # clean point, and a tied denoised point itself
+    touched = tie_y.long()
+    for idx in (g["idx_x"], c["idx_x"]):
+        touched.scatter_add_(1, torch.where(tie_x, idx, 0), tie_x.long())
+    rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    if rel > CHAMFER_RTOL:
+        raise AssertionError(f"Chamfer-L1 on the card {g['loss']} against "
+                             f"the CPU {c['loss']}")
+    rows = ~touched.bool()
+    scale = c["grad"].abs().max().item()
+    gmax, _ = check_close(
+        g["grad"][rows], c["grad"][rows], CHAMFER_GRAD_TOL["rtol"],
+        CHAMFER_GRAD_TOL["atol_frac"] * scale,
+        "Chamfer-L1 gradient, card against CPU")
+    t_ms = cuda_ms(lambda: loss_fn(pred.detach().requires_grad_(True),
+                                   card["offsets"], card["mask"],
+                                   card["points"]).backward(), 20)
+    print(f"Chamfer-L1 on one val batch {tuple(pred.shape)}: card "
+          f"{g['loss']:.8g}, CPU {c['loss']:.8g} (rel {rel:.2e}); matched "
+          f"indices apart at near-ties: {int(tie_x.sum())} clean->denoised, "
+          f"{int(tie_y.sum())} denoised->clean; gradient max abs diff "
+          f"{gmax:.3e} (max-abs {scale:.3e}) on {int(rows.sum())} of "
+          f"{rows.numel()} rows; loss forward+backward on the card "
+          f"{t_ms:.3f} ms (CUDA events)", flush=True)
+
+
+def phase_cleaning(cfg, workdir):
+    """This slice's path: full-cleaning and Chamfer-L1 training, and full
+    cleaning by host and device voting; returns the kernels' launches by
+    path: {"cleaning": (fwd, bwd), "chamfer": (fwd, bwd)}."""
+    tree = os.path.join(workdir, "shapes")
+    if not os.path.isdir(tree):
+        make_synthetic_dataset.write_tree(tree, verbose=False)
+    log_dir = os.path.join(workdir, "log_cleaning")
+    fwd, bwd, cleaning = train_short(CLEANING_CONFIG, tree, log_dir, cfg,
+                                     train_full_cleaning.main)
+    root = os.path.join(workdir, "cleaning")
+    os.makedirs(os.path.join(root, "qualitative_test"))
+    with open(os.path.join(tree, "qualitative_test",
+                           CLEANING_SHAPE + ".off")) as f:
+        text = f.read()
+    with open(os.path.join(root, "qualitative_test",
+                           CLEANING_SHAPE + ".off"), "w") as f:
+        f.write(text)
+    config = os.path.join(ROOT, "cfgs", CLEANING_CONFIG + ".yaml")
+    ckpt = os.path.join(log_dir, CLEANING_CONFIG, "current.pt")
+    runs = {}
+    for voting in ("host", "device"):
+        out_dir = os.path.join(workdir, f"out_cleaning_{voting}")
+        argv = ["--config_file", config, "--data_root", root,
+                "--out_dir", out_dir, "--checkpoint", ckpt,
+                "--checkpoint_low", "none", "--full_cleaning",
+                "--noise_type", "gaussian", "--noise_level",
+                str(CLEANING_LEVEL), "--device", "cuda"]
+        if voting == "device":
+            argv.append("--device_voting")
+        summary, launches = cleaning_infer(
+            argv, int(load_config(config).batch_size), voting)
+        fwd += launches
+        runs[voting] = summary
+        res = summary["results"][0]
+        n_points = len(res["keep"])
+        removed, precision, recall = removal_scores(res)
+        table, cd_rel = cd_tables(out_dir)
+        print(f"cleaning {CLEANING_SHAPE} {voting} voting: "
+              f"{n_points / summary['seconds']:.1f} points/s "
+              f"({summary['seconds']:.3f} s, {len(summary['dataset'])} "
+              f"patches), forward launches {launches}; removed {removed} of "
+              f"{n_points} (ground-truth outliers "
+              f"{int((res['labels'] == 1).sum())}): precision "
+              f"{precision:.4f}, recall {recall:.4f}; CD ratio "
+              f"{table[CLEANING_SHAPE]['ratio']:.4f} (cleaned "
+              f"{table[CLEANING_SHAPE]['cd_denoised']:.4e}, noisy "
+              f"{table[CLEANING_SHAPE]['cd_noisy']:.4e}; --device tables "
+              f"within {cd_rel:.2e} relative)", flush=True)
+    offs, prob, band, unvoted = compare_cleaning(runs["device"],
+                                                 runs["host"])
+    print(f"cleaning: device vs host max abs diff offsets {offs:.3e}, "
+          f"outlier probability {prob:.3e} (rtol {VOTE_TOL['rtol']} / atol "
+          f"{VOTE_TOL['atol']}); points within {KEEP_BAND} of the threshold "
+          f"(keep may differ there): {band}; points with no vote "
+          f"(probability 0.5 on both paths, dropped): {unvoted}", flush=True)
+    c_fwd, c_bwd, summary = train_short(CHAMFER_CONFIG, tree, log_dir, cfg)
+    trainer = summary["trainer"]
+    batch = val_batch(trainer.cfg, tree)
+    phase_chamfer_loss(trainer, batch)
+    # where a train step's device time goes, after the checks above (these
+    # steps move the two models on)
+    keys = ("points", "mask", "features", "offsets", "labels")
+    for t, b in ((cleaning["trainer"], val_batch(cleaning["trainer"].cfg,
+                                                 tree)), (trainer, batch)):
+        print(f"{t.cfg.experiment_name}: train steps on one validation "
+              "batch")
+        profile_train_steps(t, {k: torch.from_numpy(b[k]).cuda()
+                                for k in keys})
+    return {"cleaning": (fwd, bwd), "chamfer": (c_fwd, c_bwd)}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only-kernels"]):
@@ -976,15 +1250,20 @@ def main(argv=None) -> int:
         phase_model_grad(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("training"):
         train_fwd, train_bwd = phase_training(cfg, device, workdir)
-    with tempfile.TemporaryDirectory() as workdir, phase("deployment"):
-        deploy_fwd, deploy_bwd = phase_deployment(cfg, workdir)
-    # launches: this slice's path (deployment); every path's in the detail
-    record.update(launches=deploy_fwd, launches_by_path={
+    with tempfile.TemporaryDirectory() as workdir:
+        with phase("deployment"):
+            deploy_fwd, deploy_bwd = phase_deployment(cfg, workdir)
+        with phase("cleaning"):  # on the deployment phase's shape tree
+            cleaning = phase_cleaning(cfg, workdir)
+    # launches: this slice's path (cleaning); every path's in the detail
+    record.update(launches=cleaning["cleaning"][0], launches_by_path={
         "serving": serving_launches, "training": train_fwd,
-        "deployment": deploy_fwd})
-    bwd_record.update(launches=deploy_bwd, launches_by_path={
+        "deployment": deploy_fwd, "cleaning": cleaning["cleaning"][0],
+        "chamfer": cleaning["chamfer"][0]})
+    bwd_record.update(launches=cleaning["cleaning"][1], launches_by_path={
         "serving": 0, "training": train_bwd,  # inference checks its 0
-        "deployment": deploy_bwd})
+        "deployment": deploy_bwd, "cleaning": cleaning["cleaning"][1],
+        "chamfer": cleaning["chamfer"][1]})
     print(smi)
     print(json.dumps({"kernels": [record, bwd_record]}))
     print(json.dumps({"ok": True, "device": {

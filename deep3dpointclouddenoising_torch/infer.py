@@ -31,6 +31,18 @@ where each coordinate is one rounding of an exact sum of two exact
 products whatever the order or fused multiply-adds, so host and card
 agree bitwise; the rotated points are then rounded to float32.
 
+Full cleaning (``--full_cleaning``, :func:`clean_clouds`,
+:func:`clean_clouds_device`): the four-output model's first three
+channels pass through tanh in float32 where the model's output lies, on
+the card, before they are rotated back and vote, so the votes average
+physical offsets (tanh commutes neither with the rotation nor with the
+mean); the fourth channel, the outlierness logit, votes raw.  The
+averaged logit's sigmoid, in float32 on the host, is each point's outlier
+probability; points at or above ``OUTLIER_THRESHOLD`` (0.5) are dropped
+and the others denoised.  A checkpoint trained with ``cfg.norm`` predicts
+``tanh(raw) = offset / f``, so the physical offset is ``f * tanh(raw)``
+and the predictor leaves the outputs unscaled (``scale_outputs=False``).
+
 Routing (``--checkpoint_low``): each cloud's noise sigma is estimated
 train-free (``evaluate.estimate_noise_sigma``); clouds below
 ``--route_sigma`` take the low-noise checkpoint's predictions, the others
@@ -42,7 +54,7 @@ routed to.  Run it as::
         --out_dir O [--checkpoint L/<experiment>/current.pt] \\
         [--checkpoint_low auto|none|PATH] [--route_sigma 0.002] \\
         [--noise_type gaussian] [--noise_level 0.005] [--num_votes N] \\
-        [--device_voting] [--device cuda]
+        [--device_voting] [--full_cleaning] [--device cuda]
 
 The repository holds no trained checkpoint: without ``--checkpoint`` the
 model's weights are initialised from ``--seed`` (and nothing is routed).
@@ -64,9 +76,12 @@ from .data.loader import BatchLoader
 from .data.meshio import write_ply
 from .data.offset_dataset import OffsetDataset, fourier_input_mapping
 from .evaluate import estimate_noise_sigma
-from .models import build_offset_regression
+from .models import build_complete_denoising, build_offset_regression
 from .utils.checkpoint import load_model_state
 from .utils.device import resolve_device
+
+# full cleaning drops a point whose voted outlier probability reaches this
+OUTLIER_THRESHOLD = 0.5
 
 
 def _on(device, x) -> torch.Tensor:
@@ -78,15 +93,19 @@ def _on(device, x) -> torch.Tensor:
 
 
 def make_predict_fn(model: torch.nn.Module,
-                    norm_factor: Optional[float] = None
+                    norm_factor: Optional[float] = None,
+                    scale_outputs: bool = True
                     ) -> Callable[[Dict[str, np.ndarray]], torch.Tensor]:
     """Full-batch predictor on the model's device, in eval mode; the
     batch's arrays may be numpy arrays or tensors.
 
     ``norm_factor``: for checkpoints trained with ``cfg.norm`` (inputs and
-    targets divided by in_radius/100), patch inputs are scaled down and the
-    predicted offsets back up.  The returned tensor stays on the device, so
-    the caller decides when to wait for it.
+    targets divided by in_radius/100), patch inputs are scaled down and,
+    with ``scale_outputs``, the offset channels ``[..., :3]`` back up; a
+    fourth (outlierness) channel is never scaled.  Full cleaning passes
+    ``scale_outputs=False``: its offsets are ``f * tanh(raw)``, not
+    ``tanh(f * raw)``.  The returned tensor stays on the device, so the
+    caller decides when to wait for it.
     """
     model.eval()
     device = next(model.parameters()).device
@@ -100,7 +119,9 @@ def make_predict_fn(model: torch.nn.Module,
                 points = points / norm_factor
                 features = features / norm_factor
             out = model(points, mask, features)
-            return out * norm_factor if norm_factor else out
+            if norm_factor and scale_outputs:
+                out[..., :3] *= norm_factor
+            return out
 
     return predict
 
@@ -148,6 +169,17 @@ def _rotate(x, rot, back: bool = False):
         return torch.einsum(spec, x.double(), rot.double())
     return np.einsum(spec, np.asarray(x, np.float64),
                      np.asarray(rot, np.float64))
+
+
+def _tanh_offsets(pred):
+    """tanh of the three offset channels in float32 where ``pred`` lies
+    (a tensor on its device, or a numpy array), the other channels
+    unchanged."""
+    if isinstance(pred, torch.Tensor):
+        return torch.cat([torch.tanh(pred[..., :3]), pred[..., 3:]], dim=-1)
+    pred = np.array(pred)
+    pred[..., :3] = np.tanh(pred[..., :3])
+    return pred
 
 
 def _drain_one(in_flight: deque, sums, counts) -> None:
@@ -202,23 +234,28 @@ def _prepared_batches(loader, dataset, num_votes: int):
 
 
 def predict_offsets_voting(predict_fn, dataset: OffsetDataset,
-                           batch_size: int = 16, num_votes: int = 1
+                           batch_size: int = 16, num_votes: int = 1,
+                           num_outputs: int = 3, tanh_offsets: bool = False
                            ) -> List[np.ndarray]:
-    """Per-cloud vote-averaged offsets (P_cloud, 3).
+    """Per-cloud vote-averaged predictions (P_cloud, num_outputs).
 
     Rounds past the first rotate each patch by a random z-angle, predict,
-    and rotate the offsets back before they vote.  Up to two predictions
-    stay in flight, so the host prepares the next batch while the card
-    computes.
+    and rotate the offset channels back before they vote; with
+    ``tanh_offsets`` (full cleaning) the offset channels pass through tanh
+    first (:func:`_tanh_offsets`).  Up to two predictions stay in flight,
+    so the host prepares the next batch while the card computes.
     """
-    sums = [np.zeros((len(s.points), 3), np.float64)
+    sums = [np.zeros((len(s.points), num_outputs), np.float64)
             for s in dataset.shapes]
     counts = [np.zeros((len(s.points), 1), np.float64)
               for s in dataset.shapes]
     loader = BatchLoader(dataset, batch_size)
     in_flight: deque = deque()
     for batch, rot in _prepared_batches(loader, dataset, num_votes):
-        in_flight.append((predict_fn(batch), batch, rot))
+        pred = predict_fn(batch)
+        if tanh_offsets:
+            pred = _tanh_offsets(pred)
+        in_flight.append((pred, batch, rot))
         while len(in_flight) > 2:
             _drain_one(in_flight, sums, counts)
     while in_flight:
@@ -267,9 +304,11 @@ def _patch_tables(dataset: OffsetDataset, batch_size: int):
 
 def predict_offsets_voting_device(predict_fn, dataset: OffsetDataset,
                                   batch_size: int = 16, num_votes: int = 1,
-                                  device=None) -> List[np.ndarray]:
-    """Per-cloud vote-averaged offsets, voted on ``device`` (default: the
-    card; raises without one).
+                                  device=None, num_outputs: int = 3,
+                                  tanh_offsets: bool = False
+                                  ) -> List[np.ndarray]:
+    """Per-cloud vote-averaged predictions (P_cloud, num_outputs), voted
+    on ``device`` (default: the card; raises without one).
 
     The clouds and the patch tables are uploaded once.  Each batch (the
     host path's batches, the ragged last one included) is gathered on the
@@ -278,6 +317,8 @@ def predict_offsets_voting_device(predict_fn, dataset: OffsetDataset,
     device tensors and the batch's ``cloud_ind`` as a host array), rotated
     back and added into float64 sums and counts by ``index_add_``; a
     padding slot adds a vote of weight 0.  One copy back at the end.
+    ``tanh_offsets`` applies tanh to the offset channels before the
+    rotation back, as the host path does.
     """
     device = resolve_device(device)
     data = cloud_data(dataset, device)
@@ -287,7 +328,7 @@ def predict_offsets_voting_device(predict_fn, dataset: OffsetDataset,
         inds_h, cnts_h, cis_h, centres_h))
     n, N = inds.shape
     slots = torch.arange(N, device=device)
-    sums = torch.zeros((n_clouds * max_n, 3), dtype=torch.float64,
+    sums = torch.zeros((n_clouds * max_n, num_outputs), dtype=torch.float64,
                        device=device)
     counts = torch.zeros(n_clouds * max_n, dtype=torch.float64,
                          device=device)
@@ -311,14 +352,19 @@ def predict_offsets_voting_device(predict_fn, dataset: OffsetDataset,
                     feats = pts
                 pred = predict_fn({"points": pts, "mask": mask,
                                    "features": feats,
-                                   "cloud_ind": cis_h[s:e]})[..., :3]
-                pred = _rotate(pred, rot, back=True) if rot is not None \
-                    else pred.double()
+                                   "cloud_ind": cis_h[s:e]})
+                if tanh_offsets:
+                    pred = _tanh_offsets(pred)
+                pred = pred.double()
+                if rot is not None:
+                    pred = torch.cat([_rotate(pred[..., :3], rot, back=True),
+                                      pred[..., 3:]], dim=-1)
                 keys = (ci[:, None] * max_n + pi).reshape(-1)
                 w = mask.double().reshape(-1)
-                sums.index_add_(0, keys, pred.reshape(-1, 3) * w[:, None])
+                sums.index_add_(0, keys,
+                                pred.reshape(-1, num_outputs) * w[:, None])
                 counts.index_add_(0, keys, w)
-    sums = sums.reshape(n_clouds, max_n, 3).cpu().numpy()
+    sums = sums.reshape(n_clouds, max_n, num_outputs).cpu().numpy()
     counts = counts.reshape(n_clouds, max_n, 1).cpu().numpy()
     return [(sums[i, :len(sh.points)]
              / np.maximum(counts[i, :len(sh.points)], 1.0)).astype(np.float32)
@@ -331,6 +377,50 @@ def denoise_clouds_device(predict_fn, dataset: OffsetDataset,
     """:func:`denoise_clouds` through the device voting path."""
     return _results(dataset, predict_offsets_voting_device(
         predict_fn, dataset, batch_size, num_votes, device))
+
+
+def _cleaned(dataset: OffsetDataset, raw: List[np.ndarray],
+             norm_factor: Optional[float]) -> List[Dict[str, np.ndarray]]:
+    """Per cloud, from the vote-averaged (P, 4) predictions: the offsets
+    (times ``norm_factor`` when set), the outlier probability (the
+    sigmoid of the averaged logit, float32), ``keep`` = probability below
+    ``OUTLIER_THRESHOLD``, the kept points denoised, the noisy cloud and
+    its labels."""
+    results = []
+    for shape, pred in zip(dataset.shapes, raw):
+        off = pred[:, :3].copy()
+        if norm_factor:
+            off = off * norm_factor
+        outlier_prob = 1.0 / (1.0 + np.exp(-pred[:, 3]))
+        keep = outlier_prob < OUTLIER_THRESHOLD
+        results.append({"noisy": shape.points, "offsets": off,
+                        "outlier_prob": outlier_prob, "keep": keep,
+                        "denoised": (shape.points + off)[keep],
+                        "labels": shape.labels})
+    return results
+
+
+def clean_clouds(predict_fn, dataset: OffsetDataset, batch_size: int = 16,
+                 norm_factor: Optional[float] = None, num_votes: int = 1
+                 ) -> List[Dict[str, np.ndarray]]:
+    """Full-cleaning inference by host voting: points predicted as
+    outliers are dropped, the others denoised (:func:`_cleaned`).
+    ``predict_fn`` gives the raw (B, N, 4) outputs (``scale_outputs``
+    off)."""
+    return _cleaned(dataset, predict_offsets_voting(
+        predict_fn, dataset, batch_size, num_votes, num_outputs=4,
+        tanh_offsets=True), norm_factor)
+
+
+def clean_clouds_device(predict_fn, dataset: OffsetDataset,
+                        batch_size: int = 16,
+                        norm_factor: Optional[float] = None,
+                        num_votes: int = 1, device=None
+                        ) -> List[Dict[str, np.ndarray]]:
+    """:func:`clean_clouds` through the device voting path."""
+    return _cleaned(dataset, predict_offsets_voting_device(
+        predict_fn, dataset, batch_size, num_votes, device, num_outputs=4,
+        tanh_offsets=True), norm_factor)
 
 
 def make_dataset(cfg: Config, data_root: str,
@@ -346,12 +436,15 @@ def make_dataset(cfg: Config, data_root: str,
 
 
 def load_model(cfg: Config, device, checkpoint: Optional[str] = None,
-               seed: int = 0) -> torch.nn.Module:
-    """The offset model in eval mode on ``device``: weights from a
-    checkpoint (a training checkpoint or a saved ``state_dict``), else
-    initialised by a generator seeded with ``seed``."""
-    model = build_offset_regression(
-        cfg, generator=torch.Generator().manual_seed(seed))
+               seed: int = 0, full_cleaning: bool = False
+               ) -> torch.nn.Module:
+    """The offset model (the full-cleaning model with ``full_cleaning``)
+    in eval mode on ``device``: weights from a checkpoint (a training
+    checkpoint or a saved ``state_dict``), else initialised by a generator
+    seeded with ``seed``."""
+    build = build_complete_denoising if full_cleaning \
+        else build_offset_regression
+    model = build(cfg, generator=torch.Generator().manual_seed(seed))
     if checkpoint:
         model.load_state_dict(load_model_state(checkpoint))
     return model.to(device).eval()
@@ -379,7 +472,8 @@ def _auto_low_checkpoint(checkpoint: str) -> Optional[str]:
 
 def write_results(out_dir: str, dataset: OffsetDataset,
                   results: List[Dict[str, np.ndarray]]) -> None:
-    """noisy/, denoised/ and clean/ PLY trees."""
+    """noisy/ (with ``gt_outlier``), denoised/ (the kept points only,
+    after full cleaning) and clean/ PLY trees."""
     for sub in ("noisy", "denoised", "clean"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
     for name, shape, res in zip(dataset.cloud_names, dataset.shapes,
@@ -399,13 +493,15 @@ def run(config_file: str, data_root: str, out_dir: str,
         device=None, noise_type: Optional[str] = None,
         noise_level: Optional[float] = None,
         checkpoint_low: Optional[str] = "auto", route_sigma: float = 0.002,
-        device_voting: bool = False) -> Dict:
+        device_voting: bool = False, full_cleaning: bool = False) -> Dict:
     """The command line's work: denoise every ``qualitative_test`` shape
     under ``data_root`` and write the PLY trees.
 
     ``noise_type`` / ``noise_level`` override the config's eval noise.
     ``checkpoint_low``: a low-noise checkpoint, ``"auto"`` (the sibling
     that :func:`_auto_low_checkpoint` finds, if any) or None / ``"none"``.
+    ``full_cleaning``: the four-output model, :func:`clean_clouds` (or
+    :func:`clean_clouds_device`), outputs left unscaled by the predictor.
     Returns a summary: the dataset, the per-cloud results, the seconds the
     voting took, the low checkpoint, and per cloud the estimated sigma and
     whether it routed low (empty without routing)."""
@@ -416,11 +512,12 @@ def run(config_file: str, data_root: str, out_dir: str,
     if noise_level is not None:
         cfg.noise_level = noise_level
     dataset = make_dataset(cfg, data_root)
-    model = load_model(cfg, device, checkpoint, seed)
+    model = load_model(cfg, device, checkpoint, seed, full_cleaning)
     print(f"weights: {checkpoint}" if checkpoint else
           f"weights: no checkpoint, initialised from --seed {seed}")
     norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
-    predict = make_predict_fn(model, norm_factor=norm_factor)
+    scale_outputs = not full_cleaning
+    predict = make_predict_fn(model, norm_factor, scale_outputs)
     if checkpoint_low == "auto":
         checkpoint_low = _auto_low_checkpoint(checkpoint) \
             if checkpoint else None
@@ -437,16 +534,24 @@ def run(config_file: str, data_root: str, out_dir: str,
             print(f"route {os.path.basename(name)}: est sigma {sg:.2e} -> "
                   f"{'LOW' if lo else 'HIGH'}-noise checkpoint")
         predict_lo = make_predict_fn(
-            load_model(cfg, device, checkpoint_low), norm_factor=norm_factor)
+            load_model(cfg, device, checkpoint_low,
+                       full_cleaning=full_cleaning), norm_factor,
+            scale_outputs)
         predict = make_routed_predict_fn(predict, predict_lo, route_low)
     t0 = time.perf_counter()
-    if device_voting:
-        results = denoise_clouds_device(predict, dataset,
-                                        int(cfg.batch_size), num_votes,
-                                        device)
+    batch_size = int(cfg.batch_size)
+    if full_cleaning and device_voting:
+        results = clean_clouds_device(predict, dataset, batch_size,
+                                      norm_factor=norm_factor,
+                                      num_votes=num_votes, device=device)
+    elif full_cleaning:
+        results = clean_clouds(predict, dataset, batch_size,
+                               norm_factor=norm_factor, num_votes=num_votes)
+    elif device_voting:
+        results = denoise_clouds_device(predict, dataset, batch_size,
+                                        num_votes, device)
     else:
-        results = denoise_clouds(predict, dataset, int(cfg.batch_size),
-                                 num_votes)
+        results = denoise_clouds(predict, dataset, batch_size, num_votes)
     seconds = time.perf_counter() - t0
     write_results(out_dir, dataset, results)
     return {"dataset": dataset, "results": results, "seconds": seconds,
@@ -484,6 +589,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     p.add_argument("--num_votes", type=int, default=1)
     p.add_argument("--device_voting", action="store_true",
                    help="gather patches and sum the votes on the device")
+    p.add_argument("--full_cleaning", action="store_true",
+                   help="the four-output model: drop the points predicted "
+                        "as outliers and denoise the others")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -491,7 +599,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         args.config_file, args.data_root, args.out_dir, args.checkpoint,
         args.num_votes, args.seed, args.device, args.noise_type,
         args.noise_level, args.checkpoint_low, args.route_sigma,
-        args.device_voting)
+        args.device_voting, args.full_cleaning)
     dataset, seconds = summary["dataset"], summary["seconds"]
     n_points = sum(len(s.points) for s in dataset.shapes)
     print(f"denoised {len(summary['results'])} clouds ({n_points} points, "
@@ -499,6 +607,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
           f"{'device' if args.device_voting else 'host'} voting) in "
           f"{seconds:.3f} s = {n_points / seconds:.1f} points/s; wrote "
           f"{args.out_dir}")
+    if args.full_cleaning:
+        removed = sum(int((~r["keep"]).sum()) for r in summary["results"])
+        print(f"full cleaning removed {removed} of {n_points} points as "
+              "outliers")
     return summary
 
 

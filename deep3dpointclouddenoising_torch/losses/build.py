@@ -1,26 +1,83 @@
 """Loss selection by config name.
 
-Counterpart of ``get_offset_regression_loss`` in
-``deep3dpointclouddenoising_tpu/losses/build.py:29-48``.  The losses are
-callables ``loss(pred, target, mask, points=None) -> scalar``.
+Counterpart of ``deep3dpointclouddenoising_tpu/losses/build.py:29-88``:
+
+* :func:`get_offset_regression_loss`: ``loss(pred, target, mask,
+  points=None) -> scalar`` for the offset head;
+* :func:`get_complete_denoising_loss`: ``loss(raw_pred, offsets, labels,
+  mask) -> scalar`` for the full-cleaning head (three offset channels and
+  an outlierness channel).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
 
-from .masked import masked_l1_loss
+from .chamfer import (masked_adaptive_l1_chamfer_loss,
+                      masked_chamfer_l1_loss, masked_chamfer_loss)
+from .masked import (masked_binary_cross_entropy, masked_l1_loss,
+                     masked_offset_loss, masked_outlier_loss)
 
 LossFn = Callable[..., torch.Tensor]
 
 
 def get_offset_regression_loss(name: str) -> LossFn:
-    """loss(pred, target, mask, points) -> scalar.  Only ``"L1"`` is
-    ported; the Chamfer losses are queued in ROADMAP.md."""
+    """loss(pred, target, mask, points) -> scalar."""
     if name == "L1":
         return lambda pred, target, mask, points=None: \
             masked_l1_loss(pred, target, mask)
-    raise NotImplementedError(
-        f"loss {name!r} is not ported yet; the port's queue (Chamfer "
-        "losses and the rest) is in ROADMAP.md")
+    if name == "chamfer_L1":
+        return masked_chamfer_l1_loss
+    if name == "chamfer":
+        return masked_chamfer_loss
+    if name == "chamfer_sparse":
+        return partial(masked_chamfer_loss, norm_type="L1")
+    if name == "l1_chamfer_sparse":
+        return partial(masked_chamfer_l1_loss, norm_type="L1")
+    if name == "l1_chamfer_adaptive_to_chamfer":
+        return partial(masked_adaptive_l1_chamfer_loss,
+                       converging_to="chamfer")
+    if name == "l1_chamfer_adaptive_to_l1":
+        return partial(masked_adaptive_l1_chamfer_loss, converging_to="L1")
+    raise ValueError(f"The loss {name} is not implemented")
+
+
+def get_complete_denoising_loss(name: str, in_radius: float) -> LossFn:
+    """The full-cleaning loss over a (B, N, 4) head output: tanh of the
+    first three channels are the offsets, the sigmoid of the fourth
+    (its logit clipped to +-30) the outlier probability.
+
+    loss(raw_pred, offsets (B, N, 3), labels (B, N), mask (B, N)) =
+    offset loss + outlier loss * in_radius, by ``name``:
+
+    * ``L1_classification``: masked L1 of the offsets; the cross-entropy
+      over every slot, padding included;
+    * ``Weighted_L1_classification``: the same, with the L1 masked by
+      ``max(mask, p >= 0.5)``, so a padding slot predicted as an outlier
+      counts in the L1 mean; that mask carries no gradient;
+    * ``double_weight``: the L1 weighted by 1/||offset|| and the
+      cross-entropy by ||offset||, both masked.
+    """
+    if name not in ("L1_classification", "Weighted_L1_classification",
+                    "double_weight"):
+        raise ValueError(f"Loss {name} not implemented.")
+
+    def loss(raw_pred, offsets, outlier_labels, mask):
+        pred_offsets = torch.tanh(raw_pred[..., :3])
+        logit = torch.clamp(raw_pred[..., 3], -30.0, 30.0)
+        prob = 1.0 / (1.0 + torch.exp(-logit))
+        if name == "double_weight":
+            lo = masked_offset_loss(pred_offsets, offsets, mask)
+            lc = masked_outlier_loss(prob, outlier_labels, offsets, mask)
+        else:
+            if name == "Weighted_L1_classification":
+                mask = torch.maximum(
+                    mask, (prob.detach() >= 0.5).to(mask.dtype))
+            lo = masked_l1_loss(pred_offsets, offsets, mask)
+            lc = masked_binary_cross_entropy(prob, outlier_labels,
+                                             torch.ones_like(prob))
+        return lo + lc * in_radius
+
+    return loss

@@ -1,4 +1,5 @@
-"""Offset-regression training on one card.
+"""Offset-regression training on one card, and the epoch loop that
+full-cleaning training (``train_full_cleaning``) shares.
 
 Counterpart of ``scripts/train.py`` for one device: the same config file
 and overrides, epochs of train steps over the ``train`` split with a
@@ -39,10 +40,19 @@ _OVERRIDES = ("batch_size", "num_points", "width", "num_steps", "epochs",
               "num_points_per_shape")
 
 
-def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(
-        "python -m deep3dpointclouddenoising_torch.train",
-        description="Offset-regression training on one card.")
+_CLIS = {
+    "offset": ("python -m deep3dpointclouddenoising_torch.train",
+               "Offset-regression training on one card."),
+    "full_cleaning": (
+        "python -m deep3dpointclouddenoising_torch.train_full_cleaning",
+        "Full-cleaning training (offsets and outlierness) on one card."),
+}
+
+
+def parse_args(argv: Optional[List[str]] = None,
+               loss_mode: str = "offset") -> argparse.Namespace:
+    prog, description = _CLIS[loss_mode]
+    p = argparse.ArgumentParser(prog, description=description)
     p.add_argument("--config_file", required=True)
     p.add_argument("--data_root", required=True)
     p.add_argument("--batch_size", type=int)
@@ -76,11 +86,13 @@ def _normed(batch: Dict[str, np.ndarray], norm_factor: Optional[float]):
     return batch
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Train; returns a summary: every train loss, the val losses, ms per
-    step of each epoch, the step count, val batches and the last
-    checkpoint's path."""
-    args = parse_args(argv)
+def main(argv: Optional[List[str]] = None,
+         loss_mode: str = "offset") -> Dict[str, Any]:
+    """Train the model of ``loss_mode`` (``Trainer``'s: ``"offset"`` or
+    ``"full_cleaning"``); returns a summary: every train loss, the val
+    losses, ms per step of each epoch, the step count, val batches and the
+    last checkpoint's path."""
+    args = parse_args(argv, loss_mode)
     device = resolve_device(args.device)
     cfg = load_config(args.config_file,
                       {k: getattr(args, k) for k in _OVERRIDES
@@ -108,7 +120,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
           f"{len(val_ds)}", flush=True)
     trainer = Trainer(cfg, len(train_loader),
                       torch.Generator().manual_seed(int(cfg.rng_seed)),
-                      device)
+                      device, loss_mode=loss_mode)
     norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
     summary: Dict[str, Any] = {"train_losses": [], "val_losses": [],
                                "ms_per_step": [], "val_batches": 0}

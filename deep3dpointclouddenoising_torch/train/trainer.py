@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..losses.build import get_offset_regression_loss
-from ..models import build_offset_regression
+from ..losses.build import (get_complete_denoising_loss,
+                            get_offset_regression_loss)
+from ..models import build_complete_denoising, build_offset_regression
 from ..utils.device import resolve_device
 from .lr_schedule import Schedule, get_lr_schedule
 
@@ -112,22 +113,40 @@ Batch = Dict[str, np.ndarray]
 
 
 class Trainer:
-    """The offset-regression model, its loss and its optimizer on one
-    device.
+    """A model, its loss and its optimizer on one device.
+
+    ``loss_mode`` selects the task and the loss's call:
+
+    * ``"offset"``: the offset-regression model,
+      ``loss(pred, offsets, mask, points)``;
+    * ``"full_cleaning"``: the full-cleaning model (four outputs),
+      ``loss(pred, offsets, labels, mask)``.
 
     ``batch`` is a dict of numpy arrays (or tensors) with ``points``
-    (B, N, 3), ``mask`` (B, N), ``features`` (B, N, C) and ``offsets``
-    (B, N, 3), as ``OffsetDataset.get`` and ``collate`` make them.  The
-    model's initial weights come from ``generator``.
+    (B, N, 3), ``mask`` (B, N), ``features`` (B, N, C), ``offsets``
+    (B, N, 3) and ``labels`` (B, N), as ``OffsetDataset.get`` and
+    ``collate`` make them.  The model's initial weights come from
+    ``generator``.
     """
 
     def __init__(self, cfg: Config, n_iter_per_epoch: int,
                  generator: Optional[torch.Generator] = None, device=None,
-                 loss_fn: Optional[Callable] = None):
+                 loss_fn: Optional[Callable] = None,
+                 loss_mode: str = "offset"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_offset_regression(cfg, generator).to(self.device)
-        self.loss_fn = loss_fn or get_offset_regression_loss(cfg.loss)
+        self.loss_mode = loss_mode
+        if loss_mode == "offset":
+            model = build_offset_regression(cfg, generator)
+            default_loss = get_offset_regression_loss(cfg.loss)
+        elif loss_mode == "full_cleaning":
+            model = build_complete_denoising(cfg, generator)
+            default_loss = get_complete_denoising_loss(
+                cfg.loss, float(cfg.in_radius))
+        else:
+            raise ValueError(f"loss_mode {loss_mode!r} is not ported")
+        self.model = model.to(self.device)
+        self.loss_fn = loss_fn or default_loss
         self.optimizer, self.lr_schedule = make_optimizer(
             cfg, self.model.parameters(), n_iter_per_epoch)
 
@@ -147,6 +166,9 @@ class Trainer:
         points, mask, features, offsets = self._inputs(
             batch, "points", "mask", "features", "offsets")
         pred = self.model(points, mask, features)
+        if self.loss_mode == "full_cleaning":
+            labels, = self._inputs(batch, "labels")
+            return self.loss_fn(pred, offsets, labels, mask)
         return self.loss_fn(pred, offsets, mask, points)
 
     def train_step(self, batch: Batch) -> torch.Tensor:

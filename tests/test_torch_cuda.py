@@ -411,3 +411,81 @@ def test_device_voting_matches_host_voting(card, tmp_path, num_votes):
     for h, d in zip(host, dev):
         assert np.isfinite(d).all() and np.abs(h).max() > 0
         np.testing.assert_allclose(d, h, rtol=1e-5, atol=1e-6)
+
+
+# -- full cleaning and the Chamfer losses ------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_votes", [1, 2])
+def test_device_cleaning_matches_host_cleaning(card, tmp_path, num_votes):
+    """Full cleaning through the kernel path of a small four-output model
+    (its final Dense at O(0.1), so the outlier logits spread) on a tree
+    with 40% box outliers: device voting against host voting, offsets and
+    outlier probabilities within rtol 1e-5 / atol 1e-6, ``keep`` equal but
+    within 1e-6 of the threshold, the same forward launches."""
+    from deep3dpointclouddenoising_torch import infer
+    from deep3dpointclouddenoising_torch.data.offset_dataset import \
+        OffsetDataset
+    from deep3dpointclouddenoising_torch.data.synthetic import (
+        make_icosphere, make_torus)
+    from deep3dpointclouddenoising_torch.models import CompleteDenoisingModel
+    cfg = load_config(L1_YAML, {"width": 16, "num_points": 128})
+    ds = OffsetDataset(str(tmp_path), "qualitative_test", in_radius=0.3,
+                       num_points=128, num_points_per_shape=3000,
+                       outlier_proportion=0.4, sample_dl_patches=0.2, seed=1,
+                       shapes={"qualitative_test/sphere": make_icosphere(2),
+                               "qualitative_test/torus": make_torus()})
+    gen = torch.Generator().manual_seed(0)
+    model = CompleteDenoisingModel(cfg, gen)
+    with torch.no_grad():
+        model.MultiDimHead_0.Dense_0.weight.normal_(0.0, 0.1, generator=gen)
+    predict = infer.make_predict_fn(model.to(card), scale_outputs=False)
+    before = tkp.kpconv_aggregate.launches
+    host = infer.clean_clouds(predict, ds, 16, num_votes=num_votes)
+    mid = tkp.kpconv_aggregate.launches
+    dev = infer.clean_clouds_device(predict, ds, 16, num_votes=num_votes,
+                                    device=card)
+    batches = -(-len(ds) // 16)
+    assert mid - before == tkp.kpconv_aggregate.launches - mid \
+        == 10 * batches * num_votes
+    for h, d in zip(host, dev):
+        assert 0 < h["keep"].sum() < len(h["keep"])
+        np.testing.assert_allclose(d["offsets"], h["offsets"], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(d["outlier_prob"], h["outlier_prob"],
+                                   rtol=1e-5, atol=1e-6)
+        near = np.abs(h["outlier_prob"] - 0.5) < 1e-6
+        np.testing.assert_array_equal(d["keep"][~near], h["keep"][~near])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chamfer_L1", "chamfer_sparse",
+                                  "l1_chamfer_adaptive_to_l1"])
+def test_chamfer_losses_on_card_match_cpu(card, name):
+    """A Chamfer loss and its gradient on the card against the same call on
+    the CPU at B=16, N=500, patch-like clouds: the matched indices equal,
+    the value within rtol 1e-5, the gradient within rtol 1e-4 / atol 1e-6
+    of its max-abs (random points have no near-ties)."""
+    from deep3dpointclouddenoising_torch.losses import chamfer
+    from deep3dpointclouddenoising_torch.losses.build import \
+        get_offset_regression_loss
+    rng = np.random.default_rng(21)
+    points = (rng.normal(size=(16, 500, 3)) * 0.02).astype(np.float32)
+    target = (rng.normal(size=(16, 500, 3)) * 1e-3).astype(np.float32)
+    pred = (target + rng.normal(size=target.shape) * 5e-4).astype(np.float32)
+    mask = np.ones((16, 500), np.float32)
+    mask[-1, 400:] = 0.0
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        p = torch.from_numpy(pred).to(dev).requires_grad_(True)
+        t, m, x = (torch.from_numpy(a).to(dev) for a in (target, mask,
+                                                         points))
+        loss = get_offset_regression_loss(name)(p, t, m, x)
+        loss.backward()
+        idx = chamfer.nearest_indices(x + t, x + p.detach(), m)
+        out[dev.type] = (loss.item(), p.grad.cpu(), idx.cpu())
+    (lg, gg, ig), (lc, gc, ic) = out["cuda"], out["cpu"]
+    assert torch.equal(ig, ic)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    torch.testing.assert_close(gg, gc, rtol=1e-4,
+                               atol=1e-6 * gc.abs().max().item())

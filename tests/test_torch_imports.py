@@ -41,7 +41,8 @@ def test_port_has_every_module_of_the_slice():
                  "utils.grad_check",
                  "profile_serving", "evaluate", "compute_cd",
                  "measure_performance", "make_synthetic_dataset",
-                 "data.device_sampler"):
+                 "data.device_sampler", "losses.chamfer",
+                 "train_full_cleaning"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 

@@ -455,8 +455,8 @@ def test_masked_l1_loss_matches_jax():
     np.testing.assert_allclose(got.item(), want, rtol=1e-6)
     assert masked_l1_loss(torch.zeros(1, 2, 3), torch.ones(1, 2, 3),
                           torch.zeros(1, 2)).item() == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_offset_regression_loss("chamfer")
+    with pytest.raises(ValueError, match="not implemented"):
+        get_offset_regression_loss("no_such_loss")
 
 
 def test_init_draws_only_from_its_generator():
