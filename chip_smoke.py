@@ -5,7 +5,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports the port, torch, numpy and scipy only, and goes through ten
+It imports the port, torch, numpy and scipy only, and goes through eleven
 phases, each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
@@ -87,6 +87,30 @@ phases, each printed with its wall time:
    tie touches; then a profiler window over train steps of each of the
    two models on a validation batch.  No CD ratio, precision or recall is
    held to a value.
+11. the 15k family (this slice's path):
+   ``cfgs/synthetic_quality_chamfer15k.yaml`` (Chamfer, Adam) and
+   ``cfgs/outliers_40_1e3.yaml`` (L1, SGD, 40% box outliers), width 144,
+   B=8, 15,000-slot patches on the 15k schedule (nsamples [26, 31, 38,
+   41, 39], npoints [4096, 1152, 304, 88]), on a
+   tree cut to TREE_15K's shapes at the full 140,000 points: (a) both
+   kernels against plain at the ten 15k calls of a real pyramid of
+   validation patches (sparse: mostly padding), as in phases 3 and 6,
+   each call with its live edges, in-degrees, device us and bounds over
+   the live edges; (b) the whole model's forward and gradients there, as
+   in phases 4 and 7; (c) one train step with ``remat: 1`` against one
+   without, from the same weights on one pyramid: the same loss, running
+   statistics and ``num_batches_tracked``, gradients within three times
+   their run-to-run noise, 19 forward launches against 10 (nine
+   bottlenecks recomputed) and 10 backward each, and the peak memory of
+   each; (d)
+   both configs through the train entry point, STEPS_15K steps each,
+   losses finite, parameters and running stats moved, 10 forward and 10
+   backward launches per step, then a profiler window of
+   PROFILE_STEPS_15K steps on a validation batch with its stem
+   in-degrees; (e) the inference entry point on SHAPE_15K (140,000
+   points, gaussian sigma 0.5%) with the Chamfer checkpoint, by host and
+   by device voting: BATCHES_15K batches, 10 forward launches each, the
+   device within rtol 1e-5 / atol 1e-6 of the host.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -104,6 +128,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -148,7 +173,9 @@ PEAK_F32_FLOP_S = 67e12
 # on each float32 multiply-add of the neighbour contraction
 PEAK_TF32_FLOP_S = 495e12
 # profiler windows device_us takes before it gives up on an empty one
-PROFILER_WINDOWS = 3
+PROFILER_WINDOWS = 5
+# the kernels of one backward call that computes d_features and d_kw
+BWD_KERNELS = ("kpconv_bwd_invert", "kpconv_bwd_kernel", "kpconv_bwd_reduce")
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=5e-4, atol=5e-5)
 # backward: the JAX package's gradient rtol; the atol is a fraction of the
@@ -181,6 +208,28 @@ KEEP_BAND = 1e-6
 TIE_GAP = 1e-6
 CHAMFER_RTOL = 1e-5
 CHAMFER_GRAD_TOL = dict(rtol=1e-4, atol_frac=1e-6)
+# 15k phase: the two 15,000-slot configs (derive_geometry's 15k schedule,
+# B=8), the cut tree their trainings read (2 of the 8 train shapes and 1 of
+# the 3 val shapes, at the full 140,000 points), the train steps of each,
+# the steps of the profiler window, the held-out shape served and its
+# batches of 8 at 140,000 points (2,227 patches, tests/test_torch_15k_data.py)
+CONFIGS_15K = ("synthetic_quality_chamfer15k", "outliers_40_1e3")
+TREE_15K = {"train": ("ellipsoid_a", "torus_thin"), "val": ("cylinder_v",)}
+POINTS_15K = 140000
+STEPS_15K = 4
+PROFILE_STEPS_15K = 3
+SHAPE_15K = "cylinder_t"
+BATCHES_15K = 279
+# (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
+# 15k forward, B=8, P=15
+CALLS_15K = [
+    ("stem LA", 15000, 15000, 26, 72, 1),
+    ("Bottleneck_0", 15000, 15000, 26, 72, 1),
+    ("T1 strided", 4096, 15000, 26, 144, 1), ("L1", 4096, 4096, 31, 144, 2),
+    ("T2 strided", 1152, 4096, 31, 288, 2), ("L2", 1152, 1152, 38, 288, 4),
+    ("T3 strided", 304, 1152, 38, 576, 4), ("L3", 304, 304, 41, 576, 8),
+    ("T4 strided", 88, 304, 41, 1152, 8), ("L4", 88, 88, 39, 1152, 16),
+]
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # flagship forward, B=16, P=15
 FLAGSHIP_CALLS = [
@@ -240,14 +289,17 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kpconv_bound(B, M, N, K, C, P):
+def kpconv_bound(B, M, N, K, C, P, live=None):
     """Least times (ms) for one aggregation: each input read once and the
     output written once at the HBM rate, and its float32 operations at the
-    FMA rate; the bound is the larger.  Operations: 12 per (b, m, k, p) for
-    the influence weight, 2 per (b, m, k, p, c) for the weighted neighbour
-    sum, 2 per (b, m, p, c) for the kernel-point weights."""
+    FMA rate; the bound is the larger.  Operations: 12 per (edge, p) for
+    the influence weight, 2 per (edge, p, c) for the weighted neighbour
+    sum, 2 per (b, m, p, c) for the kernel-point weights, over ``live``
+    edges (mask != 0; default all B * M * K: a masked edge has weight 0
+    and costs nothing)."""
+    live = B * M * K if live is None else live
     nbytes = 4 * (B * N * C + B * M * K * 5 + P * 3 + P * C + B * M * C)
-    flops = 12 * B * M * K * P + 2 * B * M * K * P * C + 2 * B * M * P * C
+    flops = 12 * live * P + 2 * live * P * C + 2 * B * M * P * C
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
 
 
@@ -261,20 +313,23 @@ def kpconv_bound_3xtf32(B, M, N, K, C, P):
     return t_bytes, t_ops * 1e3
 
 
-def device_us(fn, kernel: str, iters: int, by_kernel: bool = False):
+def device_us(fn, kernel: str, iters: int, by_kernel: bool = False,
+              expect=()):
     """Device microseconds per call of the CUDA kernels whose name holds
     ``kernel`` ("" for every kernel), from torch.profiler over ``iters``
     calls of ``fn``: for each such kernel the mean over the launches the
     profiler recorded, summed over the kernels (with ``by_kernel``, also
     the means by kernel name).  The profiler does not always record every
-    launch of a window (on the H100 machine it once kept 21 of 50, and
-    now and then none), so the mean is over those it kept, and a window in
-    which it kept none is taken again, up to PROFILER_WINDOWS times;
-    raises when every window came back empty."""
+    launch of a window (on the H100 machine it once kept 21 of 50, now and
+    then none, and once the backward's invert and reduce kernels without
+    its main one), so the mean is over those it kept, and a window that
+    kept no launch of some kernel named in ``expect`` (or none at all) is
+    taken again, up to PROFILER_WINDOWS times; raises when no window
+    kept them all."""
     fn()
     torch.cuda.synchronize()
-    by_name = {}
     for _ in range(PROFILER_WINDOWS):
+        by_name = {}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -284,11 +339,13 @@ def device_us(fn, kernel: str, iters: int, by_kernel: bool = False):
                     and e.device_type == torch.autograd.DeviceType.CUDA:
                 by_name.setdefault(e.name, []).append(
                     getattr(e, "device_time_total", 0.0))
-        if by_name:
+        if by_name and all(any(x in name for name in by_name)
+                           for x in expect):
             break
-    if not by_name:
-        raise AssertionError(f"the profiler saw no {kernel} kernel in "
-                             f"{PROFILER_WINDOWS} windows")
+    else:
+        raise AssertionError(
+            f"the profiler saw no {kernel} kernel (or not each of "
+            f"{expect}) in {PROFILER_WINDOWS} windows")
     means = {name: sum(us) / len(us) for name, us in by_name.items()}
     total = sum(means.values())
     return (total, means) if by_kernel else total
@@ -425,13 +482,14 @@ def patch_batch(cfg, seed: int):
             "offsets": offsets}
 
 
-def phase_model(cfg, device):
+def phase_model(cfg, device, batch=None):
     """Whole width-144 model, kernel path against plain path on one
-    pyramid, each output element within the larger of MODEL_TOL and three
-    times its own float32 noise (``grad_check.check_forward``)."""
+    pyramid (of ``batch``, default ``patch_batch(cfg, 1)``), each output
+    element within the larger of MODEL_TOL and three times its own float32
+    noise (``grad_check.check_forward``)."""
     model = seeded_model(cfg, device)
-    batch = patch_batch(cfg, 1)
-    xyz_t, mask_t = (torch.from_numpy(batch[k]).to(device)
+    batch = patch_batch(cfg, 1) if batch is None else batch
+    xyz_t, mask_t = (torch.as_tensor(batch[k]).to(device)
                      for k in ("points", "mask"))
     with torch.inference_mode():
         pyramid = model.make_pyramid(xyz_t, mask_t)
@@ -554,15 +612,16 @@ def check_reproducible(args, g, extent, infl, what: str):
                                  "two calls on the same inputs")
 
 
-def pyramid_calls(cfg, device):
-    """The ten aggregations' neighbourhoods of one flagship forward on a
-    real pyramid (``patch_batch(cfg, 3)`` through ``make_pyramid``):
-    (name, idx, rel, feature mask, radius multiple) each, the feature mask
-    all ones for padding queries as the model makes it."""
+def pyramid_calls(cfg, device, batch=None, table=FLAGSHIP_CALLS):
+    """The ten aggregations' neighbourhoods of one forward on a real
+    pyramid (``batch``'s points and mask through ``make_pyramid``; default
+    ``patch_batch(cfg, 3)``), checked against ``table``'s shapes: (name,
+    M, N, K, C, radius multiple, idx, rel, feature mask) each, the feature
+    mask all ones for padding queries as the model makes it."""
     model = build_offset_regression(cfg, torch.Generator().manual_seed(0))
     model = model.to(device)
-    batch = patch_batch(cfg, 3)
-    xyz, mask = (torch.from_numpy(batch[k]).to(device)
+    batch = patch_batch(cfg, 3) if batch is None else batch
+    xyz, mask = (torch.as_tensor(batch[k]).to(device)
                  for k in ("points", "mask"))
     with torch.no_grad():
         pyr = model.make_pyramid(xyz, mask)
@@ -572,7 +631,7 @@ def pyramid_calls(cfg, device):
         nbrs += [(trans[i - 1].pool_nbr, levels[i].mask),
                  (levels[i].self_nbr, levels[i].mask)]
     calls = []
-    for (name, M, N, K, C, mult), (nbr, qmask) in zip(FLAGSHIP_CALLS, nbrs):
+    for (name, M, N, K, C, mult), (nbr, qmask) in zip(table, nbrs):
         if tuple(nbr.idx.shape) != (int(cfg.batch_size), M, K):
             raise AssertionError(f"pyramid call {name}: idx "
                                  f"{tuple(nbr.idx.shape)}, expected M={M}, "
@@ -627,7 +686,8 @@ def phase_backward(cfg, device):
         call = lambda: kpconv_aggregate_backward(  # noqa: E731
             *args, g, extent, infl)
         ms = cuda_ms(call, 100)
-        dev_us, kernels = device_us(call, "kpconv_bwd", 20, by_kernel=True)
+        dev_us, kernels = device_us(call, "kpconv_bwd", 20, by_kernel=True,
+                                    expect=BWD_KERNELS)
         rel_ms = cuda_ms(lambda: kpconv_aggregate_backward(
             *args, g, extent, infl, need_rel=True), 20)
         plain_ms = cuda_ms(lambda: kpconv_aggregate_backward_plain(
@@ -689,6 +749,15 @@ def phase_backward(cfg, device):
     }
 
 
+def in_degrees(fmask, idx, N):
+    """Live edges (mask != 0) of a call, and the mean and largest number
+    of them that name one support."""
+    offsets, _ = invert_neighbors_plain(idx, fmask, N)
+    deg = offsets.diff(dim=1)
+    return int(offsets[:, -1].sum().item()), deg.float().mean().item(), \
+        int(deg.max().item())
+
+
 def phase_backward_pyramid(cfg, device):
     """The ten backward calls on a real pyramid's neighbourhoods: each
     against plain and bitwise reproducible, with its live edges, in-degree
@@ -716,28 +785,28 @@ def phase_backward_pyramid(cfg, device):
                 for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
         check_reproducible(args, g, extent, "linear", f"pyramid {name}")
         dev_us = device_us(lambda: kpconv_aggregate_backward(
-            *args, g, extent, "linear"), "kpconv_bwd", 20)
+            *args, g, extent, "linear"), "kpconv_bwd", 20,
+            expect=BWD_KERNELS)
         total_us += dev_us
-        offsets, _ = invert_neighbors_plain(idx, fmask, N)
-        live = int(offsets[:, -1].sum().item())
-        deg = int(offsets.diff(dim=1).max().item())
+        live, mean_deg, deg = in_degrees(fmask, idx, N)
         print(f"{name} {M} {N} {K} {C} | {live} / {B * M * K}, "
-              f"{live / (B * N):.1f} {deg} | "
+              f"{mean_deg:.1f} {deg} | "
               f"{errs[0]:.3e} {errs[1]:.3e} | {dev_us:.2f}", flush=True)
     print(f"real pyramid, ten calls: device {total_us / 1e3:.5f} ms")
     return total_us / 1e3
 
 
-def phase_model_grad(cfg, device):
+def phase_model_grad(cfg, device, batch=None):
     """Train-mode gradients of every parameter of the width-144 model under
-    the masked L1 loss, on one batch and one pyramid: the backward kernel
-    against the plain backward on one forward graph, and the kernel path
-    against the plain path, each tensor within ``grad_check``'s limit from
-    its own float32 noise."""
+    the masked L1 loss, on one batch (default ``patch_batch(cfg, 3)``) and
+    one pyramid: the backward kernel against the plain backward on one
+    forward graph, and the kernel path against the plain path, each tensor
+    within ``grad_check``'s limit from its own float32 noise."""
     model = build_offset_regression(
         cfg, torch.Generator().manual_seed(0)).to(device).train()
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in patch_batch(cfg, 3).items()}
+    batch = patch_batch(cfg, 3) if batch is None else batch
+    batch = {k: torch.as_tensor(batch[k]).to(device)
+             for k in ("points", "mask", "features", "offsets")}
     pyramid = model.make_pyramid(batch["points"], batch["mask"])
     grads = grad_check.model_gradients(model, pyramid, batch["features"],
                                        batch["offsets"], batch["mask"])
@@ -1061,15 +1130,15 @@ def chamfer_ties(x, y, y_mask, idx_a, idx_b):
     return tie & (y_mask.sum(1, keepdim=True) > 0)
 
 
-def val_batch(tcfg, tree):
-    """The first validation batch (B=16, N=500) of the tree at
-    DEPLOY_TRAIN_POINTS points per cloud, with the config's noise and
+def val_batch(tcfg, tree, points: int = DEPLOY_TRAIN_POINTS):
+    """The first validation batch (the config's B and patch size) of the
+    tree at ``points`` points per cloud, with the config's noise and
     outliers."""
     ds = OffsetDataset(tree, "val", in_radius=tcfg.in_radius,
                        num_points=tcfg.num_points, num_steps=16,
                        num_epochs=1, noise_type=tcfg.noise_type,
                        noise_level=tcfg.noise_level,
-                       num_points_per_shape=DEPLOY_TRAIN_POINTS,
+                       num_points_per_shape=points,
                        outlier_proportion=tcfg.outlier_percentage,
                        seed=tcfg.rng_seed)
     return next(iter(BatchLoader(ds, int(tcfg.batch_size)).epoch_iter(0)))
@@ -1204,6 +1273,339 @@ def phase_cleaning(cfg, workdir):
     return {"cleaning": (fwd, bwd), "chamfer": (c_fwd, c_bwd)}
 
 
+def phase_15k_kernels(cfg, device, batch):
+    """Both kernels against plain at the ten calls of a 15k forward on a
+    real pyramid (``batch``: B=8, 15,000 slots, sparse patches): the
+    forward at KERNEL_TOL, the backward's training variant and d_rel
+    variant at BWD_RTOL and BWD_ATOL_FRAC of the largest gradient, bitwise
+    reproducible; each call's live edges, in-degrees, device us and
+    bounds over the live edges.  Returns the 15k block of each kernel's
+    JSON record."""
+    rng = np.random.default_rng(11)
+    B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
+    r0 = float(cfg.radius)
+    recs = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    bytes=0.0, ops=0.0, max_abs_err=0.0,
+                    device_us_per_call={})
+            for k in ("fwd", "bwd")}
+    print("15k call M N K C | live edges / slots, in-degree mean max | "
+          "fwd max_abs, bwd d_feat d_kw d_rel max_abs | fwd device_us "
+          "bound_us (by) | bwd device_us bound_us (by) | wrapper ms fwd "
+          "bwd, plain ms fwd bwd")
+    for name, M, N, K, C, mult, idx, rel, fmask in pyramid_calls(
+            cfg, device, batch, CALLS_15K):
+        extent = 2.0 * r0 * mult / 5.0
+        kp = torch.from_numpy(create_kernel_points(1.5 * extent, P)).to(
+            device)
+        feat, kw, g = (torch.from_numpy(a.astype(np.float32)).to(device)
+                       for a in (rng.normal(size=(B, N, C)),
+                                 rng.normal(size=(P, C)) * math.sqrt(2.0 / C),
+                                 rng.normal(size=(B, M, C))))
+        args = (feat, idx, rel, fmask, kp, kw)
+        with torch.no_grad():
+            got = kpconv_aggregate(*args, extent, "linear")
+            torch.cuda.synchronize()
+            want = kpconv_aggregate_plain(*args, extent, "linear")
+            fwd_err, _ = check_close(got, want, what=f"15k kpconv {name}",
+                                     **KERNEL_TOL)
+        del got, want
+        got = kpconv_aggregate_backward(*args, g, extent, "linear")
+        got_rel = kpconv_aggregate_backward(*args, g, extent, "linear",
+                                            need_rel=True)
+        torch.cuda.synchronize()
+        want = kpconv_aggregate_backward_plain(*args, g, extent, "linear",
+                                               need_rel=True)
+        errs = [check_grad_close(a, b, f"15k backward {name} {what}")
+                for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
+        errs += [check_grad_close(a, b, f"15k backward {name} {what}, "
+                                  "d_rel variant")
+                 for a, b, what in zip(got_rel, want,
+                                       ("d_feat", "d_kw", "d_rel"))]
+        errs = [max(errs[0], errs[2]), max(errs[1], errs[3]), errs[4]]
+        del got, got_rel, want
+        check_reproducible(args, g, extent, "linear", f"15k {name}")
+
+        def fwd():
+            with torch.no_grad():
+                return kpconv_aggregate(*args, extent, "linear")
+
+        def plain_fwd():
+            with torch.no_grad():
+                return kpconv_aggregate_plain(*args, extent, "linear")
+
+        def bwd():
+            return kpconv_aggregate_backward(*args, g, extent, "linear")
+
+        def plain_bwd():
+            return kpconv_aggregate_backward_plain(*args, g, extent,
+                                                   "linear")
+
+        timed = dict(fwd=(cuda_ms(fwd, 20), device_us(
+            fwd, "kpconv_fwd_kernel", 10), cuda_ms(plain_fwd, 3, 1)),
+            bwd=(cuda_ms(bwd, 10), device_us(bwd, "kpconv_bwd", 10,
+                                             expect=BWD_KERNELS),
+                 cuda_ms(plain_bwd, 3, 1)))
+        live, mean_deg, max_deg = in_degrees(fmask, idx, N)
+        bounds = dict(fwd=kpconv_bound(B, M, N, K, C, P, live),
+                      bwd=kpconv_bwd_bound(B, M, N, K, C, P, live))
+        line = []
+        for k, err in (("fwd", fwd_err), ("bwd", max(errs))):
+            ms, us, plain_ms = timed[k]
+            t_bytes, t_ops = bounds[k]
+            rec = recs[k]
+            for key, v in (("ms", ms), ("device_ms", us / 1e3),
+                           ("plain_ms", plain_ms),
+                           ("bound_ms", max(t_bytes, t_ops)),
+                           ("bytes", t_bytes), ("ops", t_ops)):
+                rec[key] += v
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["device_us_per_call"][name] = us
+            line.append(f"{us:.2f} {max(t_bytes, t_ops) * 1e3:.2f} "
+                        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        print(f"{name} {M} {N} {K} {C} | {live} / {B * M * K}, "
+              f"{mean_deg:.1f} {max_deg} | {fwd_err:.3e}, {errs[0]:.3e} "
+              f"{errs[1]:.3e} {errs[2]:.3e} | {line[0]} | {line[1]} | "
+              f"{timed['fwd'][0]:.4f} {timed['bwd'][0]:.4f}, "
+              f"{timed['fwd'][2]:.4f} {timed['bwd'][2]:.4f}", flush=True)
+    for k, rec in recs.items():
+        rec["bound_by"] = "bytes" if rec.pop("bytes") >= rec.pop("ops") \
+            else "operations"
+        rec["timed_at"] = ("sum over the ten calls of one 15k forward "
+                           "(backward), B=8, on a real pyramid of "
+                           f"{CONFIGS_15K[0]} validation patches; bounds "
+                           "over the live edges")
+        print(f"15k, ten calls, {k}: wrapper {rec['ms']:.4f} ms, device "
+              f"{rec['device_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              flush=True)
+    return recs
+
+
+def phase_15k_remat(config: str, device, batch):
+    """One train step (forward, the config's loss, backward) with remat=1
+    and two with remat=0, from the same weights on one pyramid of
+    ``batch``: the same loss and BatchNorm running statistics, each
+    gradient within three times its run-to-run noise (the two remat=0
+    steps apart: the Chamfer loss's gather adds its gradient by atomics)
+    or SAME_GRAPH_FLOOR of its max-abs, 19 and 10 forward launches
+    against 10 and 10; the peak memory of each."""
+    runs = []
+    tensors = {k: torch.as_tensor(batch[k]).to(device)
+               for k in ("points", "mask", "features", "offsets")}
+    pyramid = None
+    for remat in (0, 1, 0):
+        tcfg = load_config(os.path.join(ROOT, "cfgs", config + ".yaml"),
+                           {"remat": remat})
+        model = build_offset_regression(
+            tcfg, torch.Generator().manual_seed(0)).to(device).train()
+        if pyramid is None:
+            with torch.no_grad():
+                pyramid = model.make_pyramid(tensors["points"],
+                                             tensors["mask"])
+        loss_fn = get_offset_regression_loss(tcfg.loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kpconv_aggregate.launches = 0
+        kpconv_aggregate_backward.launches = 0
+        pred = model.MultiDimHead_0(pyramid, model.ResNetEncoder_0(
+            pyramid, tensors["features"]))
+        loss = loss_fn(pred, tensors["offsets"], tensors["mask"],
+                       tensors["points"])
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append(dict(
+            loss=loss.item(), launches=(kpconv_aggregate.launches,
+                                        kpconv_aggregate_backward.launches),
+            peak=torch.cuda.max_memory_allocated() - base,
+            grads={n: p.grad for n, p in model.named_parameters()},
+            buffers=dict(model.named_buffers())))
+        del pred, loss, model
+    plain, remat, again = runs
+    if [r["launches"] for r in runs] != [(10, 10), (19, 10), (10, 10)]:
+        raise AssertionError("remat launches "
+                             f"{[r['launches'] for r in runs]}; expected "
+                             "(10, 10), (19, 10), (10, 10)")
+    check_close(torch.tensor(remat["loss"]), torch.tensor(plain["loss"]),
+                1e-6, 0.0, "remat loss")
+    worst = (0.0, 0.0, "")
+    for name, g0 in plain["grads"].items():
+        d = grad_check.max_abs_distance(remat["grads"][name], g0)
+        limit = max(grad_check.NOISE_FACTOR * grad_check.max_abs_distance(
+            again["grads"][name], g0), grad_check.SAME_GRAPH_FLOOR)
+        if d > limit:
+            raise AssertionError(f"remat: gradient of {name} differs by "
+                                 f"{d:.3e} of its max-abs (limit "
+                                 f"{limit:.3e})")
+        worst = max(worst, (d / limit, d, name))
+    bitwise = True
+    for name, b0 in plain["buffers"].items():
+        b1 = remat["buffers"][name]
+        if name.endswith("num_batches_tracked"):
+            if not torch.equal(b0, b1):
+                raise AssertionError(f"remat: {name} {b1.item()} against "
+                                     f"{b0.item()}")
+        else:
+            check_close(b1, b0, 1e-6, 1e-7, f"remat: {name}")
+        bitwise &= torch.equal(b0, b1)
+    print(f"{config} remat=1 against remat=0, one step on one B=8 batch: "
+          f"loss {remat['loss']:.8g} / {plain['loss']:.8g}; gradients: "
+          f"nearest its limit {worst[2]}, {worst[1]:.3e} of its max-abs "
+          f"({worst[0]:.3f} of the limit); running stats and "
+          f"num_batches_tracked equal (bitwise: {bitwise}); launches "
+          f"{remat['launches']} / {plain['launches']}; peak memory of the "
+          f"step {remat['peak'] / 2**30:.3f} / {plain['peak'] / 2**30:.3f} "
+          "GiB (torch.cuda.max_memory_allocated above the step's start)",
+          flush=True)
+
+
+def phase_15k_training(device, tree, log_dir):
+    """The train entry point on both 15k configs at width 144, STEPS_15K
+    steps each on the cut tree: every loss finite, parameters and running
+    stats changed, 10 forward and 10 backward launches per step; then a
+    profiler window over PROFILE_STEPS_15K steps on a validation batch,
+    with its stem in-degrees.  Returns the launches (forward, backward)
+    and the trainers."""
+    fwd = bwd = 0
+    trainers = {}
+    for config in CONFIGS_15K:
+        path = os.path.join(ROOT, "cfgs", config + ".yaml")
+        tcfg = load_config(path)
+        argv = ["--config_file", path, "--data_root", tree,
+                "--log_dir", log_dir,
+                "--num_steps", str(STEPS_15K * int(tcfg.batch_size)),
+                "--epochs", "1", "--val_freq", "1", "--device", "cuda"]
+        kpconv_aggregate.launches = 0
+        kpconv_aggregate_backward.launches = 0
+        summary = train_cli.main(argv)
+        f, b = kpconv_aggregate.launches, kpconv_aggregate_backward.launches
+        steps, val_batches = summary["steps"], summary["val_batches"]
+        if steps != STEPS_15K or (f, b) != (10 * (steps + val_batches),
+                                            10 * steps):
+            raise AssertionError(f"{config}: {steps} steps, {val_batches} "
+                                 f"val batches, {f} forward and {b} "
+                                 "backward launches")
+        losses = summary["train_losses"] + summary["val_losses"]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{config}: losses {losses}")
+        trainer = summary["trainer"]
+        start = build_offset_regression(trainer.cfg, torch.Generator(
+            ).manual_seed(int(trainer.cfg.rng_seed))).state_dict()
+        for name, value in trainer.model.state_dict().items():
+            if not name.endswith("num_batches_tracked") \
+                    and torch.equal(value.cpu(), start[name]):
+                raise AssertionError(f"{config}: training left {name} "
+                                     "unchanged")
+        fwd, bwd = fwd + f, bwd + b
+        print(f"{config} ({trainer.cfg.optimizer}, {trainer.cfg.loss}, "
+              f"outliers {trainer.cfg.outlier_percentage}): {steps} steps, "
+              f"val batches {val_batches}; launches: forward {f}, backward "
+              f"{b}; train losses " + ", ".join(
+                  f"{v:.6f}" for v in summary["train_losses"])
+              + f"; val loss {summary['val_losses']}; ms per step (host "
+              f"clock, data loading and the first step included) "
+              f"{summary['ms_per_step'][0]:.3f}", flush=True)
+        batch = val_batch(trainer.cfg, tree, POINTS_15K)
+        stem = pyramid_calls(trainer.cfg, device, batch, CALLS_15K)[0]
+        live, mean_deg, max_deg = in_degrees(stem[8], stem[6], stem[2])
+        print(f"{config}: profiled validation batch: real slots per patch "
+              + " ".join(str(int(c)) for c in batch["mask"].sum(1))
+              + f"; stem live edges {live}, in-degree mean {mean_deg:.1f}, "
+              f"max {max_deg}", flush=True)
+        keys = ("points", "mask", "features", "offsets", "labels")
+        profile_train_steps(trainer, {k: torch.from_numpy(batch[k]).cuda()
+                                      for k in keys}, PROFILE_STEPS_15K)
+        trainers[config] = trainer
+    return (fwd, bwd), trainers
+
+
+def phase_15k_serving(workdir, tree, log_dir):
+    """The inference entry point on SHAPE_15K (140,000 points, gaussian
+    sigma 0.5%) with the 15k Chamfer checkpoint, host and device voting:
+    BATCHES_15K batches of 8, 10 forward launches each, no backward,
+    outputs finite, device within VOTE_TOL of host.  Returns the forward
+    launches."""
+    root = os.path.join(workdir, "serve15k")
+    os.makedirs(os.path.join(root, "qualitative_test"))
+    shutil.copy(os.path.join(tree, "qualitative_test", SHAPE_15K + ".off"),
+                os.path.join(root, "qualitative_test"))
+    config = os.path.join(ROOT, "cfgs", CONFIGS_15K[0] + ".yaml")
+    ckpt = os.path.join(log_dir, CONFIGS_15K[0], "current.pt")
+    runs, fwd = {}, 0
+    for voting in ("host", "device"):
+        argv = ["--config_file", config, "--data_root", root, "--out_dir",
+                os.path.join(workdir, f"out15k_{voting}"), "--checkpoint",
+                ckpt, "--checkpoint_low", "none", "--noise_type",
+                "gaussian", "--noise_level", "0.005", "--device", "cuda"]
+        if voting == "device":
+            argv.append("--device_voting")
+        kpconv_aggregate.launches = 0
+        kpconv_aggregate_backward.launches = 0
+        summary = infer.main(argv)
+        launches = kpconv_aggregate.launches
+        if kpconv_aggregate_backward.launches:
+            raise AssertionError("15k serving launched the backward kernel")
+        dataset = summary["dataset"]
+        batches = -(-len(dataset) // 8)
+        if (batches, launches) != (BATCHES_15K, 10 * BATCHES_15K):
+            raise AssertionError(
+                f"15k {voting} voting: {len(dataset)} patches, {batches} "
+                f"batches, {launches} forward launches; expected "
+                f"{BATCHES_15K} batches, {10 * BATCHES_15K} launches")
+        res, shape = summary["results"][0], dataset.shapes[0]
+        if res["offsets"].shape != shape.points.shape \
+                or not np.isfinite(res["offsets"]).all():
+            raise AssertionError(f"15k {voting} voting: bad offsets")
+        fwd += launches
+        runs[voting] = summary
+        n = len(shape.points)
+        print(f"15k serving {SHAPE_15K} ({n} points, {len(dataset)} "
+              f"patches of 15,000 slots, {batches} batches) {voting} "
+              f"voting: {n / summary['seconds']:.1f} points/s "
+              f"({summary['seconds']:.3f} s), forward launches {launches}",
+              flush=True)
+    worst = check_votes(runs["device"], runs["host"], "15k serving")
+    print(f"15k serving: device vs host offsets max abs diff {worst:.3e} "
+          f"(rtol {VOTE_TOL['rtol']} / atol {VOTE_TOL['atol']})", flush=True)
+    return fwd
+
+
+def phase_15k(device, workdir):
+    """Phase 11, the 15,000-slot family: kernels against plain at the 15k
+    calls, the whole model's forward and gradients, remat, both configs
+    trained through the entry point, and serving by host and device
+    voting.  Returns each kernel's 15k record and the launches of the
+    entry points' runs: {"training": (fwd, bwd), "serving": fwd}."""
+    full = os.path.join(workdir, "shapes")
+    make_synthetic_dataset.write_tree(full, verbose=False)
+    tree = os.path.join(workdir, "shapes15k")
+    for split, names in TREE_15K.items():
+        os.makedirs(os.path.join(tree, split))
+        for name in names:
+            shutil.copy(os.path.join(full, split, name + ".off"),
+                        os.path.join(tree, split))
+    cfg = load_config(os.path.join(ROOT, "cfgs", CONFIGS_15K[0] + ".yaml"))
+    if (int(cfg.width), int(cfg.num_points), list(cfg.nsamples),
+            list(cfg.npoints)) != (144, 15000, [26, 31, 38, 41, 39],
+                                   [4096, 1152, 304, 88]):
+        raise AssertionError("the 15k config is no longer width 144 on the "
+                             "15k schedule")
+    t0 = time.perf_counter()
+    batch = val_batch(cfg, tree, POINTS_15K)
+    print(f"one validation batch of {CONFIGS_15K[0]} (shapes processed "
+          f"included): {time.perf_counter() - t0:.3f} s; real slots per "
+          "patch " + " ".join(str(int(c)) for c in batch["mask"].sum(1)),
+          flush=True)
+    records = phase_15k_kernels(cfg, device, batch)
+    phase_model(cfg, device, batch)
+    phase_model_grad(cfg, device, batch)
+    phase_15k_remat(CONFIGS_15K[0], device, batch)
+    log_dir = os.path.join(workdir, "log15k")
+    train_launches, _ = phase_15k_training(device, tree, log_dir)
+    serve = phase_15k_serving(workdir, full, log_dir)
+    return records, {"training": train_launches, "serving": serve}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only-kernels"]):
@@ -1255,15 +1657,23 @@ def main(argv=None) -> int:
             deploy_fwd, deploy_bwd = phase_deployment(cfg, workdir)
         with phase("cleaning"):  # on the deployment phase's shape tree
             cleaning = phase_cleaning(cfg, workdir)
-    # launches: this slice's path (cleaning); every path's in the detail
-    record.update(launches=cleaning["cleaning"][0], launches_by_path={
+    with tempfile.TemporaryDirectory() as workdir, phase("15k family"):
+        records_15k, path_15k = phase_15k(device, workdir)
+    # launches: this slice's path (the 15k family's training and serving);
+    # every path's in the detail
+    fwd_15k = path_15k["training"][0] + path_15k["serving"]
+    record.update(launches=fwd_15k, launches_by_path={
         "serving": serving_launches, "training": train_fwd,
         "deployment": deploy_fwd, "cleaning": cleaning["cleaning"][0],
-        "chamfer": cleaning["chamfer"][0]})
-    bwd_record.update(launches=cleaning["cleaning"][1], launches_by_path={
+        "chamfer": cleaning["chamfer"][0],
+        "15k_training": path_15k["training"][0],
+        "15k_serving": path_15k["serving"]}, shapes_15k=records_15k["fwd"])
+    bwd_record.update(launches=path_15k["training"][1], launches_by_path={
         "serving": 0, "training": train_bwd,  # inference checks its 0
         "deployment": deploy_bwd, "cleaning": cleaning["cleaning"][1],
-        "chamfer": cleaning["chamfer"][1]})
+        "chamfer": cleaning["chamfer"][1],
+        "15k_training": path_15k["training"][1], "15k_serving": 0},
+        shapes_15k=records_15k["bwd"])
     print(smi)
     print(json.dumps({"kernels": [record, bwd_record]}))
     print(json.dumps({"ok": True, "device": {

@@ -78,6 +78,12 @@
 //      distances, as the forward and the plain version (no TF32 there).
 //    - Contraction: mma.sync.m16n8k8 TF32 as 3xTF32 (float32 accuracy),
 //      W (16 x 8, P padded to 16) as A and the gathered 8 x 8 block as B.
+//      Each chunk's product goes into a zeroed accumulator and is added to
+//      H by float32 adds: chained in the mma's accumulator over a sink's
+//      hundreds of chunks (15,000-slot patches, in-degree 3,573), H
+//      drifted far past a float32 sum's error, and train-mode BatchNorm
+//      scale gradients, which cancel, failed chip_smoke.py's whole-model
+//      check (PERF.md section 6; tests/test_torch_cuda.py holds the sum).
 //      wgmma does not fit for the forward's reason: each support has 16
 //      rows and its own gathered B.
 //    - Epilogue (a), d_feat[n,c] = sum_p kw[p,c] H[p,c], on the fragments:
@@ -118,7 +124,8 @@
 // A third stage (3 blocks per SM) and computing the weights a chunk ahead
 // (153 registers) were both slower.  Registers and spills are printed by
 // the build (-Xptxas -v): on the H100 machine (CUDA 12.8) kpconv_bwd_kernel
-// uses 128 registers for each influence, kpconv_bwd_invert 64,
+// uses 128 registers for each influence (held there by its launch bounds
+// of 4 blocks per SM, which the per-chunk adds need), kpconv_bwd_invert 64,
 // kpconv_bwd_reduce 30, kpconv_bwd_drel 55, none spills.
 
 #include <cuda_runtime.h>
@@ -371,7 +378,7 @@ __device__ __forceinline__ int range_start(int w, int T) {
 }
 
 template <int INFL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 kpconv_bwd_kernel(const float* __restrict__ feat,
                   const float* __restrict__ rel,
                   const float* __restrict__ mask,
@@ -623,10 +630,18 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
     const float* stage_w =
         stage_s + st * tl.stage_words() + warp * kRows * tcp;
     const float* bs = stage_w + t * tcp + g;
+    // each chunk's product starts from zero in the tensor core and is added
+    // to H by a float32 add: the mma's own accumulation, chained over the
+    // hundreds of chunks of a sink support, drifts; per chunk it spans 8
+    // edges
 #pragma unroll
     for (int grp = 0; grp < kMaxGroups; ++grp) {
-      if (grp < ng)
-        mma_3xtf32(acc[grp], ahi, alo, bs[grp * 8], bs[4 * tcp + grp * 8]);
+      if (grp < ng) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(part, ahi, alo, bs[grp * 8], bs[4 * tcp + grp * 8]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[grp][i] += part[i];
+      }
     }
 
     // flush H at the last chunk of its support in this warp's range

@@ -26,36 +26,39 @@ from typing import Optional
 
 import torch
 
+from ..ops.neighbors import (auto_chunk, auto_compact, compact_supports,
+                            pairwise_sqdist)
+
 _BIG = 1e10
 
 
-def _sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(B, P1, 3), (B, P2, 3) -> (B, P1, P2) squared distances, summed
-    over the coordinates in order."""
-    d2 = (x[:, :, None, 0] - y[:, None, :, 0]).square()
-    for k in (1, 2):
-        d2 = d2 + (x[:, :, None, k] - y[:, None, :, k]).square()
-    return d2
-
-
 def nearest_indices(x: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor,
-                    chunk: int = 4096) -> torch.Tensor:
+                    chunk: Optional[int] = None) -> torch.Tensor:
     """(B, P1) index of each x point's nearest valid y point (the first
     of equal distances), searched without gradients in chunks of
-    ``chunk`` x points."""
+    ``chunk`` x points (default ``ops.neighbors.auto_chunk``'s), over
+    the valid y points alone where the whole search is larger than one
+    chunk (``ops.neighbors.auto_compact``: the 15,000-point configs,
+    whose patches are mostly padding)."""
     with torch.no_grad():
-        xs, ys = x.detach(), y.detach()
+        xs, ys, y_mask = x.detach(), y.detach(), y_mask.float()
+        B, P1 = xs.shape[:2]
+        cols = None
+        if auto_compact(B, P1, ys.shape[1]):
+            ys, y_mask, cols = compact_supports(ys, y_mask)
+        chunk = chunk or auto_chunk(B, P1, ys.shape[1])
         invalid = (y_mask <= 0.0)[:, None, :]
         out = []
-        for s in range(0, xs.shape[1], chunk):
-            d2 = _sq_dists(xs[:, s:s + chunk], ys)
+        for s in range(0, P1, chunk):
+            d2 = pairwise_sqdist(xs[:, s:s + chunk], ys)
             d2 = torch.where(invalid, torch.full_like(d2, _BIG), d2)
             out.append(torch.argmin(d2, dim=-1))
-        return torch.cat(out, dim=1)
+        idx = torch.cat(out, dim=1)
+        return idx if cols is None else torch.gather(cols, 1, idx)
 
 
 def _nn_one_way(x: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor,
-                norm_type: str, chunk: int) -> torch.Tensor:
+                norm_type: str, chunk: Optional[int]) -> torch.Tensor:
     """(B, P1): each x point's cost to its nearest valid y point, with
     gradients through the matched pair only."""
     idx = nearest_indices(x, y, y_mask, chunk)
@@ -79,7 +82,7 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor,
                      y_mask: Optional[torch.Tensor] = None,
                      *, norm_type: str = "L2",
                      batch_reduction: Optional[str] = "mean",
-                     chunk: int = 4096) -> torch.Tensor:
+                     chunk: Optional[int] = None) -> torch.Tensor:
     """Masked symmetric Chamfer distance of (B, P, 3) clouds; masks
     default to all ones; ``batch_reduction`` 'mean', 'sum' or None for
     the (B,) per-item values."""
@@ -103,7 +106,7 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor,
 
 def nearest_distances(x: torch.Tensor, y: torch.Tensor,
                       y_mask: Optional[torch.Tensor] = None,
-                      *, chunk: int = 4096) -> torch.Tensor:
+                      *, chunk: Optional[int] = None) -> torch.Tensor:
     """(B, P1) squared distance from each x point to its nearest valid y
     point."""
     if y_mask is None:

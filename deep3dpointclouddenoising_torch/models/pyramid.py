@@ -51,10 +51,11 @@ class Pyramid(NamedTuple):
 
 
 def _neighborhood(query_xyz, support_xyz, query_mask, support_mask,
-                  radius: float, nsample: int) -> Neighborhood:
+                  radius: float, nsample: int,
+                  chunk_size: Optional[int]) -> Neighborhood:
     idx, msk = masked_ordered_ball_query(
         query_xyz, support_xyz, query_mask, support_mask,
-        radius=radius, nsample=nsample)
+        radius=radius, nsample=nsample, chunk_size=chunk_size)
     rel = group_xyz(support_xyz, query_xyz, idx).contiguous()
     return Neighborhood(idx=idx, mask=msk, rel_xyz=rel, radius=radius)
 
@@ -63,7 +64,8 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
                   radius: float, sample_dl: float,
                   nsamples: List[int], npoints: List[int],
                   build_self: bool = True,
-                  build_up: bool = True) -> Pyramid:
+                  build_up: bool = True,
+                  chunk_size: Optional[int] = None) -> Pyramid:
     """Build the geometry pyramid for one batch of padded clouds.
 
     Indices, masks and subsampled positions carry no gradient (the JAX
@@ -80,12 +82,15 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
       npoints: per-transition output sizes (len = stages).
       build_self: also build self-aggregation neighbourhoods for levels > 0.
       build_up: build the decoder's 1-NN upsampling indices.
+      chunk_size: query chunk of every neighbour query (default: each
+        query's own, sized by the support count); the result does not
+        depend on it.
     """
     mask = mask.float()
     levels: List[Level] = [
         Level(xyz=xyz, mask=mask,
               self_nbr=_neighborhood(xyz, xyz, mask, mask, radius,
-                                     nsamples[0]))
+                                     nsamples[0], chunk_size))
     ]
     transitions: List[Transition] = []
     cur_xyz, cur_mask = xyz, mask
@@ -95,10 +100,10 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
         sub_xyz, sub_mask = masked_grid_subsampling(
             cur_xyz, cur_mask, npoint=npoints[i - 1], sample_dl=dl)
         pool_nbr = _neighborhood(sub_xyz, cur_xyz, sub_mask, cur_mask,
-                                 pool_radius, nsamples[i - 1])
+                                 pool_radius, nsamples[i - 1], chunk_size)
         if build_up:
             up_idx, up_mask = masked_nearest_query(
-                cur_xyz, sub_xyz, cur_mask, sub_mask)
+                cur_xyz, sub_xyz, cur_mask, sub_mask, chunk_size=chunk_size)
         else:
             up_idx = torch.zeros(cur_xyz.shape[:2], dtype=torch.int32,
                                  device=xyz.device)
@@ -106,7 +111,8 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
         self_nbr = None
         if build_self:
             self_nbr = _neighborhood(sub_xyz, sub_xyz, sub_mask, sub_mask,
-                                     radius * (2.0 ** i), nsamples[i])
+                                     radius * (2.0 ** i), nsamples[i],
+                                     chunk_size)
         levels.append(Level(xyz=sub_xyz, mask=sub_mask, self_nbr=self_nbr))
         transitions.append(Transition(pool_nbr=pool_nbr, up_idx=up_idx,
                                       up_mask=up_mask))

@@ -3,14 +3,24 @@
 Counterpart of ``deep3dpointclouddenoising_tpu/models/resnet.py``: a stem
 at width/2, then strided stages that double width, radius and voxel size.
 Blocks are named ``Bottleneck_N`` in creation order, as in the Flax tree.
+
+With ``cfg.remat`` every bottleneck runs under
+``torch.utils.checkpoint`` while gradients are recorded (the JAX package's
+``nn.remat``): its activations are dropped after the forward and
+recomputed in the backward, so a train step launches the aggregation's
+forward kernel once more per bottleneck (19 times at depth 2, not 10).
+The parameter names stay those of the Flax tree.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import List, Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops import group_features
@@ -61,6 +71,33 @@ class Bottleneck(nn.Module):
         return F.relu(x + identity)
 
 
+_BN_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+@contextlib.contextmanager
+def _scratch_bn_stats(block: nn.Module):
+    """Give ``block``'s BatchNorms copies of their running statistics for
+    the backward's second forward, and put the originals back after it:
+    the step's first forward has updated them once, as Flax's
+    ``nn.remat`` does, and the recomputation normalises by the batch's
+    statistics alone."""
+    norms = [m for m in block.modules() if isinstance(m, nn.BatchNorm1d)]
+    kept = [[getattr(m, name) for name in _BN_STATS] for m in norms]
+    for m, stats in zip(norms, kept):
+        for name, t in zip(_BN_STATS, stats):
+            setattr(m, name, t.clone())
+    try:
+        yield
+    finally:
+        for m, stats in zip(norms, kept):
+            for name, t in zip(_BN_STATS, stats):
+                setattr(m, name, t)
+
+
+def _remat_contexts(block: nn.Module):
+    return contextlib.nullcontext(), _scratch_bn_stats(block)
+
+
 class ResNetEncoder(nn.Module):
     """Five-resolution encoder emitting the res1..res5 feature pyramid."""
 
@@ -71,6 +108,7 @@ class ResNetEncoder(nn.Module):
         r0 = float(cfg.radius)
         in_dim = int(cfg.input_features_dim)
         self.depth = depth
+        self.remat = bool(int(cfg.remat))
         self.ConvBN_0 = ConvBN(in_dim, width // 2, cfg.bn_momentum,
                                generator=generator)
         self.LocalAggregation_0 = LocalAggregation(width // 2, width // 2,
@@ -89,6 +127,16 @@ class ResNetEncoder(nn.Module):
         for n, block in enumerate(blocks):
             self.add_module(f"Bottleneck_{n}", block)
 
+    def _run(self, block: nn.Module, x: torch.Tensor, nbr: Neighborhood,
+             mask: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(x, nbr, mask)
+        # the blocks draw no random numbers: no RNG state to keep
+        return checkpoint(block, x, nbr, mask, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=functools.partial(_remat_contexts,
+                                                       block))
+
     def forward(self, pyramid: Pyramid, features: torch.Tensor
                 ) -> List[torch.Tensor]:
         L0 = pyramid.levels[0]
@@ -96,12 +144,12 @@ class ResNetEncoder(nn.Module):
         x = self.LocalAggregation_0(x, L0.self_nbr, L0.mask)
         blocks = iter(getattr(self, f"Bottleneck_{n}")
                       for n in range(self.num_blocks))
-        x = next(blocks)(x, L0.self_nbr, L0.mask)
+        x = self._run(next(blocks), x, L0.self_nbr, L0.mask)
         outs = [x]
         for i, tr in enumerate(pyramid.transitions, start=1):
             lvl = pyramid.levels[i]
-            x = next(blocks)(x, tr.pool_nbr, lvl.mask)
+            x = self._run(next(blocks), x, tr.pool_nbr, lvl.mask)
             for _ in range(self.depth - 1):
-                x = next(blocks)(x, lvl.self_nbr, lvl.mask)
+                x = self._run(next(blocks), x, lvl.self_nbr, lvl.mask)
             outs.append(x)
         return outs

@@ -13,8 +13,13 @@ same contract:
 4. the first ``npoint`` barycentres with mask 1, padded by cycling real
    ones with mask 0.
 
-The batch is processed at once: stable sort by voxel id, segment sums with
-``scatter_add_``, closed-form LCG keys from :func:`_lcg_tables`.
+The batch is processed at once: stable sort by voxel id, segment sums by
+``torch.segment_reduce`` over the sorted points, closed-form LCG keys from
+:func:`_lcg_tables`.  Each segment is summed in point order, on the CPU
+and on the card alike: a float ``scatter_add_`` adds by atomics on the
+card, in an order that changes from run to run, and two runs of one
+batch then differ by an ulp in a barycentre, enough to flip a near-tied
+neighbour in the next level's ball query.
 """
 from __future__ import annotations
 
@@ -85,8 +90,12 @@ def masked_grid_subsampling(xyz: torch.Tensor, mask: torch.Tensor, *,
     seg = torch.cumsum(is_new.long(), dim=1) - 1
     seg = torch.where(sval, seg, torch.full_like(seg, n - 1))
     w = sval.to(xyz.dtype)
-    sums = torch.zeros_like(xyz).scatter_add_(
-        1, seg[..., None].expand(B, n, 3), spts * w[..., None])
+    # seg is nondecreasing along the sorted points (the invalid ones last,
+    # in segment n - 1), so each segment is a run of them; integer counts
+    # add exactly in any order
+    lengths = torch.zeros_like(seg).scatter_add_(1, seg, torch.ones_like(seg))
+    sums = torch.segment_reduce(spts * w[..., None], "sum", lengths=lengths,
+                                axis=1, unsafe=True)
     cnts = torch.zeros_like(w).scatter_add_(1, seg, w)
     centroids = sums / cnts.clamp(min=1.0)[..., None]
     end = is_new.sum(dim=1)                                    # (B,)

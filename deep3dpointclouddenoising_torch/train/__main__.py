@@ -14,7 +14,11 @@ checkpoint per epoch.  Run it as::
 ``L/<experiment_name>/current.pt`` (every epoch) and ``ckpt_epoch_<E>.pt``
 (every ``save_freq`` epochs and the last); ``infer --checkpoint`` reads
 either.  The loss is read back from the card only every ``print_freq``
-steps, so the host prepares batches while the card computes.
+steps, so the host prepares batches while the card computes.  The JAX
+package's ``steps_per_dispatch`` (scan-fused steps, a workaround for the
+TPU's remote link) is read from the config and ignored: every step is its
+own dispatch.  ``remat: 1`` in the config recomputes the encoder's
+bottlenecks in the backward (``models/resnet.py``).
 """
 from __future__ import annotations
 

@@ -489,3 +489,95 @@ def test_chamfer_losses_on_card_match_cpu(card, name):
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
     torch.testing.assert_close(gg, gc, rtol=1e-4,
                                atol=1e-6 * gc.abs().max().item())
+
+
+def _sparse_patch(rng, B, N, real, radius):
+    """15k-like patches: ``real`` points in a ball, the other slots padding
+    that copies real points (mask 0)."""
+    xyz = rng.normal(size=(B, N, 3))
+    xyz *= (radius * rng.random((B, N, 1)) ** (1 / 3)
+            / np.linalg.norm(xyz, axis=-1, keepdims=True))
+    pick = rng.integers(0, real, size=(B, N - real))
+    xyz[:, real:] = np.take_along_axis(xyz[:, :real], pick[..., None], 1)
+    mask = np.zeros((B, N), np.float32)
+    mask[:, :real] = 1.0
+    return torch.from_numpy(xyz.astype(np.float32)), torch.from_numpy(mask)
+
+
+@pytest.mark.cuda
+def test_grid_subsampling_on_card_is_reproducible_and_matches_cpu(card):
+    """Subsampling 15,000-slot sparse patches to 4,096 and dense 500-point
+    ones to 256, on voxels that hold ~8 points each: barycentres and
+    masks on the card equal the CPU's bitwise, in two runs (the segment
+    sums add in point order on both, so no run-to-run ulp moves a
+    next-level neighbour)."""
+    from deep3dpointclouddenoising_torch.ops.subsample import \
+        masked_grid_subsampling
+    rng = np.random.default_rng(34)
+    xyz, mask = _sparse_patch(rng, 4, 15000, 900, 0.05)
+    dense = torch.from_numpy(
+        (rng.random((2, 500, 3)) * 0.1).astype(np.float32))
+    for pts, msk, npoint, dl in ((xyz, mask, 4096, 0.02),
+                                 (dense, torch.ones(2, 500), 256, 0.03)):
+        want = masked_grid_subsampling(pts, msk, npoint=npoint,
+                                       sample_dl=dl)
+        assert 1.0 < float(want[1].sum(1).min()) < npoint
+        for _ in range(2):
+            got = masked_grid_subsampling(pts.to(card), msk.to(card),
+                                          npoint=npoint, sample_dl=dl)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [None, False])
+def test_15k_neighbour_queries_on_card_match_cpu(card, compact, monkeypatch):
+    """The stem's ball query and the 1-NN upsample of two 15,000-slot
+    patches (900 and 5,000 real points: the compacted supports take the
+    stable sort and the int64 top-k) on the card equal the CPU's bitwise,
+    chunked and, by default, over the compacted supports."""
+    from deep3dpointclouddenoising_torch.ops import neighbors as tnb
+    xyz, mask = _sparse_patch(np.random.default_rng(31), 2, 15000, 900,
+                              0.05)
+    more, more_mask = _sparse_patch(np.random.default_rng(32), 1, 15000,
+                                    5000, 0.05)
+    xyz, mask = torch.cat([xyz, more]), torch.cat([mask, more_mask])
+    if compact is not None:  # force the choice auto_compact makes
+        monkeypatch.setattr(tnb, "auto_compact", lambda b, m, n: compact)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        x, m = xyz.to(dev), mask.to(dev)
+        idx, msk = tnb.masked_ordered_ball_query(
+            x, x, m, m, radius=0.025, nsample=26)
+        up, _ = tnb.masked_nearest_query(x, x[:, :4096], m, m[:, :4096])
+        out[dev.type] = [t.cpu() for t in (idx, msk, up)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kpconv_backward_kernel_at_a_sink_is_float32_accurate(card):
+    """Four supports named by 6,500 edges each (like the few real points
+    of a sparse patch, which its padding queries name): d_features and
+    d_kernel_weights against the plain backward in float64 within three
+    times the plain float32 backward's own distance from it (relative L2).
+    The kernel adds each chunk's product to H in float32, where chaining
+    one tensor-core accumulator over a support's chunks drifts."""
+    rng = np.random.default_rng(33)
+    B, M, N, K, C = 2, 1000, 1000, 26, 72
+    arrays = _inputs(rng, B, M, N, K, C)
+    arrays[1][:, :, :] = torch.from_numpy(
+        rng.integers(0, 4, size=(B, M, K)).astype(np.int32))
+    arrays[3][:] = 1.0
+    g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(np.float32))
+    want = tkp.kpconv_aggregate_backward_plain(
+        *[a.double() if a.is_floating_point() else a for a in arrays],
+        g.double(), 0.12, "linear")
+    plain = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, "linear")
+    got = tkp.kpconv_aggregate_backward(*[a.to(card) for a in arrays],
+                                        g.to(card), 0.12, "linear")
+    torch.cuda.synchronize()
+    for k in range(2):
+        limit = grad_check.NOISE_FACTOR * grad_check.l2_distance(
+            plain[k], want[k])
+        assert grad_check.l2_distance(got[k].cpu(), want[k]) <= limit
