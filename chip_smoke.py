@@ -5,7 +5,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports the port, torch, numpy and scipy only, and goes through eleven
+It imports the port, torch, numpy and scipy only, and goes through twelve
 phases, each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
@@ -98,11 +98,11 @@ phases, each printed with its wall time:
    each call with its live edges, in-degrees, device us and bounds over
    the live edges; (b) the whole model's forward and gradients there, as
    in phases 4 and 7; (c) one train step with ``remat: 1`` against one
-   without, from the same weights on one pyramid: the same loss, running
-   statistics and ``num_batches_tracked``, gradients within three times
-   their run-to-run noise, 19 forward launches against 10 (nine
-   bottlenecks recomputed) and 10 backward each, and the peak memory of
-   each; (d)
+   without, from the same weights on one pyramid: the same loss,
+   gradients, running statistics and ``num_batches_tracked``, bitwise
+   (and a second step without remat bitwise equal to the first), 19
+   forward launches against 10 (nine bottlenecks recomputed) and 10
+   backward each, and the peak memory of each; (d)
    both configs through the train entry point, STEPS_15K steps each,
    losses finite, parameters and running stats moved, 10 forward and 10
    backward launches per step, then a profiler window of
@@ -111,6 +111,24 @@ phases, each printed with its wall time:
    points, gaussian sigma 0.5%) with the Chamfer checkpoint, by host and
    by device voting: BATCHES_15K batches, 10 forward launches each, the
    device within rtol 1e-5 / atol 1e-6 of the host.
+12. outlier segmentation (this slice's path): ``cfgs/outlier_seg_edf.yaml``
+   (the scene-segmentation head, two classes, masked cross-entropy, Adam;
+   three Katz visibility channels; width 144, B=8, 15,000-slot patches on
+   the 15k schedule) on stand-in EDFS scans in the EDF PLY schema
+   (``data.scans``, shape diameter 1, 140,000 points, 10% box outliers),
+   the six that ``--DEBUG 1`` reads, the two held-out ones cut to the
+   section past SEG_CORNER: (a) both kernels against plain at the ten
+   calls of one real training batch (half its patches outlier-centred,
+   a few real points each), as in phase 11(a); (b) the whole model's
+   forward and its gradients under the cross-entropy there, as in phases
+   4 and 7; (c) ``train_outlier_seg`` STEPS_SEG steps, losses finite,
+   parameters and running stats moved, 10 forward and 10 backward
+   launches per step, then a profiler window of PROFILE_STEPS_SEG steps on
+   a validation batch with its stem in-degrees; (d) ``evaluate_outlier_seg``
+   on the held-out scans with (c)'s checkpoint, twice: BATCHES_SEG
+   batches, 10 forward launches each, the metric table, and the second
+   run's voted probabilities bitwise equal to the first's.  No metric is
+   held to a value (the weights are barely trained).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -138,20 +156,28 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from deep3dpointclouddenoising_torch import compute_cd, infer, \
-    make_synthetic_dataset, measure_performance, train_full_cleaning
+from deep3dpointclouddenoising_torch import compute_cd, \
+    evaluate_outlier_seg, infer, make_synthetic_dataset, \
+    measure_performance, train_full_cleaning, train_outlier_seg
 from deep3dpointclouddenoising_torch.config import load_config
 from deep3dpointclouddenoising_torch.data.loader import BatchLoader
-from deep3dpointclouddenoising_torch.data.meshio import save_off
+from deep3dpointclouddenoising_torch.data.meshio import read_ply, save_off
 from deep3dpointclouddenoising_torch.data.offset_dataset import OffsetDataset
+from deep3dpointclouddenoising_torch.data.outlier_dataset import \
+    OutlierSegmentationDataset
+from deep3dpointclouddenoising_torch.data.scans import make_scans
 from deep3dpointclouddenoising_torch.data.synthetic import (make_icosphere,
                                                             make_torus)
+from deep3dpointclouddenoising_torch.data.transforms import \
+    build_train_transforms
 from deep3dpointclouddenoising_torch.losses import chamfer
 from deep3dpointclouddenoising_torch.losses.build import \
     get_offset_regression_loss
+from deep3dpointclouddenoising_torch.losses.masked import (
+    masked_cross_entropy, masked_l1_loss)
 from deep3dpointclouddenoising_torch.models import local_aggregation
-from deep3dpointclouddenoising_torch.models.build import \
-    build_offset_regression
+from deep3dpointclouddenoising_torch.models.build import (
+    build_offset_regression, build_scene_segmentation)
 from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
 from deep3dpointclouddenoising_torch.ops import _cuda
@@ -220,6 +246,21 @@ STEPS_15K = 4
 PROFILE_STEPS_15K = 3
 SHAPE_15K = "cylinder_t"
 BATCHES_15K = 279
+# outlier-segmentation phase: the config, its stand-in EDFS scans
+# (data.scans at shape diameter 1, the config's scale) at 140,000 points,
+# the six that --DEBUG 1 reads (train 00-01, val 09-10, test 11-12), the
+# two held-out ones cut to the points past SEG_CORNER (a section of the
+# shell and of the outlier box at the training scans' density), the train
+# steps, the profiler window's steps and the evaluation's batches of 8
+# (2,446 patches)
+SEG_CONFIG = "outlier_seg_edf"
+SEG_POINTS = 140000
+SEG_SCANS = (0, 1, 9, 10, 11, 12)
+SEG_HELD_OUT = (11, 12)
+SEG_CORNER = (0.16, 0.16, 0.16)
+STEPS_SEG = 4
+PROFILE_STEPS_SEG = 3
+BATCHES_SEG = 306
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # 15k forward, B=8, P=15
 CALLS_15K = [
@@ -443,11 +484,26 @@ def phase_kernels(cfg, device):
     }
 
 
+def build_model(cfg, seed: int = 0):
+    """The config's model (the scene-segmentation model for a
+    ``resnet_scene_seg`` head, else the offset regressor), its weights
+    drawn from a generator seeded with ``seed``."""
+    build = build_scene_segmentation if cfg.head == "resnet_scene_seg" \
+        else build_offset_regression
+    return build(cfg, torch.Generator().manual_seed(seed))
+
+
+def model_loss(cfg):
+    """``(target key, loss(pred, target, mask))`` of the config's model."""
+    if cfg.head == "resnet_scene_seg":
+        return "labels", masked_cross_entropy
+    return "offsets", masked_l1_loss
+
+
 def seeded_model(cfg, device, seed: int = 0):
-    """l1.yaml model with seeded weights; the final Dense and every
+    """The config's model with seeded weights; the final Dense and every
     BatchNorm's running stats get O(1) values, so the output is O(1)."""
-    model = build_offset_regression(cfg,
-                                    torch.Generator().manual_seed(seed))
+    model = build_model(cfg, seed)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -458,7 +514,9 @@ def seeded_model(cfg, device, seed: int = 0):
                 buf.copy_(torch.from_numpy(
                     rng.uniform(0.5, 2.0, size=buf.shape).astype(
                         np.float32)))
-        dense = model.MultiDimHead_0.Dense_0
+        dense = model.get_submodule(
+            [n for n, _ in model.named_modules()
+             if n.endswith("MultiDimHead_0.Dense_0")][0])
         dense.weight.copy_(torch.from_numpy(
             rng.normal(size=tuple(dense.weight.shape)).astype(np.float32)))
         dense.bias.copy_(torch.from_numpy(
@@ -491,15 +549,15 @@ def phase_model(cfg, device, batch=None):
     batch = patch_batch(cfg, 1) if batch is None else batch
     xyz_t, mask_t = (torch.as_tensor(batch[k]).to(device)
                      for k in ("points", "mask"))
+    feat_t = torch.as_tensor(batch["features"]).to(device)
     with torch.inference_mode():
         pyramid = model.make_pyramid(xyz_t, mask_t)
 
         def head(m, feats):
-            return m.MultiDimHead_0(pyramid, m.ResNetEncoder_0(pyramid,
-                                                               feats))
+            return m.head(pyramid, m.ResNetEncoder_0(pyramid, feats))
 
         kpconv_aggregate.launches = 0
-        got = head(model, xyz_t)
+        got = head(model, feat_t)
         torch.cuda.synchronize()
         if kpconv_aggregate.launches != 10:
             raise AssertionError(f"forward launched the kernel "
@@ -508,15 +566,15 @@ def phase_model(cfg, device, batch=None):
         # in for the wrapper, on the same pyramid; and the same in float64
         local_aggregation.kpconv_aggregate = kpconv_aggregate_plain
         try:
-            want = head(model, xyz_t)
-            want64 = head(copy.deepcopy(model).double(), xyz_t.double())
+            want = head(model, feat_t)
+            want64 = head(copy.deepcopy(model).double(), feat_t.double())
         finally:
             local_aggregation.kpconv_aggregate = kpconv_aggregate
         worst = grad_check.check_forward(got, want, want64, **MODEL_TOL)
         fixed = ((got - want).abs() - MODEL_TOL["rtol"] * want.abs()
                  > MODEL_TOL["atol"]).sum().item()
         noise = (want.double() - want64).abs().max().item()
-        fwd_ms = cuda_ms(lambda: model(xyz_t, mask_t, xyz_t), 10)
+        fwd_ms = cuda_ms(lambda: model(xyz_t, mask_t, feat_t), 10)
     print(f"output {tuple(got.shape)}, |out| max {want.abs().max().item():.3f}"
           f"; kernel vs plain: max abs {worst['max_abs']:.3e}; nearest its "
           f"limit: output {worst['index']} = {worst['plain']:.6g}, off by "
@@ -600,6 +658,28 @@ def check_grad_close(got, want, what: str):
     return max_abs
 
 
+def check_grad_float64(got, plain, want64, what: str):
+    """Backward kernel against the plain backward in float64 where a
+    support's gradient sums ~10^5 edges (a sparse patch's few real points,
+    which its padding queries name): the plain float32 backward, adding by
+    atomics, is no yardstick there.  Each element within rtol BWD_RTOL and
+    an atol of BWD_ATOL_FRAC of the largest entry of the float64 result,
+    widened by grad_check.NOISE_FACTOR times the plain float32 backward's
+    largest distance from it.  Returns the kernel's and the plain
+    version's max abs distances from float64."""
+    want = want64.double()
+    noise = (plain.double() - want).abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    limit = BWD_ATOL_FRAC * want.abs().max().item() \
+        + grad_check.NOISE_FACTOR * noise
+    worst = ((got.double() - want).abs() - BWD_RTOL * want.abs()).max()
+    if not torch.isfinite(got).all() or worst.item() > limit:
+        raise AssertionError(
+            f"{what}: {err:.3e} from float64 (plain float32 {noise:.3e}), "
+            f"over rtol {BWD_RTOL} / atol {limit:.3e}")
+    return err, noise
+
+
 def check_reproducible(args, g, extent, infl, what: str):
     """Two calls of the training path's backward give bitwise equal
     d_features and d_kernel_weights."""
@@ -618,8 +698,7 @@ def pyramid_calls(cfg, device, batch=None, table=FLAGSHIP_CALLS):
     ``patch_batch(cfg, 3)``), checked against ``table``'s shapes: (name,
     M, N, K, C, radius multiple, idx, rel, feature mask) each, the feature
     mask all ones for padding queries as the model makes it."""
-    model = build_offset_regression(cfg, torch.Generator().manual_seed(0))
-    model = model.to(device)
+    model = build_model(cfg).to(device)
     batch = patch_batch(cfg, 3) if batch is None else batch
     xyz, mask = (torch.as_tensor(batch[k]).to(device)
                  for k in ("points", "mask"))
@@ -798,18 +877,20 @@ def phase_backward_pyramid(cfg, device):
 
 def phase_model_grad(cfg, device, batch=None):
     """Train-mode gradients of every parameter of the width-144 model under
-    the masked L1 loss, on one batch (default ``patch_batch(cfg, 3)``) and
+    its loss (the masked L1 loss, or the masked cross-entropy of the
+    segmentation model), on one batch (default ``patch_batch(cfg, 3)``) and
     one pyramid: the backward kernel against the plain backward on one
     forward graph, and the kernel path against the plain path, each tensor
     within ``grad_check``'s limit from its own float32 noise."""
-    model = build_offset_regression(
-        cfg, torch.Generator().manual_seed(0)).to(device).train()
+    model = build_model(cfg).to(device).train()
+    target, loss_fn = model_loss(cfg)
     batch = patch_batch(cfg, 3) if batch is None else batch
     batch = {k: torch.as_tensor(batch[k]).to(device)
-             for k in ("points", "mask", "features", "offsets")}
+             for k in ("points", "mask", "features", target)}
     pyramid = model.make_pyramid(batch["points"], batch["mask"])
     grads = grad_check.model_gradients(model, pyramid, batch["features"],
-                                       batch["offsets"], batch["mask"])
+                                       batch[target], batch["mask"],
+                                       loss_fn)
     if grads["launches"] != (10, 10):
         raise AssertionError(
             f"one train forward and backward launched "
@@ -1273,14 +1354,16 @@ def phase_cleaning(cfg, workdir):
     return {"cleaning": (fwd, bwd), "chamfer": (c_fwd, c_bwd)}
 
 
-def phase_15k_kernels(cfg, device, batch):
+def phase_15k_kernels(cfg, device, batch, source: str,
+                      float64: bool = False):
     """Both kernels against plain at the ten calls of a 15k forward on a
-    real pyramid (``batch``: B=8, 15,000 slots, sparse patches): the
-    forward at KERNEL_TOL, the backward's training variant and d_rel
-    variant at BWD_RTOL and BWD_ATOL_FRAC of the largest gradient, bitwise
-    reproducible; each call's live edges, in-degrees, device us and
-    bounds over the live edges.  Returns the 15k block of each kernel's
-    JSON record."""
+    real pyramid (``batch``: B=8, 15,000 slots, sparse patches, of
+    ``source``): the forward at KERNEL_TOL, the backward's training
+    variant and d_rel variant at BWD_RTOL and BWD_ATOL_FRAC of the largest
+    gradient (with ``float64``, against the plain backward in float64 as
+    ``check_grad_float64`` says), bitwise reproducible; each call's live
+    edges, in-degrees, device us and bounds over the live edges.  Returns
+    the 15k block of each kernel's JSON record."""
     rng = np.random.default_rng(11)
     B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
     r0 = float(cfg.radius)
@@ -1315,13 +1398,32 @@ def phase_15k_kernels(cfg, device, batch):
         torch.cuda.synchronize()
         want = kpconv_aggregate_backward_plain(*args, g, extent, "linear",
                                                need_rel=True)
-        errs = [check_grad_close(a, b, f"15k backward {name} {what}")
-                for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
-        errs += [check_grad_close(a, b, f"15k backward {name} {what}, "
-                                  "d_rel variant")
-                 for a, b, what in zip(got_rel, want,
-                                       ("d_feat", "d_kw", "d_rel"))]
-        errs = [max(errs[0], errs[2]), max(errs[1], errs[3]), errs[4]]
+        if float64:
+            want64 = kpconv_aggregate_backward_plain(
+                *[a.double() if a.is_floating_point() else a for a in args],
+                g.double(), extent, "linear", need_rel=True)
+            pairs = [check_grad_float64(a, b, c, f"15k backward {name} "
+                                        f"{what}{variant}")
+                     for out, variant, names in (
+                         (got, "", ("d_feat", "d_kw")),
+                         (got_rel, ", d_rel variant",
+                          ("d_feat", "d_kw", "d_rel")))
+                     for a, b, c, what in zip(out, want, want64, names)]
+            errs = [max(pairs[0][0], pairs[2][0]),
+                    max(pairs[1][0], pairs[3][0]), pairs[4][0]]
+            print(f"{name}: from float64, kernel / plain float32: d_feat "
+                  f"{errs[0]:.3e} / {pairs[0][1]:.3e}, d_kw {errs[1]:.3e} / "
+                  f"{pairs[1][1]:.3e}, d_rel {errs[2]:.3e} / "
+                  f"{pairs[4][1]:.3e}", flush=True)
+            del want64
+        else:
+            errs = [check_grad_close(a, b, f"15k backward {name} {what}")
+                    for a, b, what in zip(got, want, ("d_feat", "d_kw"))]
+            errs += [check_grad_close(a, b, f"15k backward {name} {what}, "
+                                      "d_rel variant")
+                     for a, b, what in zip(got_rel, want,
+                                           ("d_feat", "d_kw", "d_rel"))]
+            errs = [max(errs[0], errs[2]), max(errs[1], errs[3]), errs[4]]
         del got, got_rel, want
         check_reproducible(args, g, extent, "linear", f"15k {name}")
 
@@ -1371,9 +1473,8 @@ def phase_15k_kernels(cfg, device, batch):
         rec["bound_by"] = "bytes" if rec.pop("bytes") >= rec.pop("ops") \
             else "operations"
         rec["timed_at"] = ("sum over the ten calls of one 15k forward "
-                           "(backward), B=8, on a real pyramid of "
-                           f"{CONFIGS_15K[0]} validation patches; bounds "
-                           "over the live edges")
+                           f"(backward), B=8, on a real pyramid of {source}"
+                           "; bounds over the live edges")
         print(f"15k, ten calls, {k}: wrapper {rec['ms']:.4f} ms, device "
               f"{rec['device_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
@@ -1384,11 +1485,11 @@ def phase_15k_kernels(cfg, device, batch):
 def phase_15k_remat(config: str, device, batch):
     """One train step (forward, the config's loss, backward) with remat=1
     and two with remat=0, from the same weights on one pyramid of
-    ``batch``: the same loss and BatchNorm running statistics, each
-    gradient within three times its run-to-run noise (the two remat=0
-    steps apart: the Chamfer loss's gather adds its gradient by atomics)
-    or SAME_GRAPH_FLOOR of its max-abs, 19 and 10 forward launches
-    against 10 and 10; the peak memory of each."""
+    ``batch``: the same loss, gradients, BatchNorm running statistics and
+    ``num_batches_tracked``, bitwise (the two remat=0 steps too: every
+    kernel of the step, the Chamfer loss's gather included, adds in a
+    fixed order), 19 and 10 forward launches against 10 and 10; the peak
+    memory of each."""
     runs = []
     tensors = {k: torch.as_tensor(batch[k]).to(device)
                for k in ("points", "mask", "features", "offsets")}
@@ -1408,7 +1509,7 @@ def phase_15k_remat(config: str, device, batch):
         base = torch.cuda.memory_allocated()
         kpconv_aggregate.launches = 0
         kpconv_aggregate_backward.launches = 0
-        pred = model.MultiDimHead_0(pyramid, model.ResNetEncoder_0(
+        pred = model.head(pyramid, model.ResNetEncoder_0(
             pyramid, tensors["features"]))
         loss = loss_fn(pred, tensors["offsets"], tensors["mask"],
                        tensors["points"])
@@ -1426,33 +1527,23 @@ def phase_15k_remat(config: str, device, batch):
         raise AssertionError("remat launches "
                              f"{[r['launches'] for r in runs]}; expected "
                              "(10, 10), (19, 10), (10, 10)")
-    check_close(torch.tensor(remat["loss"]), torch.tensor(plain["loss"]),
-                1e-6, 0.0, "remat loss")
-    worst = (0.0, 0.0, "")
-    for name, g0 in plain["grads"].items():
-        d = grad_check.max_abs_distance(remat["grads"][name], g0)
-        limit = max(grad_check.NOISE_FACTOR * grad_check.max_abs_distance(
-            again["grads"][name], g0), grad_check.SAME_GRAPH_FLOOR)
-        if d > limit:
-            raise AssertionError(f"remat: gradient of {name} differs by "
-                                 f"{d:.3e} of its max-abs (limit "
-                                 f"{limit:.3e})")
-        worst = max(worst, (d / limit, d, name))
-    bitwise = True
-    for name, b0 in plain["buffers"].items():
-        b1 = remat["buffers"][name]
-        if name.endswith("num_batches_tracked"):
-            if not torch.equal(b0, b1):
-                raise AssertionError(f"remat: {name} {b1.item()} against "
-                                     f"{b0.item()}")
-        else:
-            check_close(b1, b0, 1e-6, 1e-7, f"remat: {name}")
-        bitwise &= torch.equal(b0, b1)
+    for what, other in (("remat=1", remat), ("a second remat=0 step",
+                                              again)):
+        if other["loss"] != plain["loss"]:
+            raise AssertionError(f"{what}: loss {other['loss']!r} against "
+                                 f"{plain['loss']!r}")
+        for kind in ("grads", "buffers"):
+            for name, b0 in plain[kind].items():
+                b1 = other[kind][name]
+                if not torch.equal(b0, b1):
+                    raise AssertionError(
+                        f"{what}: {kind[:-1]} {name} differs by "
+                        f"{(b1.double() - b0.double()).abs().max().item():.3e}"
+                        " (bitwise check)")
     print(f"{config} remat=1 against remat=0, one step on one B=8 batch: "
-          f"loss {remat['loss']:.8g} / {plain['loss']:.8g}; gradients: "
-          f"nearest its limit {worst[2]}, {worst[1]:.3e} of its max-abs "
-          f"({worst[0]:.3f} of the limit); running stats and "
-          f"num_batches_tracked equal (bitwise: {bitwise}); launches "
+          f"loss {remat['loss']:.8g}; {len(plain['grads'])} gradients, the "
+          "running stats and num_batches_tracked bitwise equal (and a second "
+          f"remat=0 step bitwise equal to the first); launches "
           f"{remat['launches']} / {plain['launches']}; peak memory of the "
           f"step {remat['peak'] / 2**30:.3f} / {plain['peak'] / 2**30:.3f} "
           "GiB (torch.cuda.max_memory_allocated above the step's start)",
@@ -1596,7 +1687,8 @@ def phase_15k(device, workdir):
           f"included): {time.perf_counter() - t0:.3f} s; real slots per "
           "patch " + " ".join(str(int(c)) for c in batch["mask"].sum(1)),
           flush=True)
-    records = phase_15k_kernels(cfg, device, batch)
+    records = phase_15k_kernels(cfg, device, batch,
+                                f"{CONFIGS_15K[0]} validation patches")
     phase_model(cfg, device, batch)
     phase_model_grad(cfg, device, batch)
     phase_15k_remat(CONFIGS_15K[0], device, batch)
@@ -1604,6 +1696,162 @@ def phase_15k(device, workdir):
     train_launches, _ = phase_15k_training(device, tree, log_dir)
     serve = phase_15k_serving(workdir, full, log_dir)
     return records, {"training": train_launches, "serving": serve}
+
+
+def seg_training(device, scans, log_dir):
+    """Phase 12(c): ``train_outlier_seg`` at width 144, STEPS_SEG steps and
+    a validation pass on the scans: every loss finite, parameters and
+    running stats changed, 10 forward and 10 backward launches per step;
+    then a profiler window over PROFILE_STEPS_SEG steps on a validation
+    batch, with its stem in-degrees.  Returns the launches (forward,
+    backward) and the checkpoint."""
+    path = os.path.join(ROOT, "cfgs", SEG_CONFIG + ".yaml")
+    B = int(load_config(path).batch_size)
+    argv = ["--config_file", path, "--data_root", scans, "--log_dir",
+            log_dir, "--num_steps", str(STEPS_SEG * B), "--epochs", "1",
+            "--val_freq", "1", "--DEBUG", "1", "--device", "cuda"]
+    kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
+    summary = train_outlier_seg.main(argv)
+    f, b = kpconv_aggregate.launches, kpconv_aggregate_backward.launches
+    steps, val_batches = summary["steps"], summary["val_batches"]
+    if steps != STEPS_SEG or (f, b) != (10 * (steps + val_batches),
+                                        10 * steps):
+        raise AssertionError(f"{SEG_CONFIG}: {steps} steps, {val_batches} "
+                             f"val batches, {f} forward and {b} backward "
+                             "launches")
+    losses = summary["train_losses"] + summary["val_losses"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{SEG_CONFIG}: losses {losses}")
+    trainer = summary["trainer"]
+    start = build_model(trainer.cfg, int(trainer.cfg.rng_seed)).state_dict()
+    for name, value in trainer.model.state_dict().items():
+        if not name.endswith("num_batches_tracked") \
+                and torch.equal(value.cpu(), start[name]):
+            raise AssertionError(f"{SEG_CONFIG}: training left {name} "
+                                 "unchanged")
+    print(f"{SEG_CONFIG} ({trainer.cfg.optimizer}, {trainer.cfg.loss}, "
+          f"features {list(trainer.cfg.features)} "
+          f"{list(trainer.cfg.katz_params)}): {steps} steps, val batches "
+          f"{val_batches}; launches: forward {f}, backward {b}; train "
+          "losses " + ", ".join(
+              f"{v:.6f}" for v in summary["train_losses"])
+          + f"; val loss {summary['val_losses']}; ms per step (host clock, "
+          f"data loading and the first step included) "
+          f"{summary['ms_per_step'][0]:.3f}", flush=True)
+    val = OutlierSegmentationDataset(
+        scans, "val", num_steps=B, **train_outlier_seg.dataset_kwargs(
+            trainer.cfg, None))
+    batch = next(iter(BatchLoader(val, B).epoch_iter(0)))
+    stem = pyramid_calls(trainer.cfg, device, batch, CALLS_15K)[0]
+    live, mean_deg, max_deg = in_degrees(stem[8], stem[6], stem[2])
+    print(f"{SEG_CONFIG}: profiled validation batch: real slots per patch "
+          + " ".join(str(int(c)) for c in batch["mask"].sum(1))
+          + f"; stem live edges {live}, in-degree mean {mean_deg:.1f}, "
+          f"max {max_deg}", flush=True)
+    profile_train_steps(trainer, {
+        k: torch.from_numpy(batch[k]).cuda()
+        for k in ("points", "mask", "features", "labels")},
+        PROFILE_STEPS_SEG)
+    return (f, b), summary["checkpoint"]
+
+
+def seg_evaluation(scans, checkpoint, workdir):
+    """Phase 12(d): ``evaluate_outlier_seg`` on the held-out scans with
+    the checkpoint of (c), twice: BATCHES_SEG batches, 10 forward launches
+    each and no backward, the metric table, and the second run's written
+    probabilities and classes bitwise equal to the first's.  Returns the
+    first run's forward launches."""
+    path = os.path.join(ROOT, "cfgs", SEG_CONFIG + ".yaml")
+    runs = []
+    for run in range(2):
+        out_dir = os.path.join(workdir, f"seg_eval_{run}")
+        kpconv_aggregate.launches = 0
+        kpconv_aggregate_backward.launches = 0
+        out = evaluate_outlier_seg.main([
+            "--config_file", path, "--data_root", scans, "--load_path",
+            checkpoint, "--DEBUG", "1", "--write_dir", out_dir,
+            "--device", "cuda"])
+        launches = kpconv_aggregate.launches
+        if kpconv_aggregate_backward.launches:
+            raise AssertionError("the evaluation launched the backward "
+                                 "kernel")
+        if (out["batches"], launches) != (BATCHES_SEG, 10 * BATCHES_SEG):
+            raise AssertionError(
+                f"evaluation: {len(out['dataset'])} patches, "
+                f"{out['batches']} batches, {launches} forward launches; "
+                f"expected {BATCHES_SEG} batches, {10 * BATCHES_SEG}")
+        ds = out["dataset"]
+        points = sum(len(p) for p in ds.clouds_points)
+        counts = sum(out["metrics"][k] for k in ("TN", "FP", "FN", "TP"))
+        if counts != points:
+            raise AssertionError(f"evaluation: {counts} points counted of "
+                                 f"{points}")
+        plys = [read_ply(os.path.join(out_dir, f"{n}_eval.ply"))
+                for n in ds.cloud_names]
+        for ply in plys:
+            if not np.isfinite(ply["proba"]).all():
+                raise AssertionError("evaluation: non-finite probability")
+        runs.append((plys, launches))
+        print(f"evaluation run {run + 1}: {ds.cloud_names}, {points} points, "
+              f"{len(ds)} patches of 15,000 slots, {out['batches']} "
+              f"batches, {out['seconds']:.3f} s, "
+              f"{points / out['seconds']:.1f} points/s; forward launches "
+              f"{launches}; metrics " + json.dumps(out["metrics"]),
+              flush=True)
+    for a, b in zip(runs[0][0], runs[1][0]):
+        for key in ("proba", "pred"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"evaluation: a second run's {key} "
+                                     "differs")
+    print("evaluation: the second run's voted probabilities and classes "
+          "bitwise equal to the first's", flush=True)
+    return runs[0][1]
+
+
+def phase_seg(device, workdir):
+    """Phase 12, outlier segmentation: the stand-in scans, (a) both kernels
+    against plain at the ten calls of one real B=8 training batch, (b) the
+    whole model's forward and CE gradients, (c) training and (d) the
+    voting evaluation through the entry points.  Returns the kernels'
+    records and the launches {"training": (fwd, bwd), "eval": fwd}."""
+    scans = os.path.join(workdir, "scans")
+    make_scans(scans, n=SEG_POINTS, diameter=1.0, write=SEG_SCANS,
+               cut=SEG_HELD_OUT, corner=SEG_CORNER)
+    cfg = load_config(os.path.join(ROOT, "cfgs", SEG_CONFIG + ".yaml"),
+                      {"DEBUG": 1})
+    if (int(cfg.width), int(cfg.num_points), list(cfg.nsamples),
+            list(cfg.npoints), int(cfg.input_features_dim),
+            int(cfg.num_classes), cfg.head) != (
+                144, 15000, [26, 31, 38, 41, 39], [4096, 1152, 304, 88], 3,
+                2, "resnet_scene_seg"):
+        raise AssertionError(f"{SEG_CONFIG} is no longer width 144 on the "
+                             "15k schedule with three Katz channels and two "
+                             "classes")
+    t0 = time.perf_counter()
+    B = int(cfg.batch_size)
+    train = OutlierSegmentationDataset(
+        scans, "train", num_steps=STEPS_SEG * B,
+        transforms=build_train_transforms(cfg),
+        **train_outlier_seg.dataset_kwargs(cfg, None))
+    batch = next(iter(BatchLoader(train, B, drop_last=True).epoch_iter(0)))
+    print(f"train split {train.cloud_names} (scans read, Katz features, "
+          f"voxel pre-subsampling and projections included): "
+          f"{time.perf_counter() - t0:.3f} s; first training batch: real "
+          "slots per patch " + " ".join(
+              str(int(c)) for c in batch["mask"].sum(1)) + ", outlier "
+          "points among them " + " ".join(
+              str(int(batch["labels"][i][batch["mask"][i] > 0].sum()))
+              for i in range(B)), flush=True)
+    records = phase_15k_kernels(cfg, device, batch,
+                                f"{SEG_CONFIG} training patches",
+                                float64=True)
+    phase_model(cfg, device, batch)
+    phase_model_grad(cfg, device, batch)
+    log_dir = os.path.join(workdir, "log_seg")
+    train_launches, checkpoint = seg_training(device, scans, log_dir)
+    eval_launches = seg_evaluation(scans, checkpoint, workdir)
+    return records, {"training": train_launches, "eval": eval_launches}
 
 
 def main(argv=None) -> int:
@@ -1659,21 +1907,32 @@ def main(argv=None) -> int:
             cleaning = phase_cleaning(cfg, workdir)
     with tempfile.TemporaryDirectory() as workdir, phase("15k family"):
         records_15k, path_15k = phase_15k(device, workdir)
-    # launches: this slice's path (the 15k family's training and serving);
-    # every path's in the detail
-    fwd_15k = path_15k["training"][0] + path_15k["serving"]
-    record.update(launches=fwd_15k, launches_by_path={
-        "serving": serving_launches, "training": train_fwd,
-        "deployment": deploy_fwd, "cleaning": cleaning["cleaning"][0],
-        "chamfer": cleaning["chamfer"][0],
-        "15k_training": path_15k["training"][0],
-        "15k_serving": path_15k["serving"]}, shapes_15k=records_15k["fwd"])
-    bwd_record.update(launches=path_15k["training"][1], launches_by_path={
-        "serving": 0, "training": train_bwd,  # inference checks its 0
-        "deployment": deploy_bwd, "cleaning": cleaning["cleaning"][1],
-        "chamfer": cleaning["chamfer"][1],
-        "15k_training": path_15k["training"][1], "15k_serving": 0},
-        shapes_15k=records_15k["bwd"])
+    with tempfile.TemporaryDirectory() as workdir, \
+            phase("outlier segmentation"):
+        records_seg, path_seg = phase_seg(device, workdir)
+    # launches: this slice's path (outlier segmentation's training and
+    # evaluation); every path's in the detail
+    record.update(
+        launches=path_seg["training"][0] + path_seg["eval"],
+        launches_by_path={
+            "serving": serving_launches, "training": train_fwd,
+            "deployment": deploy_fwd, "cleaning": cleaning["cleaning"][0],
+            "chamfer": cleaning["chamfer"][0],
+            "15k_training": path_15k["training"][0],
+            "15k_serving": path_15k["serving"],
+            "outlier_seg_training": path_seg["training"][0],
+            "outlier_seg_eval": path_seg["eval"]},
+        shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"])
+    bwd_record.update(
+        launches=path_seg["training"][1],
+        launches_by_path={
+            "serving": 0, "training": train_bwd,  # inference checks its 0
+            "deployment": deploy_bwd, "cleaning": cleaning["cleaning"][1],
+            "chamfer": cleaning["chamfer"][1],
+            "15k_training": path_15k["training"][1], "15k_serving": 0,
+            "outlier_seg_training": path_seg["training"][1],
+            "outlier_seg_eval": 0},
+        shapes_15k=records_15k["bwd"], shapes_seg=records_seg["bwd"])
     print(smi)
     print(json.dumps({"kernels": [record, bwd_record]}))
     print(json.dumps({"ok": True, "device": {

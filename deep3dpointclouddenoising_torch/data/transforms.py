@@ -1,11 +1,13 @@
-"""Point-cloud augmentations of the training split (numpy, host side).
+"""Point-cloud augmentations of the training split and of voting rounds
+(numpy, host side).
 
 A copy of the training transforms of
-``deep3dpointclouddenoising_tpu/data/transforms.py:21-130``: each takes a
-(N, 3) float32 array and the per-sample ``numpy.random.Generator`` and
-draws from it in the same order, so the same generator gives the same
-augmented patch.  The offset dataset stacks [points; offsets] before
-augmenting, so rotations turn both and the jitter perturbs both.
+``deep3dpointclouddenoising_tpu/data/transforms.py:21-130`` and of its batch
+transforms (:132-177): each takes a (N, 3) float32 array, or a (B, N, 3)
+batch, and a ``numpy.random.Generator`` and draws from it in the same
+order, so the same generator gives the same augmented patch.  The offset
+dataset stacks [points; offsets] before augmenting, so rotations turn both
+and the jitter perturbs both.
 """
 from __future__ import annotations
 
@@ -88,3 +90,54 @@ def build_train_transforms(cfg) -> Compose:
             std=cfg.noise_std, clip=cfg.noise_clip,
             augment_symmetries=cfg.augment_symmetries))
     return Compose(ts)
+
+
+class BatchPointcloudRandomRotate:
+    """A random Euler rotation per item of a (B, N, 3+) batch, x then y
+    then z; channels 3:6, when present, turn too (normals)."""
+
+    def __init__(self, x_range=np.pi, y_range=np.pi, z_range=np.pi):
+        self.ranges = (x_range, y_range, z_range)
+
+    def __call__(self, pc: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        rng = rng or np.random.default_rng()
+        out = np.array(pc, copy=True)
+        axes = np.eye(3)
+        for i in range(len(out)):
+            rot = np.eye(3)
+            for ax in range(3):
+                a = rng.uniform(-self.ranges[ax], self.ranges[ax])
+                rot = angle_axis(a, axes[ax]) @ rot
+            out[i, :, :3] = out[i, :, :3] @ rot.T
+            if out.shape[2] > 3:
+                out[i, :, 3:6] = out[i, :, 3:6] @ rot.T
+        return out
+
+
+class BatchPointcloudScaleAndJitter:
+    """Per item of a (B, N, 3+) batch, an anisotropic scale (optionally
+    with random axis symmetries) and a clipped gaussian jitter of the
+    coordinates."""
+
+    def __init__(self, scale_low=2. / 3., scale_high=3. / 2., std=0.01,
+                 clip=0.05, augment_symmetries=(0, 0, 0)):
+        self.scale_low, self.scale_high = scale_low, scale_high
+        self.std, self.clip = std, clip
+        self.augment_symmetries = np.asarray(augment_symmetries)
+
+    def __call__(self, pc: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        rng = rng or np.random.default_rng()
+        out = np.array(pc, copy=True)
+        for i in range(len(out)):
+            scale = rng.uniform(self.scale_low, self.scale_high, 3)
+            sym = np.round(rng.uniform(size=3)) * 2 - 1
+            sym = sym * self.augment_symmetries \
+                + (1 - self.augment_symmetries)
+            scale = scale * sym
+            jitter = np.clip(rng.normal(scale=self.std,
+                                        size=(out.shape[1], 3)),
+                             -self.clip, self.clip)
+            out[i, :, :3] = out[i, :, :3] * scale + jitter
+        return out

@@ -1,33 +1,42 @@
 """Offline evaluation: Chamfer-ratio tables, the noise and outlier ratios,
-and a train-free estimate of a cloud's noise sigma.
+a train-free estimate of a cloud's noise sigma, and the voting evaluation
+of outlier segmentation.
 
-Counterpart of ``deep3dpointclouddenoising_tpu/evaluate.py`` (its
-``_nn_dists`` to ``format_cd_table``), with the same arithmetic:
+Counterpart of ``deep3dpointclouddenoising_tpu/evaluate.py``, with the
+same arithmetic:
 
 * :func:`chamfer_ratio_table`: per shape CD(clean, denoised) /
   CD(clean, noisy) and the absolute CDs, and their mean;
 * :func:`performance_table`: the noise ratio (mean distance to the nearest
   clean point) and the outlier ratio (the share farther than a threshold);
 * :func:`estimate_noise_sigma`: the local-plane residual that routes a
-  cloud to the low-noise or the high-noise checkpoint in ``infer``.
+  cloud to the low-noise or the high-noise checkpoint in ``infer``;
+* :func:`evaluate_outlier_segmentation`: class probabilities of covering
+  patches voted onto each (sub-)cloud, projected onto the full clouds,
+  and the confusion metrics.
 
 Nearest-neighbour distances come from a host KD-tree, or with ``device``
 from :func:`_nn_dists_device`, a chunked brute force in torch on the
-card.  The JAX package's voting evaluation of outlier segmentation is not
-ported yet.
+card.
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
-from .data.meshio import read_ply
+from .data.loader import BatchLoader
+from .data.meshio import read_ply, write_ply
+from .data.transforms import (BatchPointcloudRandomRotate,
+                              BatchPointcloudScaleAndJitter)
 from .utils.device import resolve_device
+from .utils.metrics import confusion_matrix, metrics_from_confusion
+from .utils.spatial import GridIndex
 
 DeviceArg = Union[bool, str, torch.device, None]
 
@@ -190,3 +199,90 @@ def read_ply_tree(in_dir: str, subdirs: Sequence[str]
             clouds[sub].append(read_ply(os.path.join(in_dir, sub,
                                                      base))["vertex"])
     return names, clouds
+
+
+def _add_seg_votes(in_flight: deque, vote_sum, vote_cnt) -> None:
+    """Wait for the oldest in-flight probabilities and add them to the
+    votes of the batch's real slots."""
+    probs, batch = in_flight.popleft()
+    probs = probs.cpu().numpy()
+    masks = batch["mask"] > 0
+    for i in range(len(probs)):
+        c = int(batch["cloud_ind"][i])
+        inds = batch["input_inds"][i][masks[i]]
+        vote_sum[c][inds] += probs[i][masks[i]]
+        vote_cnt[c][inds] += 1
+
+
+def evaluate_outlier_segmentation(predict_fn: Callable, dataset, *,
+                                  batch_size: int = 8,
+                                  num_votes: int = 1,
+                                  vote_transform=None,
+                                  seed: int = 0,
+                                  write_dir: Optional[str] = None
+                                  ) -> Dict[str, float]:
+    """Voting evaluation of an outlier-segmentation model over whole
+    clouds.
+
+    ``predict_fn(batch)`` gives the (B, N, 2) logits of a batch of
+    ``dataset`` (an ``OutlierSegmentationDataset`` of a test split, whose
+    patches cover every cloud) as a tensor; their softmax, on its device,
+    votes in float64 on the host onto each patch's sub-cloud points, and
+    each point's mean decides its class.  A point no patch voted on takes
+    the class of its nearest voted point.  The classes project onto the
+    full clouds (``dataset.projections``) and are counted against the
+    labels.  Rounds past the first transform each batch's points by
+    ``vote_transform(points, rng)`` (default: a random rotation about z,
+    then ``BatchPointcloudScaleAndJitter``), ``rng`` one generator seeded
+    with ``seed`` and drawn in batch order.  With ``write_dir``, each
+    cloud's ``<name>_eval.ply`` holds its points, the outlier
+    probability, the class and the label.  Up to two batches stay in
+    flight.  Returns ``utils.metrics.metrics_from_confusion``'s dict."""
+    num_classes = 2
+    vote_sum = [np.zeros((len(p), num_classes), np.float64)
+                for p in dataset.sub_points]
+    vote_cnt = [np.zeros(len(p), np.int64) for p in dataset.sub_points]
+    if vote_transform is None and num_votes > 1:
+        rotate = BatchPointcloudRandomRotate(0.0, 0.0, np.pi)
+        jitter = BatchPointcloudScaleAndJitter()
+
+        def vote_transform(pts, rng):
+            return jitter(rotate(pts, rng), rng)
+
+    rng = np.random.default_rng(seed)
+    loader = BatchLoader(dataset, batch_size, drop_last=False)
+    in_flight: deque = deque()
+    for vote in range(num_votes):
+        for batch in loader.epoch_iter(0):
+            if vote > 0:
+                batch = dict(batch,
+                             points=vote_transform(batch["points"], rng))
+            in_flight.append((torch.softmax(predict_fn(batch), dim=-1),
+                              batch))
+            while len(in_flight) > 2:
+                _add_seg_votes(in_flight, vote_sum, vote_cnt)
+    while in_flight:
+        _add_seg_votes(in_flight, vote_sum, vote_cnt)
+
+    conf = np.zeros((num_classes, num_classes), np.int64)
+    for c, points in enumerate(dataset.clouds_points):
+        probs = vote_sum[c] / np.maximum(vote_cnt[c], 1)[:, None]
+        preds = probs.argmax(axis=1)
+        unvoted = vote_cnt[c] == 0
+        if unvoted.any() and (~unvoted).any():
+            sub = dataset.sub_points[c]
+            nearest = GridIndex(sub[~unvoted]).nearest_many(sub[unvoted])
+            preds[unvoted] = preds[~unvoted][nearest]
+        full_preds = preds[dataset.projections[c]]
+        labels = np.asarray(dataset.clouds_labels[c]).squeeze()
+        conf += confusion_matrix(labels, full_preds, num_classes)
+        if write_dir is not None:
+            os.makedirs(write_dir, exist_ok=True)
+            name = dataset.cloud_names[c].replace(os.sep, "_")
+            full_probs = probs[dataset.projections[c]][:, 1]
+            write_ply(os.path.join(write_dir, f"{name}_eval.ply"),
+                      [points, full_probs.astype(np.float32),
+                       full_preds.astype(np.float32),
+                       labels.astype(np.float32)],
+                      ["vertex", "proba", "pred", "GT"])
+    return metrics_from_confusion(conf)

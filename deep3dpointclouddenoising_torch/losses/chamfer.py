@@ -13,7 +13,11 @@ over padded (B, P, 3) clouds with float {0,1} masks:
 The nearest neighbour is searched without gradients and only the matched
 pair is recomputed with them: the gradient of ``min_j d(x, y_j)`` is that
 of the matched pair, and no (P1, P2, 3) difference tensor is kept for the
-backward.  The search sums ``(x_d - y_d)^2`` coordinate by coordinate in
+backward.  The matched points are gathered by advanced indexing
+(``ops.neighbors.gather_rows``), whose backward sorts the indices and adds
+each point's gradients in order: ``torch.gather``'s backward adds them by
+float atomics on the card, in an order that varies from run to run.  The
+search sums ``(x_d - y_d)^2`` coordinate by coordinate in
 float32 elementwise arithmetic: no matrix product for TF32 to reach, and
 no cancellation of ``|x|^2 - 2 x.y + |y|^2`` between near-duplicate points
 (which ``torch.cdist`` uses above 25 rows).  Padding slots of ``y`` are
@@ -27,7 +31,7 @@ from typing import Optional
 import torch
 
 from ..ops.neighbors import (auto_chunk, auto_compact, compact_supports,
-                            pairwise_sqdist)
+                            gather_rows, pairwise_sqdist)
 
 _BIG = 1e10
 
@@ -62,7 +66,7 @@ def _nn_one_way(x: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor,
     """(B, P1): each x point's cost to its nearest valid y point, with
     gradients through the matched pair only."""
     idx = nearest_indices(x, y, y_mask, chunk)
-    near = torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
+    near = gather_rows(y, idx)
     if norm_type == "L2":
         cost = torch.sum((x - near) ** 2, dim=-1)
     else:

@@ -1,12 +1,11 @@
 """Masked pointwise losses.
 
-Counterpart of ``deep3dpointclouddenoising_tpu/losses/masked.py:12-54``:
-functions over (B, N, ...) tensors with float {0,1} masks.  The
-classification losses take probabilities and clip them to
-``[eps, 1 - eps]`` before the log, as the JAX package does
-(``F.binary_cross_entropy`` clamps the log at -100 instead).  The
-segmentation and classification losses of that module come with their
-tasks (ROADMAP.md).
+Counterpart of ``deep3dpointclouddenoising_tpu/losses/masked.py:12-63``:
+functions over (B, N, ...) tensors with float {0,1} masks.  The binary
+losses take probabilities and clip them to ``[eps, 1 - eps]`` before the
+log, as the JAX package does (``F.binary_cross_entropy`` clamps the log at
+-100 instead); the segmentation loss takes logits.  The shape
+classification losses of that module come with their task (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -59,4 +58,13 @@ def masked_outlier_loss(prob: torch.Tensor, target: torch.Tensor,
     mean over points."""
     per = _bce(prob, target, eps) * torch.linalg.vector_norm(
         true_offsets, dim=-1)
+    return _masked_mean(per, mask)
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Per-point softmax cross-entropy of (B, N, C) logits against (B, N)
+    integer labels, masked mean over points."""
+    logp = torch.log_softmax(logits, dim=-1)
+    per = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     return _masked_mean(per, mask)

@@ -1,7 +1,9 @@
-"""Model library: KPConv-style U-Net backbone, the offset head and the
-full-cleaning head."""
+"""Model library: KPConv-style U-Net backbone, the offset head, the
+full-cleaning head and the scene-segmentation head."""
 from .build import (CompleteDenoisingModel, OffsetRegressionModel,
-                    build_complete_denoising, build_offset_regression)
+                    SceneSegmentationModel, build_complete_denoising,
+                    build_offset_regression, build_scene_segmentation)
 
 __all__ = ["CompleteDenoisingModel", "OffsetRegressionModel",
-           "build_complete_denoising", "build_offset_regression"]
+           "SceneSegmentationModel", "build_complete_denoising",
+           "build_offset_regression", "build_scene_segmentation"]

@@ -1,21 +1,21 @@
-"""The offset-regression and full-cleaning models.
+"""The offset-regression, full-cleaning and scene-segmentation models.
 
 Counterpart of ``OffsetRegressionModel``, ``CompleteDenoisingModel``,
-``build_offset_regression`` and ``build_complete_denoising`` in
+``SceneSegmentationModel`` and their builders in
 ``deep3dpointclouddenoising_tpu/models/build.py``: pyramid -> ResNet
-encoder -> U-Net head, on padded ``(xyz, mask, features)`` batches.  Both
-models share their module names, so a Flax tree of either converts by
-``convert.params_from_flax``.
+encoder -> U-Net head, on padded ``(xyz, mask, features)`` batches.  The
+module names follow the Flax tree, so a Flax tree of any of them converts
+by ``convert.params_from_flax``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..config import Config
-from .heads import MultiDimHead
+from .heads import MultiDimHead, SceneSegHead
 from .pyramid import Pyramid, build_pyramid
 from .resnet import ResNetEncoder
 
@@ -23,12 +23,11 @@ OFFSET_REG_DIM = 3
 OUTLIER_DETECT_DIM = 1
 
 
-class OffsetRegressionModel(nn.Module):
-    """U-Net offset regressor: per-point (B, N, 3) displacement.  The
-    initialisers draw from ``generator`` (the global generator when it is
-    ``None``)."""
-
-    num_out = OFFSET_REG_DIM
+class PyramidModel(nn.Module):
+    """The encoder over the geometry pyramid; a subclass adds its head
+    (created after the encoder, so the initialisers draw in the Flax
+    tree's order) and :meth:`head`.  The initialisers draw from
+    ``generator`` (the global generator when it is ``None``)."""
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None):
@@ -43,12 +42,9 @@ class OffsetRegressionModel(nn.Module):
                 "(ROADMAP.md)")
         self.cfg = cfg
         self.ResNetEncoder_0 = ResNetEncoder(cfg, generator)
-        self.MultiDimHead_0 = MultiDimHead(self.num_out, cfg, generator)
 
     def _check_head(self, cfg: Config) -> None:
-        if cfg.head != "offset_reg_head":
-            raise NotImplementedError(
-                f"Head {cfg.head} not implemented in OffsetRegression")
+        pass
 
     def make_pyramid(self, xyz: torch.Tensor, mask: torch.Tensor
                      ) -> Pyramid:
@@ -59,10 +55,33 @@ class OffsetRegressionModel(nn.Module):
             npoints=list(cfg.npoints), build_self=int(cfg.depth) > 1,
             build_up=True)
 
+    def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
+             ) -> torch.Tensor:
+        raise NotImplementedError
+
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
                 features: torch.Tensor) -> torch.Tensor:
         pyramid = self.make_pyramid(xyz, mask)
-        feats = self.ResNetEncoder_0(pyramid, features)
+        return self.head(pyramid, self.ResNetEncoder_0(pyramid, features))
+
+
+class OffsetRegressionModel(PyramidModel):
+    """U-Net offset regressor: per-point (B, N, 3) displacement."""
+
+    num_out = OFFSET_REG_DIM
+
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        self.MultiDimHead_0 = MultiDimHead(self.num_out, cfg, generator)
+
+    def _check_head(self, cfg: Config) -> None:
+        if cfg.head != "offset_reg_head":
+            raise NotImplementedError(
+                f"Head {cfg.head} not implemented in OffsetRegression")
+
+    def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
+             ) -> torch.Tensor:
         return self.MultiDimHead_0(pyramid, feats)
 
 
@@ -75,6 +94,21 @@ class CompleteDenoisingModel(OffsetRegressionModel):
 
     def _check_head(self, cfg: Config) -> None:
         pass
+
+
+class SceneSegmentationModel(PyramidModel):
+    """Per-point class logits (B, N, ``cfg.num_classes``).  Like the JAX
+    model, it reads no ``cfg.head``."""
+
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        self.SceneSegHead_0 = SceneSegHead(int(cfg.num_classes), cfg,
+                                           generator)
+
+    def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
+             ) -> torch.Tensor:
+        return self.SceneSegHead_0(pyramid, feats)
 
 
 def build_offset_regression(cfg: Config,
@@ -91,3 +125,11 @@ def build_complete_denoising(cfg: Config,
     """The full-cleaning model; its loss is
     ``losses.build.get_complete_denoising_loss(cfg.loss, cfg.in_radius)``."""
     return CompleteDenoisingModel(cfg, generator)
+
+
+def build_scene_segmentation(cfg: Config,
+                             generator: Optional[torch.Generator] = None
+                             ) -> SceneSegmentationModel:
+    """The scene-segmentation model; its loss is
+    ``losses.masked.masked_cross_entropy``."""
+    return SceneSegmentationModel(cfg, generator)

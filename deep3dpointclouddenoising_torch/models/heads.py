@@ -1,18 +1,19 @@
-"""U-Net decoder and the per-point regression head.
+"""U-Net decoder, the per-point regression head and the scene-segmentation
+head.
 
-Counterpart of ``deep3dpointclouddenoising_tpu/models/heads.py:23-108``.
+Counterpart of ``deep3dpointclouddenoising_tpu/models/heads.py:23-124``.
 Nearest-neighbour upsampling uses the 1-NN indices of the pyramid.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..config import Config
 from ..ops.neighbors import gather_rows
-from .layers import ConvBN, linear
+from .layers import ConvBN, he_normal_, linear
 from .pyramid import Pyramid
 
 
@@ -50,23 +51,55 @@ class UNetDecoder(nn.Module):
         return x  # (B, N, w/2) at input resolution
 
 
+def small_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """A regression head's final projection: normal, std 1e-4, so the
+    initial prediction is the zero offset."""
+    nn.init.normal_(weight, std=1e-4, generator=generator)
+
+
+def final_he_normal_(weight: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> None:
+    """A classification head's final projection: He normal over its
+    inputs (the logits start at O(1))."""
+    he_normal_(weight, weight.shape[1], generator)
+
+
+FinalInit = Callable[[torch.Tensor, Optional[torch.Generator]], None]
+
+
 class MultiDimHead(nn.Module):
-    """Per-point head of dimension ``num_out``.  The final projection of a
-    regression head starts near zero (normal, std 1e-4), so the initial
-    prediction is the zero offset."""
+    """Per-point head of dimension ``num_out``; ``final_init`` draws the
+    final projection's weight (its bias starts at zero)."""
 
     def __init__(self, num_out: int, cfg: Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 final_init: FinalInit = small_normal_):
         super().__init__()
         w = int(cfg.width)
         self.UNetDecoder_0 = UNetDecoder(cfg, generator)
         self.ConvBN_0 = ConvBN(w // 2, w // 2, cfg.bn_momentum,
                                generator=generator)
         self.Dense_0 = linear(w // 2, num_out, True, generator)
-        nn.init.normal_(self.Dense_0.weight, std=1e-4, generator=generator)
+        final_init(self.Dense_0.weight, generator)
         nn.init.zeros_(self.Dense_0.bias)
 
     def forward(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
                 ) -> torch.Tensor:
         x = self.UNetDecoder_0(pyramid, feats)
         return self.Dense_0(self.ConvBN_0(x)).float()
+
+
+class SceneSegHead(nn.Module):
+    """Per-point class logits (B, N, num_classes): a ``MultiDimHead`` whose
+    final projection is He-normal initialised."""
+
+    def __init__(self, num_classes: int, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.MultiDimHead_0 = MultiDimHead(num_classes, cfg, generator,
+                                           final_init=final_he_normal_)
+
+    def forward(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
+                ) -> torch.Tensor:
+        return self.MultiDimHead_0(pyramid, feats)

@@ -1,5 +1,6 @@
-"""Offset-regression training on one card, and the epoch loop that
-full-cleaning training (``train_full_cleaning``) shares.
+"""Offset-regression training on one card, and the epoch loop (:func:`fit`)
+that full-cleaning and outlier-segmentation training
+(``train_full_cleaning``, ``train_outlier_seg``) share.
 
 Counterpart of ``scripts/train.py`` for one device: the same config file
 and overrides, epochs of train steps over the ``train`` split with a
@@ -41,7 +42,7 @@ from .trainer import Trainer
 
 _OVERRIDES = ("batch_size", "num_points", "width", "num_steps", "epochs",
               "base_learning_rate", "weight_decay", "rng_seed", "val_freq",
-              "num_points_per_shape")
+              "num_points_per_shape", "DEBUG")
 
 
 _CLIS = {
@@ -50,6 +51,9 @@ _CLIS = {
     "full_cleaning": (
         "python -m deep3dpointclouddenoising_torch.train_full_cleaning",
         "Full-cleaning training (offsets and outlierness) on one card."),
+    "segmentation": (
+        "python -m deep3dpointclouddenoising_torch.train_outlier_seg",
+        "Outlier-segmentation training on labelled scans on one card."),
 }
 
 
@@ -69,13 +73,30 @@ def parse_args(argv: Optional[List[str]] = None,
     p.add_argument("--base_learning_rate", type=float)
     p.add_argument("--weight_decay", type=float)
     p.add_argument("--val_freq", type=int)
-    p.add_argument("--num_points_per_shape", type=int,
-                   help="points of each processed training and validation "
-                        "cloud")
+    if loss_mode == "segmentation":
+        p.add_argument("--dataset_type",
+                       help="EDFM | EDFS | EDFS{K}f{i} | PCN (default: the "
+                            "config's datasets)")
+        p.add_argument("--DEBUG", type=int,
+                       help="1: the first two scans of each split")
+    else:
+        p.add_argument("--num_points_per_shape", type=int,
+                       help="points of each processed training and "
+                            "validation cloud")
     p.add_argument("--log_dir", default="log")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+def load_run_config(args: argparse.Namespace):
+    """The config file with the command line's overrides, and its
+    ``data_root``."""
+    cfg = load_config(args.config_file,
+                      {k: getattr(args, k) for k in _OVERRIDES
+                       if getattr(args, k, None) is not None})
+    cfg.data_root = args.data_root
+    return cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -92,17 +113,12 @@ def _normed(batch: Dict[str, np.ndarray], norm_factor: Optional[float]):
 
 def main(argv: Optional[List[str]] = None,
          loss_mode: str = "offset") -> Dict[str, Any]:
-    """Train the model of ``loss_mode`` (``Trainer``'s: ``"offset"`` or
-    ``"full_cleaning"``); returns a summary: every train loss, the val
-    losses, ms per step of each epoch, the step count, val batches and the
-    last checkpoint's path."""
+    """Train the model of ``loss_mode`` (``"offset"`` or
+    ``"full_cleaning"``) on a shape tree; returns :func:`fit`'s
+    summary."""
     args = parse_args(argv, loss_mode)
     device = resolve_device(args.device)
-    cfg = load_config(args.config_file,
-                      {k: getattr(args, k) for k in _OVERRIDES
-                       if getattr(args, k) is not None})
-    cfg.data_root = args.data_root
-    log_dir = os.path.join(args.log_dir, cfg.experiment_name or "run")
+    cfg = load_run_config(args)
     common = dict(
         in_radius=cfg.in_radius, num_points=cfg.num_points,
         num_steps=cfg.num_steps, noise_type=cfg.noise_type,
@@ -116,6 +132,21 @@ def main(argv: Optional[List[str]] = None,
                              transforms=build_train_transforms(cfg),
                              **common)
     val_ds = OffsetDataset(cfg.data_root, "val", num_epochs=1, **common)
+    norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
+    return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
+               norm_factor)
+
+
+def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
+        loss_mode: str, norm_factor: Optional[float] = None
+        ) -> Dict[str, Any]:
+    """Epochs ``cfg.start_epoch..cfg.epochs`` of train steps over
+    ``train_ds`` (its ragged last batch dropped), a validation pass over
+    ``val_ds`` every ``cfg.val_freq`` epochs, and a checkpoint per epoch
+    under ``<log_dir>/<experiment_name>``.  Returns a summary: every train
+    loss, the val losses, ms per step of each epoch, the step count, val
+    batches, the last checkpoint's path and the trainer."""
+    log_dir = os.path.join(log_dir, cfg.experiment_name or "run")
     batch_size = int(cfg.batch_size)
     train_loader = BatchLoader(train_ds, batch_size, drop_last=True)
     val_loader = BatchLoader(val_ds, batch_size)
@@ -125,7 +156,6 @@ def main(argv: Optional[List[str]] = None,
     trainer = Trainer(cfg, len(train_loader),
                       torch.Generator().manual_seed(int(cfg.rng_seed)),
                       device, loss_mode=loss_mode)
-    norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
     summary: Dict[str, Any] = {"train_losses": [], "val_losses": [],
                                "ms_per_step": [], "val_batches": 0}
     checkpoint = None

@@ -21,7 +21,9 @@ import torch
 from ..config import Config
 from ..losses.build import (get_complete_denoising_loss,
                             get_offset_regression_loss)
-from ..models import build_complete_denoising, build_offset_regression
+from ..losses.masked import masked_cross_entropy
+from ..models import (build_complete_denoising, build_offset_regression,
+                      build_scene_segmentation)
 from ..utils.device import resolve_device
 from .lr_schedule import Schedule, get_lr_schedule
 
@@ -120,13 +122,15 @@ class Trainer:
     * ``"offset"``: the offset-regression model,
       ``loss(pred, offsets, mask, points)``;
     * ``"full_cleaning"``: the full-cleaning model (four outputs),
-      ``loss(pred, offsets, labels, mask)``.
+      ``loss(pred, offsets, labels, mask)``;
+    * ``"segmentation"``: the scene-segmentation model
+      (``cfg.num_classes`` logits), ``loss(logits, labels, mask)``.
 
     ``batch`` is a dict of numpy arrays (or tensors) with ``points``
-    (B, N, 3), ``mask`` (B, N), ``features`` (B, N, C), ``offsets``
-    (B, N, 3) and ``labels`` (B, N), as ``OffsetDataset.get`` and
-    ``collate`` make them.  The model's initial weights come from
-    ``generator``.
+    (B, N, 3), ``mask`` (B, N), ``features`` (B, N, C), ``labels`` (B, N)
+    and, but for segmentation, ``offsets`` (B, N, 3), as the datasets'
+    ``get`` and ``collate`` make them.  The model's initial weights come
+    from ``generator``.
     """
 
     def __init__(self, cfg: Config, n_iter_per_epoch: int,
@@ -143,6 +147,9 @@ class Trainer:
             model = build_complete_denoising(cfg, generator)
             default_loss = get_complete_denoising_loss(
                 cfg.loss, float(cfg.in_radius))
+        elif loss_mode == "segmentation":
+            model = build_scene_segmentation(cfg, generator)
+            default_loss = masked_cross_entropy
         else:
             raise ValueError(f"loss_mode {loss_mode!r} is not ported")
         self.model = model.to(self.device)
@@ -163,9 +170,13 @@ class Trainer:
                 for k in keys]
 
     def _loss(self, batch: Batch) -> torch.Tensor:
-        points, mask, features, offsets = self._inputs(
-            batch, "points", "mask", "features", "offsets")
+        points, mask, features = self._inputs(batch, "points", "mask",
+                                              "features")
         pred = self.model(points, mask, features)
+        if self.loss_mode == "segmentation":
+            labels, = self._inputs(batch, "labels")
+            return self.loss_fn(pred, labels, mask)
+        offsets, = self._inputs(batch, "offsets")
         if self.loss_mode == "full_cleaning":
             labels, = self._inputs(batch, "labels")
             return self.loss_fn(pred, offsets, labels, mask)

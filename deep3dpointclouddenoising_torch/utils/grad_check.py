@@ -10,8 +10,9 @@ weights for no fault of the kernel.
 
 The rest of this module does the same for gradients.
 
-Every parameter's train-mode gradient under the masked L1 loss, on one batch
-and one neighbour pyramid, four ways:
+Every parameter's train-mode gradient under a loss (the masked L1 loss
+unless another is given), on one batch and one neighbour pyramid, four
+ways:
 
 * ``kernel``: forward and backward kernels, as training runs them;
 * ``same_graph``: the kernel path's forward graph, its aggregations'
@@ -44,7 +45,7 @@ Dense or kernel-weights gradient it pins about a thousand times tighter.
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -98,9 +99,12 @@ def l2_distance(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def model_gradients(model, pyramid, features: torch.Tensor,
-                    offsets: torch.Tensor, mask: torch.Tensor) -> Dict:
+                    target: torch.Tensor, mask: torch.Tensor,
+                    loss_fn: Callable = masked_l1_loss) -> Dict:
     """The four gradients of every parameter of ``model`` (in train mode,
-    on the card) and the kernel path's launches.
+    on the card) under ``loss_fn(pred, target, mask)`` and the kernel
+    path's launches.  A floating-point ``target`` (offsets) goes to float64
+    with the float64 path; integer labels stay as they are.
 
     Returns ``names``, the gradient lists ``kernel``, ``same_graph``,
     ``plain`` and ``float64``, the float32 ``loss`` and ``plain_loss``, and
@@ -109,12 +113,12 @@ def model_gradients(model, pyramid, features: torch.Tensor,
     names, params = zip(*model.named_parameters())
 
     def loss_of(m, feats, target):
-        pred = m.MultiDimHead_0(pyramid, m.ResNetEncoder_0(pyramid, feats))
-        return masked_l1_loss(pred, target, mask)
+        return loss_fn(m.head(pyramid, m.ResNetEncoder_0(pyramid, feats)),
+                       target, mask)
 
     fwd0 = kpconv_ops.kpconv_aggregate.launches
     bwd0 = kpconv_ops.kpconv_aggregate_backward.launches
-    loss = loss_of(model, features, offsets)
+    loss = loss_of(model, features, target)
     kernel = torch.autograd.grad(loss, params, retain_graph=True)
     torch.cuda.synchronize()
     launches = (kpconv_ops.kpconv_aggregate.launches - fwd0,
@@ -129,11 +133,13 @@ def model_gradients(model, pyramid, features: torch.Tensor,
     aggregate = local_aggregation.kpconv_aggregate
     local_aggregation.kpconv_aggregate = kpconv_ops.kpconv_aggregate_plain
     try:
-        plain_loss = loss_of(model, features, offsets)
+        plain_loss = loss_of(model, features, target)
         plain = torch.autograd.grad(plain_loss, params)
         model64 = copy.deepcopy(model).double()
         float64 = torch.autograd.grad(
-            loss_of(model64, features.double(), offsets.double()),
+            loss_of(model64, features.double(),
+                    target.double() if target.is_floating_point()
+                    else target),
             list(model64.parameters()))
     finally:
         local_aggregation.kpconv_aggregate = aggregate

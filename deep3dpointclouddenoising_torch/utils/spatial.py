@@ -36,3 +36,10 @@ class GridIndex:
         center = np.ascontiguousarray(center, dtype=np.float32).ravel()
         _, idx = self._tree.query(center, k=1)
         return int(idx)
+
+    def nearest_many(self, centers: np.ndarray) -> np.ndarray:
+        """(Q,) int64: :meth:`nearest` of each of the (Q, 3) ``centers``,
+        in one tree query."""
+        centers = np.ascontiguousarray(centers, dtype=np.float32)
+        _, idx = self._tree.query(centers.reshape(-1, 3), k=1)
+        return np.asarray(idx, np.int64)

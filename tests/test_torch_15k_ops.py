@@ -29,6 +29,7 @@ from deep3dpointclouddenoising_tpu.ops.pallas_kpconv import \
     kpconv_aggregate as jax_kpconv
 from deep3dpointclouddenoising_torch.ops import kpconv as tkp
 from deep3dpointclouddenoising_torch.ops import neighbors as tnb
+from test_torch_ops import float64_distances
 
 
 def _t(*arrays):
@@ -210,8 +211,10 @@ def test_kpconv_above_2048_supports_matches_jax(influence):
     tw.requires_grad_()
     got = tkp.kpconv_aggregate(tf, ti, tr, tm, tk, tw, extent, influence)
     got.backward(torch.from_numpy(g))
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
-                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(
+        got.detach().numpy(), np.asarray(out), rtol=2e-4, atol=2e-5,
+        err_msg=float64_distances(got.detach().numpy(), out, arrays, extent,
+                                  influence))
     np.testing.assert_allclose(tf.grad.numpy(), np.asarray(d_feat),
                                rtol=3e-4, atol=3e-5)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(d_kw),

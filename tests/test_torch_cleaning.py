@@ -279,7 +279,7 @@ def test_trainer_builds_the_cleaning_model():
     assert isinstance(tt.model, CompleteDenoisingModel)
     assert tt.model.MultiDimHead_0.Dense_0.out_features == 4
     with pytest.raises(ValueError):
-        Trainer(tc, 10, device="cpu", loss_mode="segmentation")
+        Trainer(tc, 10, device="cpu", loss_mode="gan")
 
 
 # -- cleaning by voting ----------------------------------------------------------

@@ -581,3 +581,36 @@ def test_kpconv_backward_kernel_at_a_sink_is_float32_accurate(card):
         limit = grad_check.NOISE_FACTOR * grad_check.l2_distance(
             plain[k], want[k])
         assert grad_check.l2_distance(got[k].cpu(), want[k]) <= limit
+
+
+@pytest.mark.cuda
+def test_chamfer15k_train_step_gradients_are_bitwise_reproducible(card):
+    """Two train steps of ``cfgs/synthetic_quality_chamfer15k.yaml`` (width
+    144, B=8, 15,000 slots, the Chamfer loss) from the same weights on the
+    same batch of sparse patches: the losses, every gradient and every
+    updated parameter bitwise equal.  The Chamfer loss's matched points
+    are gathered by advanced indexing, whose backward adds each point's
+    gradients in a fixed order; a backward that adds them by float atomics
+    (``torch.gather``'s) varies from run to run."""
+    from deep3dpointclouddenoising_torch.train.trainer import Trainer
+    cfg = load_config(os.path.join(os.path.dirname(L1_YAML),
+                                   "synthetic_quality_chamfer15k.yaml"))
+    assert (int(cfg.width), int(cfg.num_points), cfg.loss) == (144, 15000,
+                                                               "chamfer")
+    rng = np.random.default_rng(35)
+    xyz, mask = _sparse_patch(rng, 8, 15000, 600, 0.05)
+    batch = {"points": xyz, "mask": mask, "features": xyz.clone(),
+             "offsets": torch.from_numpy(
+                 (rng.normal(size=(8, 15000, 3)) * 1e-3).astype(np.float32)),
+             "labels": torch.zeros(8, 15000, dtype=torch.int32)}
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(cfg, 1, torch.Generator().manual_seed(0), card)
+        loss = trainer.train_step(batch)
+        grads = [p.grad.clone() for p in trainer.model.parameters()]
+        runs.append((loss.item(), grads, [p.detach().clone() for p in
+                                          trainer.model.parameters()]))
+    (l0, g0, p0), (l1, g1, p1) = runs
+    assert l0 == l1
+    for a, b in zip(g0 + p0, g1 + p1):
+        assert torch.equal(a, b)

@@ -180,6 +180,19 @@ def _kpconv_inputs(rng, B=2, M=50, K=7, C=12, P=15, N=60):
     return features, idx, rel, mask, kpoints, kw
 
 
+def float64_distances(got, want, arrays, extent, influence):
+    """A failure message: how far each side lies from the plain version in
+    float64 on the same inputs, so that a miss names the side that
+    moved."""
+    ref = tkp.kpconv_aggregate_plain(
+        *[torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.float64) if a.dtype == np.float32 else a))
+          for a in arrays], extent, influence).numpy()
+    return (f"port {np.abs(np.asarray(got, np.float64) - ref).max():.3e}, "
+            f"JAX {np.abs(np.asarray(want, np.float64) - ref).max():.3e} "
+            "from float64")
+
+
 @pytest.mark.parametrize("influence,M", [("linear", 50), ("gaussian", 50),
                                          ("constant", 50), ("linear", 131)])
 def test_kpconv_matches_jax_pallas_interpret(influence, M):
@@ -189,8 +202,10 @@ def test_kpconv_matches_jax_pallas_interpret(influence, M):
     want = jax_kpconv(*[jnp.asarray(a) for a in arrays], extent, influence,
                       True)
     got = tkp.kpconv_aggregate(*_t(*arrays), extent, influence)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
-                               atol=2e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5,
+        err_msg=float64_distances(got.numpy(), want, arrays, extent,
+                                  influence))
     ref = tkp.kpconv_aggregate_reference(
         tnb.group_features(*_t(arrays[0], arrays[1])), *_t(*arrays[2:]),
         extent=extent, influence=influence)
