@@ -5,8 +5,8 @@ Run it from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports the port, torch, numpy and scipy only, and goes through twelve
-phases, each printed with its wall time:
+It imports the port, torch, numpy and scipy only, and goes through
+thirteen phases (phase 9b after 9), each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``deep3dpointclouddenoising_torch/csrc``, one
@@ -130,12 +130,41 @@ phases, each printed with its wall time:
    run's voted probabilities bitwise equal to the first's.  No metric is
    held to a value (the weights are barely trained).
 
+9b. bf16 (this slice's path), after phase 9 and on its shape tree:
+   ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
+   bfloat16``) at width 144: (a) the bf16 forms of both kernels
+   (``kpconv_fwd_bf16``, ``kpconv_bwd_bf16``) against their bf16 plain
+   versions at the ten flagship shapes and at phase 11's 15k stem call
+   (N > 2048): the output and d_features within one bf16 ulp of plain
+   (plus the float32 phases' atol, for sums that cancel), d_kernel_weights
+   at rtol 3e-4 / atol 1e-5 of the largest, the backward bitwise equal
+   over two calls, and bf16 calls counted on the bf16 forms only; device
+   us per call beside the float32 kernels' on the same values; (b) the
+   whole bf16 model on a real batch, kernel path against plain path
+   (both bf16) by the output's max-abs and L2 distances, each within
+   three times the plain path's own distance from a float64 copy without
+   the bf16 casts (``grad_check.check_forward_tensor``), bf16 against
+   float32 from the
+   same weights within the JAX package's bound (0.1 of the max-abs,
+   correlation above 0.99), and the whole-model gradients within
+   ``grad_check``'s limits; (c) the train entry point, BF16_EPOCHS epochs
+   of BF16_STEPS steps unbroken, and the same run killed one update into
+   epoch BF16_EPOCHS and run again with ``--auto_resume``: the end states
+   (parameters, BatchNorm buffers, optimizer state, step, checkpoints)
+   bitwise equal, 10 bf16 forward and backward launches per step and no
+   float32 one; (d) the inference entry point on BF16_SHAPE with the bf16
+   checkpoint (``--checkpoint_low none``) by host and device voting,
+   within VOTE_TOL as in phase 9, and by the float32 twin's config from the
+   same checkpoint; then device ms per train step (profiler) in bf16 and
+   in float32 from the same weights.
+
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a card.
 
-``python3 chip_smoke.py --only-kernels`` runs phases 1-3 and 6 and prints
-the two kernels' JSON records: copied into another checkout, it measures
+``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
+15k stem call on random neighbourhoods) and prints the kernels' JSON
+records: copied into another checkout, it measures
 that checkout's kernels the same way, for comparing two versions in one
 call.
 """
@@ -180,6 +209,7 @@ from deep3dpointclouddenoising_torch.models.build import (
     build_offset_regression, build_scene_segmentation)
 from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
+from deep3dpointclouddenoising_torch.models.layers import set_compute_dtype
 from deep3dpointclouddenoising_torch.ops import _cuda
 from deep3dpointclouddenoising_torch.ops.kpconv import (
     invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
@@ -187,6 +217,7 @@ from deep3dpointclouddenoising_torch.ops.kpconv import (
 from deep3dpointclouddenoising_torch.profile_serving import \
     profile_train_steps
 from deep3dpointclouddenoising_torch.train import __main__ as train_cli
+from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -261,6 +292,18 @@ SEG_CORNER = (0.16, 0.16, 0.16)
 STEPS_SEG = 4
 PROFILE_STEPS_SEG = 3
 BATCHES_SEG = 306
+# bf16 phase: the bfloat16 twin of the diverse flagship and its float32
+# twin, its training (BF16_EPOCHS epochs of BF16_STEPS steps, unbroken and
+# killed one update into the last and resumed), the held-out shape served
+# and its noise, and the JAX package's bound on bfloat16 against float32
+# from the same weights (tests/test_model.py:121-146)
+BF16_CONFIG = "synthetic_quality_diverse_bf16"
+FP32_TWIN = "synthetic_quality_diverse"
+BF16_STEPS = 10
+BF16_EPOCHS = 3
+BF16_SHAPE = DEPLOY_SHAPES[0]
+BF16_LEVEL = 0.005
+BF16_MODEL_BOUND = dict(max_abs_frac=0.1, min_corr=0.99)
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # 15k forward, B=8, P=15
 CALLS_15K = [
@@ -330,27 +373,33 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kpconv_bound(B, M, N, K, C, P, live=None):
+def kpconv_bound(B, M, N, K, C, P, live=None, feat_bytes=4):
     """Least times (ms) for one aggregation: each input read once and the
     output written once at the HBM rate, and its float32 operations at the
     FMA rate; the bound is the larger.  Operations: 12 per (edge, p) for
     the influence weight, 2 per (edge, p, c) for the weighted neighbour
     sum, 2 per (b, m, p, c) for the kernel-point weights, over ``live``
     edges (mask != 0; default all B * M * K: a masked edge has weight 0
-    and costs nothing)."""
+    and costs nothing).  ``feat_bytes`` is the size of a feature and an
+    output element (2 for bfloat16); indices, positions, masks, kernel
+    points and weights are 4 bytes."""
     live = B * M * K if live is None else live
-    nbytes = 4 * (B * N * C + B * M * K * 5 + P * 3 + P * C + B * M * C)
+    nbytes = feat_bytes * (B * N * C + B * M * C) \
+        + 4 * (B * M * K * 5 + P * 3 + P * C)
     flops = 12 * live * P + 2 * live * P * C + 2 * B * M * P * C
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
 
 
-def kpconv_bound_3xtf32(B, M, N, K, C, P):
-    """kpconv_bound with the neighbour contraction (2 per (b, m, k, p, c))
-    on the tensor cores as 3xTF32, three TF32 operations for each, and the
-    influence weights and the kernel-point sum on the float32 units."""
-    t_bytes, _ = kpconv_bound(B, M, N, K, C, P)
-    t_ops = (3 * 2 * B * M * K * P * C / PEAK_TF32_FLOP_S
-             + (12 * B * M * K * P + 2 * B * M * P * C) / PEAK_F32_FLOP_S)
+def kpconv_bound_tf32(B, M, N, K, C, P, live=None, feat_bytes=4, passes=3):
+    """kpconv_bound with the neighbour contraction (2 per (live edge, p, c))
+    on the tensor cores in ``passes`` TF32 operations for each: 3 for
+    float32 rows (3xTF32), 2 for bfloat16 rows, which are exact in TF32
+    (2xTF32, kpconv_common.cuh mma_rows); the influence weights and the
+    kernel-point sum on the float32 units."""
+    live = B * M * K if live is None else live
+    t_bytes, _ = kpconv_bound(B, M, N, K, C, P, live, feat_bytes)
+    t_ops = (passes * 2 * live * P * C / PEAK_TF32_FLOP_S
+             + (12 * live * P + 2 * B * M * P * C) / PEAK_F32_FLOP_S)
     return t_bytes, t_ops * 1e3
 
 
@@ -445,7 +494,7 @@ def phase_kernels(cfg, device):
         t_bytes, t_ops = kpconv_bound(B, M, N, K, C, P)
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        bound_tc = max(kpconv_bound_3xtf32(B, M, N, K, C, P))
+        bound_tc = max(kpconv_bound_tf32(B, M, N, K, C, P))
         worst_abs = max(worst_abs, max_abs)
         if infl == "linear":
             per_call[name] = dev_us
@@ -623,7 +672,7 @@ def phase_serving(cfg, device, workdir):
     return launches
 
 
-def kpconv_bwd_bound(B, M, N, K, C, P, live):
+def kpconv_bwd_bound(B, M, N, K, C, P, live, feat_bytes=4):
     """Least times (ms) for one backward call of the training path (d_features
     and d_kernel_weights) with ``live`` live edges (mask != 0): features,
     indices, relative positions, masks, kernel points and weights and the
@@ -632,19 +681,23 @@ def kpconv_bwd_bound(B, M, N, K, C, P, live):
     (H[b,n,p,c] = sum of w g over the edges that name n): 2 per (live edge,
     p, c) for H, 12 per (live edge, p) for the influence weights, and 2 per
     (b, n, p, c) for each of d_features = sum_p kw H and d_kernel_weights =
-    sum_{b,n} feat H.  A masked edge has weight 0 and costs nothing."""
-    nbytes = 4 * (2 * B * N * C + B * M * K * 5 + P * 3 + 2 * P * C
-                  + B * M * C)
+    sum_{b,n} feat H.  A masked edge has weight 0 and costs nothing.
+    ``feat_bytes`` is the size of a feature, upstream-gradient and
+    d_features element (2 for bfloat16); the rest are 4 bytes."""
+    nbytes = feat_bytes * (2 * B * N * C + B * M * C) \
+        + 4 * (B * M * K * 5 + P * 3 + 2 * P * C)
     flops = 2 * live * P * C + 12 * live * P + 4 * B * N * P * C
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
 
 
-def kpconv_bwd_bound_3xtf32(B, M, N, K, C, P, live):
-    """kpconv_bwd_bound with H's contraction on the tensor cores as 3xTF32,
-    three TF32 operations for each of its 2 per (live edge, p, c), and the
-    influence weights and both epilogues on the float32 units."""
-    t_bytes, _ = kpconv_bwd_bound(B, M, N, K, C, P, live)
-    t_ops = (3 * 2 * live * P * C / PEAK_TF32_FLOP_S
+def kpconv_bwd_bound_tf32(B, M, N, K, C, P, live, feat_bytes=4, passes=3):
+    """kpconv_bwd_bound with H's contraction on the tensor cores in
+    ``passes`` TF32 operations for each of its 2 per (live edge, p, c): 3
+    for float32 (3xTF32), 2 for a bfloat16 upstream gradient, exact in
+    TF32 (2xTF32); the influence weights and both epilogues on the float32
+    units."""
+    t_bytes, _ = kpconv_bwd_bound(B, M, N, K, C, P, live, feat_bytes)
+    t_ops = (passes * 2 * live * P * C / PEAK_TF32_FLOP_S
              + (12 * live * P + 4 * B * N * P * C) / PEAK_F32_FLOP_S)
     return t_bytes, t_ops * 1e3
 
@@ -775,7 +828,7 @@ def phase_backward(cfg, device):
         t_bytes, t_ops = kpconv_bwd_bound(B, M, N, K, C, P, live)
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        bound_tc = max(kpconv_bwd_bound_3xtf32(B, M, N, K, C, P, live))
+        bound_tc = max(kpconv_bwd_bound_tf32(B, M, N, K, C, P, live))
         worst_abs = max(worst_abs, *errs)
         if infl == "linear":
             per_call[name] = dev_us
@@ -896,7 +949,15 @@ def phase_model_grad(cfg, device, batch=None):
             f"one train forward and backward launched "
             f"{grads['launches'][0]} forward and {grads['launches'][1]} "
             "backward kernels, not 10 and 10")
-    check_close(grads["loss"], grads["plain_loss"], 1e-5, 0.0, "train loss")
+    # the loss within rtol 1e-5 of the plain path's; in bf16 also within
+    # three times the plain loss's own distance from float64 (a one-ulp
+    # flip between the two paths moves it by as much as its bf16 noise)
+    atol = 0.0
+    if str(cfg.compute_dtype) == "bfloat16":
+        atol = grad_check.NOISE_FACTOR * (
+            grads["plain_loss"].double() - grads["float64_loss"]).abs().item()
+    check_close(grads["loss"].double(), grads["plain_loss"].double(), 1e-5,
+                atol, "train loss")
     for what, d, limit, name in grad_check.check_model_gradients(grads):
         print(f"{what}: {len(grads['names'])} parameter gradients within "
               f"their limits; nearest {name}: {d:.3e} of limit {limit:.3e}")
@@ -1121,6 +1182,500 @@ def phase_deployment(cfg, workdir):
     if not all(np.isfinite(list(r.values())).all() for r in perf.values()):
         raise AssertionError(f"measure_performance: {perf}")
     return fwd, bwd
+
+
+def bf16_device_us(calls, iters: int = 20):
+    """Device microseconds per call of the bf16 and the float32 forms of
+    both kernels from one profiler window over ``iters`` rounds of the four
+    calls (``calls``: {"fwd" | "bwd": (bf16 call, float32 call, ...)}),
+    told apart by the kernels' template names; the backward's inversion and
+    reduction are the same kernels in both forms.  One window, not four:
+    the profiler kept nothing, in five windows running, late in a run that
+    had opened some 120 of them.  Returns {key: (bf16 us, float32 us)}."""
+    def rounds():
+        with torch.no_grad():
+            for bf16_call, fp32_call, *_ in calls.values():
+                bf16_call()
+                fp32_call()
+    forms = {"bf16": "<__nv_bfloat16", "fp32": "<float"}
+    expect = [k + v for k in ("kpconv_fwd_kernel", "kpconv_bwd_kernel")
+              for v in forms.values()] + list(BWD_KERNELS[::2])
+    _, means = device_us(lambda: [rounds() for _ in range(iters)],
+                         "kpconv_", 1, by_kernel=True, expect=expect)
+    shared = sum(us for name, us in means.items()
+                 if any(k in name for k in BWD_KERNELS[::2]))
+    out = {}
+    for key, kernel, extra in (("fwd", "kpconv_fwd_kernel", 0.0),
+                               ("bwd", "kpconv_bwd_kernel", shared)):
+        out[key] = tuple(
+            sum(us for name, us in means.items() if kernel + form in name)
+            + extra for form in forms.values())
+    return out
+
+
+def bf16_stem_15k(device, workdir, tree):
+    """The stem call's neighbourhoods of phase 11's 15k batch (the first
+    validation batch of CONFIGS_15K[0] over TREE_15K's validation shape at
+    POINTS_15K points, from phase 9's tree): (idx, rel, feature mask,
+    extent)."""
+    cfg = load_config(os.path.join(ROOT, "cfgs", CONFIGS_15K[0] + ".yaml"))
+    val = os.path.join(workdir, "bf16_val15k")
+    os.makedirs(os.path.join(val, "val"))
+    for name in TREE_15K["val"]:
+        shutil.copy(os.path.join(tree, "val", name + ".off"),
+                    os.path.join(val, "val"))
+    batch = val_batch(cfg, val, POINTS_15K)
+    name, M, N, K, C, mult, idx, rel, fmask = pyramid_calls(
+        cfg, device, batch, CALLS_15K)[0]
+    return idx, rel, fmask, 2.0 * float(cfg.radius) * mult / 5.0
+
+
+def phase_bf16_kernels(cfg, device, stem_15k=None):
+    """(a) The bfloat16 forms of both kernels against their bfloat16 plain
+    versions, on bfloat16 features and upstream gradients, at the ten
+    flagship shapes (random neighbourhoods, as phases 3 and 6) and at the
+    15k stem call (``stem_15k`` from :func:`bf16_stem_15k`: B=8, N = M =
+    15,000, the N > 2048 path; random neighbourhoods at that shape when
+    None): the output and d_features within one bf16 ulp of plain (plus
+    KERNEL_TOL's atol and BWD_ATOL_FRAC of the largest gradient,
+    ``check_bf16``), d_kernel_weights at BWD_RTOL and BWD_ATOL_FRAC of the
+    largest, the backward bitwise equal over two calls; the wrapper ms,
+    device us per call and plain ms of each bf16 form beside the float32
+    kernels' device us on the same values (the bf16 features upcast), and
+    bounds over bf16 bytes and live edges with the contraction at the
+    2xTF32 rate the bf16 forms run it at (``kpconv_bound_tf32``), the float32
+    FMA-rate bound beside.  Returns the two records, less launches."""
+    rng = np.random.default_rng(12)
+    B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
+    r0 = float(cfg.radius)
+    # the bf16 features take the bf16 entry points, never the float32 ones
+    args, extent = kpconv_inputs(rng, B, 500, 500, 52, 72, P, r0, device)
+    for wrapper in (kpconv_aggregate, kpconv_aggregate_backward):
+        wrapper.launches = wrapper.launches_bf16 = 0
+    a16 = (args[0].bfloat16(), *args[1:])
+    g16 = torch.randn(B, 500, 72, device=device).bfloat16()
+    with torch.no_grad():
+        kpconv_aggregate(*a16, extent, "linear")
+    kpconv_aggregate_backward(*a16, g16, extent, "linear")
+    counts = [(w.launches, w.launches_bf16)
+              for w in (kpconv_aggregate, kpconv_aggregate_backward)]
+    if counts != [(0, 1), (0, 1)]:
+        raise AssertionError(f"bf16 calls counted (float32, bf16) launches "
+                             f"{counts}, not (0, 1) each")
+    rows = [(name, B, M, N, K, C, mult, None)
+            for name, M, N, K, C, mult in FLAGSHIP_CALLS]
+    rows.append(("15k stem LA", 8) + CALLS_15K[0][1:] + (stem_15k,))
+    recs = {k: dict(ms=0.0, device_us=0.0, fp32_device_us=0.0,
+                    plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0,
+                    bound_ms_f32_fma=0.0,
+                    max_abs_err=0.0, differing=0, device_us_per_call={})
+            for k in ("fwd", "bwd")}
+    stem = {}
+    print("bf16 call B M N K C | fwd max_abs (elements off plain), bwd "
+          "d_feat max_abs (off), d_kw max_abs | fwd wrapper_ms device_us "
+          "fp32_device_us plain_ms bound_ms (by, 2xTF32) bound_ms at the "
+          "float32 FMA rate | bwd the same")
+    for name, Bc, M, N, K, C, mult, nbr in rows:
+        if nbr is None:
+            args, extent = kpconv_inputs(rng, Bc, M, N, K, C, P, r0 * mult,
+                                         device)
+        else:
+            idx, rel, fmask, extent = nbr
+            kp = torch.from_numpy(create_kernel_points(1.5 * extent, P)).to(
+                device)
+            feat, kw = (torch.from_numpy(a.astype(np.float32)).to(device)
+                        for a in (rng.normal(size=(Bc, N, C)),
+                                  rng.normal(size=(P, C))
+                                  * math.sqrt(2.0 / C)))
+            args = (feat, idx, rel, fmask, kp, kw)
+        a16 = (args[0].bfloat16(), *args[1:])
+        a32 = (a16[0].float(), *args[1:])
+        g16 = torch.from_numpy(rng.normal(size=(Bc, M, C)).astype(
+            np.float32)).to(device).bfloat16()
+        g32 = g16.float()
+        with torch.no_grad():
+            got = kpconv_aggregate(*a16, extent, "linear")
+            torch.cuda.synchronize()
+            want = kpconv_aggregate_plain(*a16, extent, "linear")
+            f_err, f_off = grad_check.check_bf16(got, want, KERNEL_TOL["atol"],
+                                      f"bf16 kpconv {name}")
+        del got, want
+        got = kpconv_aggregate_backward(*a16, g16, extent, "linear")
+        torch.cuda.synchronize()
+        want = kpconv_aggregate_backward_plain(*a16, g16, extent, "linear")
+        d_err, d_off = grad_check.check_bf16(
+            got[0], want[0], BWD_ATOL_FRAC * want[0].abs().max().item(),
+            f"bf16 backward {name} d_feat")
+        if got[1].dtype != torch.float32:
+            raise AssertionError(f"bf16 backward {name}: d_kw {got[1].dtype}")
+        kw_err = check_grad_close(got[1], want[1],
+                                  f"bf16 backward {name} d_kw")
+        del got, want
+        check_reproducible(a16, g16, extent, "linear", f"bf16 {name}")
+        live = int((args[3] != 0).sum().item())
+        calls = {
+            "fwd": (lambda: kpconv_aggregate(*a16, extent, "linear"),
+                    lambda: kpconv_aggregate(*a32, extent, "linear"),
+                    lambda: kpconv_aggregate_plain(*a16, extent, "linear"),
+                    kpconv_bound_tf32(Bc, M, N, K, C, P, live,
+                                      feat_bytes=2, passes=2),
+                    kpconv_bound(Bc, M, N, K, C, P, live, feat_bytes=2)),
+            "bwd": (lambda: kpconv_aggregate_backward(*a16, g16, extent,
+                                                      "linear"),
+                    lambda: kpconv_aggregate_backward(*a32, g32, extent,
+                                                      "linear"),
+                    lambda: kpconv_aggregate_backward_plain(
+                        *a16, g16, extent, "linear"),
+                    kpconv_bwd_bound_tf32(Bc, M, N, K, C, P, live,
+                                          feat_bytes=2, passes=2),
+                    kpconv_bwd_bound(Bc, M, N, K, C, P, live,
+                                     feat_bytes=2))}
+        dev_us = bf16_device_us(calls)
+        line = []
+        for key, (call, call32, plain, bound, bound_fma) in calls.items():
+            with torch.no_grad():
+                ms = cuda_ms(call, 50)
+                plain_ms = cuda_ms(plain, 5, warmup=1)
+            dev, dev32 = dev_us[key]
+            t_bytes, t_ops = bound
+            bound_ms = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            fma_ms = max(bound_fma)
+            line.append(f"{ms:.5f} {dev:.2f} {dev32:.2f} {plain_ms:.5f} "
+                        f"{bound_ms:.5f} ({by}) {fma_ms:.5f}")
+            if nbr is not None or name.startswith("15k"):
+                stem[key] = dict(ms=ms, device_us=dev, fp32_device_us=dev32,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=by, bound_ms_f32_fma=fma_ms,
+                                 live_edges=live)
+                continue
+            r = recs[key]
+            r["device_us_per_call"][name] = dev
+            for k, v in (("ms", ms), ("device_us", dev),
+                         ("fp32_device_us", dev32), ("plain_ms", plain_ms),
+                         ("bound_ms", bound_ms), ("bytes", t_bytes),
+                         ("ops", t_ops), ("bound_ms_f32_fma", fma_ms)):
+                r[k] += v
+        for key, err, off in (("fwd", f_err, f_off),
+                              ("bwd", max(d_err, kw_err), d_off)):
+            recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"], err)
+            recs[key]["differing"] += off
+        print(f"{name} {Bc} {M} {N} {K} {C} | {f_err:.3e} ({f_off}), "
+              f"{d_err:.3e} ({d_off}), {kw_err:.3e} | {line[0]} | "
+              f"{line[1]}", flush=True)
+    for key in ("fwd", "bwd"):
+        r = recs[key]
+        print(f"ten flagship calls, bf16 {key}: wrapper {r['ms']:.5f} ms, "
+              f"device {r['device_us'] / 1e3:.5f} ms (float32 kernel on "
+              f"the same values {r['fp32_device_us'] / 1e3:.5f} ms), plain "
+              f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+              f"(2xTF32; {r['bound_ms_f32_fma']:.5f} ms at the float32 FMA "
+              "rate)",
+              flush=True)
+    out = []
+    for key, src, replaces in (
+            ("fwd", "kpconv_fwd.cu", "pallas_kpconv.py:142"),
+            ("bwd", "kpconv_bwd.cu", "pallas_kpconv.py:361")):
+        r = recs[key]
+        out.append({
+            "name": f"kpconv_{key}_bf16", "route": "cuda",
+            "source": f"deep3dpointclouddenoising_torch/csrc/{src}",
+            "replaces": f"deep3dpointclouddenoising_tpu/ops/{replaces}",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
+            "library_ms": None,
+            "bound_ms_f32_fma": r["bound_ms_f32_fma"],
+            "device_ms": r["device_us"] / 1e3,
+            "fp32_device_ms_same_shapes": r["fp32_device_us"] / 1e3,
+            "device_us_per_call": r["device_us_per_call"],
+            "elements_off_plain": r["differing"],
+            "stem_15k": stem.get(key),
+            "timed_at": "sum over the ten calls of one l1.yaml "
+                        f"{'forward' if key == 'fwd' else 'backward'}, "
+                        "B=16, random neighbourhoods, bfloat16 features"
+                        + (" and upstream gradient" if key == "bwd" else "")
+                        + "; bound over bfloat16 bytes and live edges, "
+                        "the contraction at the 2xTF32 rate",
+            "entry_point": f"kpconv_{key}_bf16",
+            "launches_are": "calls of the wrapper with bfloat16 features "
+                            "(.launches_bf16)",
+        })
+    out[0]["also_replaces"] = \
+        "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:98"
+    return out
+
+
+def phase_bf16_model(cfg, twin, device, batch):
+    """(b) The whole bf16 model at width 144 on one real batch and pyramid:
+    the kernel path against the plain path, both bfloat16, by the whole
+    output's max-abs and L2 distances, each within three times the plain
+    path's own distance from the same model in float64 without its
+    bfloat16 casts (``grad_check.check_forward_tensor``: a one-ulp flip
+    between the two paths moves an element as far as its bf16 noise);
+    and bfloat16 against
+    float32 (``twin``) from the same weights within the JAX package's own
+    bound (tests/test_model.py:121-146): the largest difference under
+    BF16_MODEL_BOUND's fraction of the float32 output's max-abs, the
+    correlation above its minimum.  10 forward launches of the bf16
+    kernel and none of the float32 one."""
+    model = seeded_model(cfg, device)
+    model32 = seeded_model(twin, device)
+    model32.load_state_dict(model.state_dict())
+    xyz, mask, feats = (torch.as_tensor(batch[k]).to(device)
+                        for k in ("points", "mask", "features"))
+    with torch.inference_mode():
+        pyramid = model.make_pyramid(xyz, mask)
+
+        def head(m, f):
+            return m.head(pyramid, m.ResNetEncoder_0(pyramid, f))
+
+        kpconv_aggregate.launches = kpconv_aggregate.launches_bf16 = 0
+        got = head(model, feats)
+        torch.cuda.synchronize()
+        if (kpconv_aggregate.launches, kpconv_aggregate.launches_bf16) \
+                != (0, 10):
+            raise AssertionError(
+                f"the bf16 forward launched {kpconv_aggregate.launches} "
+                f"float32 and {kpconv_aggregate.launches_bf16} bf16 kernels")
+        out32 = head(model32, feats)
+        local_aggregation.kpconv_aggregate = kpconv_aggregate_plain
+        try:
+            want = head(model, feats)
+            want64 = head(grad_check.float64_copy(model), feats.double())
+        finally:
+            local_aggregation.kpconv_aggregate = kpconv_aggregate
+    dist = grad_check.check_forward_tensor(got, want, want64)
+    scale = out32.abs().max().item()
+    frac = (got - out32).abs().max().item() / scale
+    corr = torch.corrcoef(torch.stack([got.reshape(-1).double(),
+                                       out32.reshape(-1).double()]))[0, 1]
+    if frac >= BF16_MODEL_BOUND["max_abs_frac"] \
+            or corr.item() <= BF16_MODEL_BOUND["min_corr"]:
+        raise AssertionError(f"bf16 against float32: max diff {frac:.3e} "
+                             f"of the max-abs, correlation {corr:.6f}")
+    noise = (want.double() - want64).abs().max().item()
+    print(f"bf16 model: output {tuple(got.shape)}, |out| max "
+          f"{want.abs().max().item():.3f}; kernel vs plain (both bf16): "
+          + ", ".join(f"{k} distance {d:.3e} (limit {lim:.3e})"
+                      for k, (d, lim) in dist.items())
+          + f"; max abs {(got - want).abs().max().item():.3e}; bf16 plain "
+          f"vs float64 up to {noise:.3e}; "
+          f"bf16 vs float32 (same weights): max diff {frac:.4e} of the "
+          f"max-abs (bound {BF16_MODEL_BOUND['max_abs_frac']}), "
+          f"correlation {corr.item():.6f} (bound "
+          f"{BF16_MODEL_BOUND['min_corr']})", flush=True)
+
+
+class Killed(Exception):
+    """Stands for the end of a training process killed mid-epoch."""
+
+
+def bf16_train(argv, kill_at_step=None):
+    """One run of the train entry point, ended as by a kill just after its
+    update ``kill_at_step`` where that is given; returns its summary (None
+    when killed) and its (float32, bf16) forward and backward launches."""
+    for wrapper in (kpconv_aggregate, kpconv_aggregate_backward):
+        wrapper.launches = wrapper.launches_bf16 = 0
+    train_step = Trainer.train_step
+
+    def killed_step(trainer, batch):
+        loss = train_step(trainer, batch)
+        if trainer.step == kill_at_step:
+            torch.cuda.synchronize()
+            raise Killed(trainer.step)
+        return loss
+
+    Trainer.train_step = killed_step
+    try:
+        summary = train_cli.main(argv)
+    except Killed:
+        summary = None
+    finally:
+        Trainer.train_step = train_step
+    if kill_at_step is not None and summary is not None:
+        raise AssertionError(f"bf16 training ran past step {kill_at_step}")
+    return summary, [(w.launches, w.launches_bf16)
+                     for w in (kpconv_aggregate, kpconv_aggregate_backward)]
+
+
+def phase_bf16_training(tree, workdir):
+    """(c) ``BF16_CONFIG`` through the train entry point at width 144, B=16,
+    BF16_STEPS steps per epoch on clouds of DEPLOY_TRAIN_POINTS points:
+    BF16_EPOCHS epochs unbroken; and the same run with ``--auto_resume``
+    killed one step into epoch BF16_EPOCHS (after epoch BF16_EPOCHS - 1's
+    checkpoint, with one update lost), then run again with
+    ``--auto_resume``.  The resumed run's parameters, BatchNorm buffers,
+    optimizer state (Adam's moments and steps, ``count``) and step, and
+    its checkpoints, equal the unbroken run's bitwise; every loss finite;
+    10 bf16 forward and 10 bf16 backward launches per step (and per
+    validation batch, forward), none of the float32 kernels.  Returns the
+    resumed run's summary and the launches of its two calls."""
+    config = os.path.join(ROOT, "cfgs", BF16_CONFIG + ".yaml")
+    B = int(load_config(config).batch_size)
+
+    def argv(log_dir):
+        return ["--config_file", config, "--data_root", tree,
+                "--log_dir", log_dir, "--num_steps", str(BF16_STEPS * B),
+                "--epochs", str(BF16_EPOCHS), "--val_freq",
+                str(BF16_EPOCHS), "--num_points_per_shape",
+                str(DEPLOY_TRAIN_POINTS), "--device", "cuda",
+                "--auto_resume"]
+
+    straight, _ = bf16_train(argv(os.path.join(workdir, "bf16_straight")))
+    log = os.path.join(workdir, "bf16_resumed")
+    saved = BF16_STEPS * (BF16_EPOCHS - 1)
+    _, l1 = bf16_train(argv(log), kill_at_step=saved + 1)
+    second, l2 = bf16_train(argv(log))
+    current = os.path.join(log, BF16_CONFIG, "current.pt")
+    fwd = l1[0][1] + l2[0][1]
+    bwd = l1[1][1] + l2[1][1]
+    if straight["restored"] is not None or second["restored"] != current \
+            or second["steps"] != straight["steps"] \
+            or straight["steps"] != BF16_STEPS * BF16_EPOCHS:
+        raise AssertionError(
+            f"bf16 resume: restored {straight['restored']}, "
+            f"{second['restored']}; steps {second['steps']}, unbroken "
+            f"{straight['steps']}")
+    # the killed run's saved + 1 updates, the resumed run's last epoch and
+    # its validation
+    steps = saved + 1 + BF16_STEPS
+    if l1[0][0] + l2[0][0] + l1[1][0] + l2[1][0] \
+            or (fwd, bwd) != (10 * (steps + second["val_batches"]),
+                              10 * steps):
+        raise AssertionError(f"bf16 training launched (float32, bf16) "
+                             f"{l1} then {l2}")
+    losses = second["train_losses"] + second["val_losses"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"bf16 training: losses {losses}")
+    a, b = second["trainer"], straight["trainer"]
+    if a.step != b.step:
+        raise AssertionError(f"bf16 resume: step {a.step}, not {b.step}")
+    for what, x, y in (("model", a.model.state_dict(),
+                        b.model.state_dict()),
+                       ("optimizer", a.optimizer.state_dict(),
+                        b.optimizer.state_dict())):
+        diff = grad_check.state_difference(x, y)
+        if diff:
+            raise AssertionError(f"bf16 resume: {what} differs from the "
+                                 f"unbroken run at {diff}")
+    for name in ("current.pt", f"ckpt_epoch_{BF16_EPOCHS}.pt"):
+        diff = grad_check.state_difference(
+            torch.load(os.path.join(log, BF16_CONFIG, name),
+                       weights_only=True),
+            torch.load(os.path.join(workdir, "bf16_straight", BF16_CONFIG,
+                                    name), weights_only=True))
+        if diff:
+            raise AssertionError(f"bf16 resume: {name} differs at {diff}")
+    print(f"bf16 training: {BF16_EPOCHS} epochs of {BF16_STEPS} steps "
+          f"unbroken, and a run killed after update {saved + 1} and "
+          f"continued by --auto_resume from step {saved}: parameters, "
+          f"BatchNorm buffers, optimizer state and step {a.step} bitwise "
+          f"equal; bf16 launches forward {fwd}, backward {bwd}, float32 "
+          f"none; unbroken train loss first "
+          f"{straight['train_losses'][0]:.6f}; resumed last "
+          f"{second['train_losses'][-1]:.6f}; val {second['val_losses']}; "
+          "ms per step by epoch (host clock, data loading included), "
+          "unbroken: " + ", ".join(f"{ms:.3f}"
+                                   for ms in straight["ms_per_step"])
+          + "; resumed: " + ", ".join(f"{ms:.3f}"
+                                      for ms in second["ms_per_step"]),
+          flush=True)
+    return second, (fwd, bwd)
+
+
+def phase_bf16_serving(tree, workdir, checkpoint):
+    """(d) BF16_SHAPE at 140,000 points, gaussian sigma BF16_LEVEL, served
+    with the bf16 checkpoint (``--checkpoint_low none``) by host and by
+    device voting: 10 bf16 forward launches per batch on each path and no
+    float32 one, the device's offsets within VOTE_TOL of the host's as in
+    phase 9; then the same checkpoint served by the float32 twin's config
+    (float32 from the same weights), host voting, for points/s beside.
+    Returns the bf16 launches of the two bf16 runs."""
+    batch_size = int(load_config(os.path.join(
+        ROOT, "cfgs", BF16_CONFIG + ".yaml")).batch_size)
+    root = os.path.join(workdir, "bf16_serve")
+    os.makedirs(os.path.join(root, "qualitative_test"))
+    shutil.copy(os.path.join(tree, "qualitative_test", BF16_SHAPE + ".off"),
+                os.path.join(root, "qualitative_test"))
+    runs, total = {}, 0
+    for name, config, voting in (
+            ("bf16 host", BF16_CONFIG, "host"),
+            ("bf16 device", BF16_CONFIG, "device"),
+            ("float32 host", FP32_TWIN, "host")):
+        argv = ["--config_file", os.path.join(ROOT, "cfgs", config + ".yaml"),
+                "--data_root", root, "--out_dir",
+                os.path.join(workdir, "bf16_out_" + name.replace(" ", "_")),
+                "--checkpoint", checkpoint, "--checkpoint_low", "none",
+                "--noise_type", "gaussian", "--noise_level",
+                str(BF16_LEVEL), "--device", "cuda"]
+        if voting == "device":
+            argv.append("--device_voting")
+        for w in (kpconv_aggregate, kpconv_aggregate_backward):
+            w.launches = w.launches_bf16 = 0
+        summary = infer.main(argv)
+        batches = -(-len(summary["dataset"]) // batch_size)
+        want = (0, 10 * batches) if config == BF16_CONFIG \
+            else (10 * batches, 0)
+        got = (kpconv_aggregate.launches, kpconv_aggregate.launches_bf16)
+        if got != want or kpconv_aggregate_backward.launches \
+                or kpconv_aggregate_backward.launches_bf16:
+            raise AssertionError(f"{name} serving launched (float32, bf16) "
+                                 f"{got} forward kernels, not {want}")
+        res = summary["results"][0]
+        if not np.isfinite(res["offsets"]).all():
+            raise AssertionError(f"{name} serving: non-finite offsets")
+        if config == BF16_CONFIG:
+            total += got[1]
+        n_points = len(summary["dataset"].shapes[0].points)
+        runs[name] = summary
+        print(f"{name} voting: {n_points} points, {batches} batches, "
+              f"{n_points / summary['seconds']:.1f} points/s "
+              f"({summary['seconds']:.3f} s)", flush=True)
+    worst = check_votes(runs["bf16 device"], runs["bf16 host"], "bf16")
+    off32 = runs["float32 host"]["results"][0]["offsets"]
+    off16 = runs["bf16 host"]["results"][0]["offsets"]
+    print(f"bf16 serving: device vs host offsets max abs diff {worst:.3e} "
+          f"(rtol {VOTE_TOL['rtol']} / atol {VOTE_TOL['atol']}); bf16 vs "
+          f"float32 offsets (same weights) max abs diff "
+          f"{np.abs(off16 - off32).max():.3e} of max-abs "
+          f"{np.abs(off32).max():.3e}", flush=True)
+    return total
+
+
+def phase_bf16(device, workdir, tree):
+    """Phase 9b, bfloat16 compute: (a) both kernels' bf16 forms against
+    their bf16 plain versions, (b) the whole bf16 model and its gradients,
+    (c) training with a stop and ``--auto_resume`` against an unbroken
+    run, bitwise, (d) serving by host and device voting; then device ms
+    per train step in bf16 and in float32 from the same weights, in this
+    process.  Returns the two bf16 kernels' records and the launches of
+    the main path (training and serving)."""
+    cfg = load_config(os.path.join(ROOT, "cfgs", BF16_CONFIG + ".yaml"))
+    twin = load_config(os.path.join(ROOT, "cfgs", FP32_TWIN + ".yaml"))
+    if (int(cfg.width), str(cfg.compute_dtype), str(twin.compute_dtype)) \
+            != (144, "bfloat16", "float32"):
+        raise AssertionError(f"{BF16_CONFIG} is no longer the width-144 "
+                             f"bfloat16 twin of {FP32_TWIN}")
+    records = phase_bf16_kernels(cfg, device,
+                                 bf16_stem_15k(device, workdir, tree))
+    batch = val_batch(cfg, tree)
+    phase_bf16_model(cfg, twin, device, batch)
+    phase_model_grad(cfg, device, batch)
+    summary, (fwd, bwd) = phase_bf16_training(tree, workdir)
+    serve = phase_bf16_serving(
+        tree, workdir, os.path.join(workdir, "bf16_resumed", BF16_CONFIG,
+                                    "current.pt"))
+    trainer = summary["trainer"]
+    tensors = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+               if k in ("points", "mask", "features", "offsets")}
+    twin_trainer = copy.deepcopy(trainer)  # float32 from the same weights
+    set_compute_dtype(twin_trainer.model, None)
+    for name, tr in (("bf16", trainer), ("float32", twin_trainer)):
+        print(f"-- {name} train steps, width 144, B=16 (one real batch, "
+              "the same weights and optimizer state):", flush=True)
+        profile_train_steps(tr, tensors)
+    return records, {"training": (fwd, bwd), "serving": serve}
 
 
 def cleaning_infer(argv, batch: int, voting: str):
@@ -1887,8 +2442,12 @@ def main(argv=None) -> int:
     if argv:  # the kernels' phases alone, for comparing checkouts
         with phase("backward kernel vs plain"):
             bwd_record = phase_backward(cfg, device)
+        with phase("bf16 kernels vs plain"):
+            bf16_records = phase_bf16_kernels(
+                load_config(os.path.join(ROOT, "cfgs",
+                                         BF16_CONFIG + ".yaml")), device)
         print(smi)
-        print(json.dumps({"kernels": [record, bwd_record]}))
+        print(json.dumps({"kernels": [record, bwd_record] + bf16_records}))
         return 0
     with phase("whole model"):
         phase_model(cfg, device)
@@ -1903,6 +2462,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         with phase("deployment"):
             deploy_fwd, deploy_bwd = phase_deployment(cfg, workdir)
+        with phase("bf16"):  # on the deployment phase's shape tree
+            bf16_records, path_bf16 = phase_bf16(
+                device, workdir, os.path.join(workdir, "shapes"))
         with phase("cleaning"):  # on the deployment phase's shape tree
             cleaning = phase_cleaning(cfg, workdir)
     with tempfile.TemporaryDirectory() as workdir, phase("15k family"):
@@ -1933,8 +2495,18 @@ def main(argv=None) -> int:
             "outlier_seg_training": path_seg["training"][1],
             "outlier_seg_eval": 0},
         shapes_15k=records_15k["bwd"], shapes_seg=records_seg["bwd"])
+    # the bf16 forms: their slice's path (bf16 training with its resume,
+    # and bf16 serving)
+    bf16_records[0].update(
+        launches=path_bf16["training"][0] + path_bf16["serving"],
+        launches_by_path={"bf16_training": path_bf16["training"][0],
+                          "bf16_serving": path_bf16["serving"]})
+    bf16_records[1].update(
+        launches=path_bf16["training"][1],
+        launches_by_path={"bf16_training": path_bf16["training"][1],
+                          "bf16_serving": 0})
     print(smi)
-    print(json.dumps({"kernels": [record, bwd_record]}))
+    print(json.dumps({"kernels": [record, bwd_record] + bf16_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,8 +54,8 @@
 //    each lane keeps a cursor into them, since it walks positions in order.
 //    - Load balance: the block's supports cut their segments into chunks of
 //      8 edges (the mma's k; a chunk never spans two supports), and the
-//      block's T chunks are split into kWarps contiguous ranges of
-//      floor(T / kWarps) or one more.  A support with thousands of edges
+//      block's Q chunks are split into kWarps contiguous ranges of
+//      floor(Q / kWarps) or one more.  A support with thousands of edges
 //      is shared by the block's warps instead of serialising one, and a
 //      degree-0 support costs nothing.  Each warp keeps H of the support it
 //      is on in mma fragments and flushes it at the support's last chunk in
@@ -103,6 +103,21 @@
 //    (at most a third at the strided calls, mean in-degree ~10).
 // 3. kpconv_bwd_reduce: d_kw = sum over slots, in a fixed order.
 //
+// bfloat16 (kpconv_bwd_bf16, for the forward's kpconv_fwd_bf16).  The
+// Pallas kernel writes d_features in features.dtype and d_kw in float32
+// (pallas_kpconv.py:495-496).  kpconv_bwd_kernel is templated on the
+// element type T of feat, g and d_feat: it gathers bf16 rows of g (8
+// channels a 16-byte copy) and reads bf16 feat rows, both exact in TF32, so
+// neither needs a low part and the contraction is 2xTF32 (kpconv_common.cuh
+// mma_rows); H, the d_feat pieces of split supports and the d_kw sums stay
+// float32, d_feat is rounded to bf16 once per element, and d_kw goes
+// through the same fixed-order reduction in float32.  So the bf16 form is
+// bitwise reproducible and free of float atomics too.  (The Pallas kernel
+// adds its grid steps' d_features in bf16, dfeat_ref[0] + dfeat.astype(...)
+// at :445-446, a rounding per step; this kernel rounds once.)  There is no
+// bf16 form of kpconv_bwd_drel: only the GAN asks for d_rel, and
+// kpconv_bwd_bf16 refuses want_drel.
+//
 // The gradient in rel (need_rel; training never asks for it) keeps the
 // previous design in kpconv_bwd_drel: one thread per channel, one query
 // tile per block, the warp's channels summed by shuffles and the 3-vector
@@ -112,7 +127,7 @@
 //
 // What bounds it on this card.  Counted as chip_smoke.kpconv_bwd_bound
 // counts it (every input byte read once), the float32 operation rate, and
-// a few times lower at the 3xTF32 rate (kpconv_bwd_bound_3xtf32).  What
+// a few times lower at the 3xTF32 rate (kpconv_bwd_bound_tf32).  What
 // sets the time is occupancy: each chunk is a chain of dependent steps
 // (edge ids, copies, weights, three dependent mma per 8 channels) and only
 // the number of warps per SM hides it.  Variants timed side by side on the
@@ -317,17 +332,22 @@ constexpr int kWarps = 4;             // warps per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileN = 8;             // supports per block (<= 31)
 constexpr int kStages = 2;            // depth of each warp's cp.async ring
-constexpr int kRows = kChunk + 1;     // a stage's rows: 8 edges' g, one feat
 constexpr int kMaxGroups = 9;         // 8-channel groups per block (<= 16)
-// 16-byte copy slots of a lane per chunk: 8 rows of up to 2 kMaxGroups
-constexpr int kVecSlots = (kChunk * 2 * kMaxGroups + 31) / 32;
+// 16-byte copy slots of a lane per chunk: 8 rows of up to 8 kMaxGroups
+// channels, kVec<T> to a copy
+template <typename T>
+constexpr int kVecSlots = (kChunk * 8 * kMaxGroups / kVec<T> + 31) / 32;
 constexpr int kMeta = 4;              // rel x, y, z and mask of an edge
 constexpr int kSlots = kTileN + kWarps - 1;
 
 // Shared-memory carve-up of a block, in 4-byte words:
-//   stages [kStages][kWarps][kRows][tcp]     gathered rows of g, then the
-//                                            feat row of the support whose
-//                                            H the chunk completes
+//   stages [kStages][kWarps][warp_words]     per warp: kChunk gathered rows
+//                                            of g (tcp elements of T each;
+//                                            reused as kChunk float32 rows
+//                                            by the d_feat epilogue), then
+//                                            at word kChunk * tcp the feat
+//                                            row (T) of the support whose H
+//                                            the chunk completes
 //   meta   [kStages][kWarps][kChunk][kMeta]  rel and mask of those edges
 //   kw     [kPPad][tc]                       the block's kw slice
 //   kp     [kPPad][3]
@@ -337,12 +357,18 @@ constexpr int kSlots = kTileN + kWarps - 1;
 //   starts [kTileN][S] (int)                 first position of each support's
 //                                            edges in each of the S slices
 //   cum    [kTileN][S + 1] (int)             their running counts
+template <typename T>
 struct Tile {
   int tc, tcp, S;
   __host__ __device__ Tile(int ng, int slices)
       : tc(8 * ng), tcp(8 * (ng | 1)), S(slices) {}
+  // a warp's part of a stage: kChunk float32 rows (the g rows in T fit
+  // there), then one row of T (a multiple of 16 bytes: tcp is of 8)
+  __host__ __device__ int warp_words() const {
+    return kChunk * tcp + tcp * static_cast<int>(sizeof(T)) / 4;
+  }
   __host__ __device__ int stage_words() const {
-    return kWarps * kRows * tcp;
+    return kWarps * warp_words();
   }
   __host__ __device__ int meta_offset() const {
     return kStages * stage_words();
@@ -372,25 +398,25 @@ struct Tile {
   }
 };
 
-// first chunk of warp w's range of the block's T chunks
-__device__ __forceinline__ int range_start(int w, int T) {
-  return static_cast<int>(static_cast<long long>(w) * T / kWarps);
+// first chunk of warp w's range of the block's Q chunks
+__device__ __forceinline__ int range_start(int w, int Q) {
+  return static_cast<int>(static_cast<long long>(w) * Q / kWarps);
 }
 
-template <int INFL>
+template <typename T, int INFL>
 __global__ void __launch_bounds__(kThreads, 4)
-kpconv_bwd_kernel(const float* __restrict__ feat,
+kpconv_bwd_kernel(const T* __restrict__ feat,
                   const float* __restrict__ rel,
                   const float* __restrict__ mask,
                   const float* __restrict__ kp, const float* __restrict__ kw,
-                  const float* __restrict__ gout,
+                  const T* __restrict__ gout,
                   const int* __restrict__ offsets,
-                  const int* __restrict__ edges, float* __restrict__ dfeat,
+                  const int* __restrict__ edges, T* __restrict__ dfeat,
                   float* __restrict__ dkw_part, int N, int M, int K, int C,
-                  int P, int ng, int slices, int vec4, float inv_extent,
+                  int P, int ng, int slices, int vec, float inv_extent,
                   float inv_denom, int want_dfeat, int want_dkw) {
   extern __shared__ __align__(16) float smem[];
-  const Tile tl(ng, slices);
+  const Tile<T> tl(ng, slices);
   const int S = slices;
   const int tc = tl.tc, tcp = tl.tcp;
   float* stage_s = smem;
@@ -415,7 +441,7 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
   float* dkw_w = dkw_s + warp * kPPad * tc;  // this warp's d_kw sums
 
   // the block's kw slice and kernel points (zeros past P and past C)
-  if (vec4) {  // C % 4 == 0, so the slice's rows are 16-byte aligned
+  if (vec) {  // C % kVec<T> == 0, so the slice's rows are 16-byte aligned
     for (int i = 4 * tid; i < kPPad * tc; i += 4 * kThreads) {
       const int p = i / tc;
       const int c = i - p * tc;
@@ -456,7 +482,7 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
 
   // the tile's segments, in every warp's registers: lane s < tn holds
   // support n0 + s's degree, chunk count and the inclusive prefix of the
-  // chunk counts; T chunks in all
+  // chunk counts; Q chunks in all
   const int deg_l = lane < tn ? cum_s[lane * (S + 1) + S] : 0;
   const int nch_l = (deg_l + kChunk - 1) / kChunk;
   int qincl = nch_l;
@@ -465,16 +491,16 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
     const int v = __shfl_up_sync(kFull, qincl, o);
     if (lane >= o) qincl += v;
   }
-  const int T = __shfl_sync(kFull, qincl, 31);
+  const int Q = __shfl_sync(kFull, qincl, 31);
   if (warp == 0 && lane <= kTileN) chunk_s[lane] = qincl - nch_l;
   if (want_dkw)  // each warp zeroes its own d_kw sums
     for (int i = lane; i < kPPad * tc; i += 32) dkw_w[i] = 0.f;
 
-  const int lo = range_start(warp, T);
-  const int hi = range_start(warp + 1, T);
+  const int lo = range_start(warp, Q);
+  const int hi = range_start(warp + 1, Q);
   const int g = lane >> 2;
   const int t = lane & 3;
-  const float* gb = gout + static_cast<size_t>(b) * M * C + c0;
+  const T* gb = gout + static_cast<size_t>(b) * M * C + c0;
   const float* relb = rel + static_cast<size_t>(b) * E * 3;
   const float* maskb = mask + static_cast<size_t>(b) * E;
   const int* eb = edges + static_cast<size_t>(b) * E;
@@ -512,15 +538,26 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
 
   // the lane's 16-byte copy slots, the same in every chunk: (row kk,
   // column c) of the 8 x tc tile
-  const int per_row = tc / 4;
-  int slot_row[kVecSlots], slot_col[kVecSlots];
+  constexpr int kV = kVec<T>;
+  constexpr int kSlotsV = kVecSlots<T>;
+  const int per_row = tc / kV;
+  int slot_row[kSlotsV], slot_col[kSlotsV];
 #pragma unroll
-  for (int i = 0; i < kVecSlots; ++i) {
+  for (int i = 0; i < kSlotsV; ++i) {
     const int e = lane + 32 * i;
     const int r = e / per_row;
     slot_row[i] = e < kChunk * per_row ? r : -1;
-    slot_col[i] = 4 * (e - r * per_row);
+    slot_col[i] = kV * (e - r * per_row);
   }
+  // a warp's rows of g in stage st, and the feat row after them
+  auto g_rows = [&](int st) {
+    return reinterpret_cast<T*>(stage_s + st * tl.stage_words() +
+                                warp * tl.warp_words());
+  };
+  auto feat_row = [&](int st) {
+    return reinterpret_cast<T*>(stage_s + st * tl.stage_words() +
+                                warp * tl.warp_words() + kChunk * tcp);
+  };
 
   // chunk q's rows g[b, m_e, c0:] and its edges' rel and mask into stage
   // q % kStages, and the support's feat row if H is flushed at chunk q;
@@ -528,7 +565,7 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
   // 0..7 (fetch_ids)
   auto load_chunk = [&](int q, int ids) {
     const int st = q % kStages;
-    float* dst = stage_s + st * tl.stage_words() + warp * kRows * tcp;
+    T* dst = g_rows(st);
     float* mdst = meta_s + ((st * kWarps + warp) * kChunk) * kMeta;
     const int m = ids >= 0 ? ids / K : -1;
     {
@@ -539,14 +576,14 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
                                     : maskb + ek;
       cp_async<4>(mdst + lane, src, ek < 0 ? 0 : 4);
     }
-    if (vec4) {
+    if (vec) {
 #pragma unroll
-      for (int i = 0; i < kVecSlots; ++i) {
+      for (int i = 0; i < kSlotsV; ++i) {
         const int mr = __shfl_sync(kFull, m, max(slot_row[i], 0));
         if (slot_row[i] < 0) continue;
         const int c = slot_col[i];
         const bool ok = mr >= 0 && c < cw;
-        const float* src = ok ? gb + static_cast<size_t>(mr) * C + c : gout;
+        const T* src = ok ? gb + static_cast<size_t>(mr) * C + c : gout;
         cp_async<16>(dst + slot_row[i] * tcp + c, src, ok ? 16 : 0);
       }
     } else {
@@ -555,25 +592,24 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
         const int c = e - r * tc;
         const int mr = __shfl_sync(kFull, m, r);
         const bool ok = mr >= 0 && c < cw;
-        const float* src = ok ? gb + static_cast<size_t>(mr) * C + c : gout;
-        cp_async<4>(dst + r * tcp + c, src, ok ? 4 : 0);
+        const T* src = ok ? gb + static_cast<size_t>(mr) * C + c : gout;
+        copy_elem(dst + r * tcp + c, src, ok);
       }
     }
     const int s = support_of(q);
     const int last = __shfl_sync(kFull, qincl, s);
     if (want_dkw && (q + 1 == last || q + 1 == hi)) {
-      const float* frow =
-          feat + (static_cast<size_t>(b) * N + n0 + s) * C + c0;
-      float* fdst = dst + kChunk * tcp;
-      if (vec4) {
-        for (int c = 4 * lane; c < tc; c += 128) {
+      const T* frow = feat + (static_cast<size_t>(b) * N + n0 + s) * C + c0;
+      T* fdst = feat_row(st);
+      if (vec) {
+        for (int c = kV * lane; c < tc; c += 32 * kV) {
           const bool ok = c < cw;
           cp_async<16>(fdst + c, ok ? frow + c : feat, ok ? 16 : 0);
         }
       } else {
         for (int c = lane; c < tc; c += 32) {
           const bool ok = c < cw;
-          cp_async<4>(fdst + c, ok ? frow + c : feat, ok ? 4 : 0);
+          copy_elem(fdst + c, ok ? frow + c : feat, ok);
         }
       }
     }
@@ -627,9 +663,7 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
     uint32_t ahi[4], alo[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) split_tf32(a[i], ahi[i], alo[i]);
-    const float* stage_w =
-        stage_s + st * tl.stage_words() + warp * kRows * tcp;
-    const float* bs = stage_w + t * tcp + g;
+    const T* bs = g_rows(st) + t * tcp + g;
     // each chunk's product starts from zero in the tensor core and is added
     // to H by a float32 add: the mma's own accumulation, chained over the
     // hundreds of chunks of a sink support, drifts; per chunk it spans 8
@@ -638,7 +672,7 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
     for (int grp = 0; grp < kMaxGroups; ++grp) {
       if (grp < ng) {
         float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_3xtf32(part, ahi, alo, bs[grp * 8], bs[4 * tcp + grp * 8]);
+        mma_rows(part, ahi, alo, bs[grp * 8], bs[4 * tcp + grp * 8]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[grp][i] += part[i];
       }
@@ -652,9 +686,9 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
     const int n = n0 + s;
     if (want_dfeat) {
       // d_feat[n,c] = sum_p kw[p,c] H[p,c]: rows g and g+8 here, written to
-      // row g of this chunk's stage (its rows are consumed), then each lane
-      // sums the eight rows of its channels in order
-      float* red = stage_s + st * tl.stage_words() + warp * kRows * tcp;
+      // float32 row g of this chunk's stage (its rows of g are consumed),
+      // then each lane sums the eight rows of its channels in order
+      float* red = stage_s + st * tl.stage_words() + warp * tl.warp_words();
       __syncwarp();  // every lane's B reads of the chunk are done
 #pragma unroll
       for (int grp = 0; grp < kMaxGroups; ++grp) {
@@ -669,24 +703,27 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
       }
       __syncwarp();
       const bool whole = first >= lo && last <= hi;
-      // the whole support: its row of d_feat; a piece: slot s + warp,
-      // summed after the loop
-      float* dst = whole ? dfeat + (static_cast<size_t>(b) * N + n) * C + c0
-                         : slot_s + (s + warp) * tc;
+      // the whole support: its row of d_feat (rounded to T once); a
+      // piece: float32 slot s + warp, summed after the loop
+      T* drow = dfeat + (static_cast<size_t>(b) * N + n) * C + c0;
+      float* piece = slot_s + (s + warp) * tc;
       for (int c = lane; c < cw; c += 32) {
         float sum = red[c];
 #pragma unroll
         for (int r = 1; r < kChunk; ++r) sum += red[r * tcp + c];
-        dst[c] = sum;
+        if (whole)
+          drow[c] = from_float<T>(sum);
+        else
+          piece[c] = sum;
       }
     }
     if (want_dkw) {  // d_kw[p,c] += feat[b,n,c] H[p,c], feat staged
-      const float* fs = stage_w + kChunk * tcp;
+      const T* fs = feat_row(st);
 #pragma unroll
       for (int grp = 0; grp < kMaxGroups; ++grp) {
         if (grp < ng) {
           const int c = grp * 8 + 2 * t;
-          const float2 f = *reinterpret_cast<const float2*>(fs + c);
+          const float2 f = load2(fs + c);
           float2* d0 = reinterpret_cast<float2*>(dkw_w + g * tc + c);
           float2* d1 = reinterpret_cast<float2*>(dkw_w + (g + 8) * tc + c);
           float2 v0 = *d0, v1 = *d1;
@@ -718,14 +755,14 @@ kpconv_bwd_kernel(const float* __restrict__ feat,
       float sum = 0.f;
       int pieces = 0;
       for (int w = 0; w < kWarps; ++w) {
-        if (max(range_start(w, T), first) < min(range_start(w + 1, T), last)) {
+        if (max(range_start(w, Q), first) < min(range_start(w + 1, Q), last)) {
           sum += slot_s[(s + w) * tc + c];
           ++pieces;
         }
       }
       if (pieces != 1)
         dfeat[(static_cast<size_t>(b) * N + n0 + s) * C + c0 + c] =
-            pieces ? sum : 0.f;
+            from_float<T>(pieces ? sum : 0.f);
     }
   }
   if (!want_dkw) return;  // uniform over the block
@@ -927,10 +964,10 @@ cudaError_t set_smem(Kernel* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int INFL>
-cudaError_t launch(const float* feat, const int* idx, const float* rel,
+template <typename T, int INFL>
+cudaError_t launch(const T* feat, const int* idx, const float* rel,
                    const float* mask, const float* kp, const float* kw,
-                   const float* g, float* dfeat, float* dkw, float* dkw_part,
+                   const T* g, T* dfeat, float* dkw, float* dkw_part,
                    float* drel, int* scratch, int B, int N, int M, int K,
                    int C, int P, float extent, float gauss_denom,
                    int want_dfeat, int want_dkw, int want_drel,
@@ -952,19 +989,19 @@ cudaError_t launch(const float* feat, const int* idx, const float* rel,
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
     const int ng = pick_groups(C);
-    const Tile tl(ng, slices);
+    const Tile<T> tl(ng, slices);
     const size_t smem = tl.bytes();
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    err = set_smem(kpconv_bwd_kernel<INFL>, smem);
+    err = set_smem(kpconv_bwd_kernel<T, INFL>, smem);
     if (err != cudaSuccess) return err;
-    const int vec4 = C % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(kw) % 16 == 0;
+    const int vec = C % kVec<T> == 0 &&
+                    reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(kw) % 16 == 0;
     const dim3 grid((C + tl.tc - 1) / tl.tc, (N + kTileN - 1) / kTileN, B);
-    kpconv_bwd_kernel<INFL><<<grid, kThreads, smem, stream>>>(
+    kpconv_bwd_kernel<T, INFL><<<grid, kThreads, smem, stream>>>(
         feat, rel, mask, kp, kw, g, offsets, edges, dfeat, dkw_part, N, M, K,
-        C, P, ng, slices, vec4, 1.f / extent, 1.f / gauss_denom, want_dfeat,
+        C, P, ng, slices, vec, 1.f / extent, 1.f / gauss_denom, want_dfeat,
         want_dkw);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (want_dkw) {
@@ -976,21 +1013,74 @@ cudaError_t launch(const float* feat, const int* idx, const float* rel,
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
   }
-  if (want_drel && INFL != kConstant) {  // constant: d_rel stays zero
-    const size_t smem = sizeof(float) *
-        (static_cast<size_t>(kRelTileM) * K * kPPad + kRelTileM * K +
-         kPPad * 3);
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    err = set_smem(kpconv_bwd_drel<INFL>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((C + kRelTileC - 1) / kRelTileC,
-                    (M + kRelTileM - 1) / kRelTileM, B);
-    kpconv_bwd_drel<INFL><<<grid, dim3(kRelTileC, kRelRows), smem, stream>>>(
-        feat, idx, rel, mask, kp, kw, g, drel, N, M, K, C, P, extent,
-        gauss_denom);
-    err = cudaGetLastError();
+  // constant: d_rel stays zero; bf16 has no d_rel (refused by backward)
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (want_drel && INFL != kConstant) {
+      const size_t smem = sizeof(float) *
+          (static_cast<size_t>(kRelTileM) * K * kPPad + kRelTileM * K +
+           kPPad * 3);
+      if (smem > kMaxSmem) return cudaErrorInvalidValue;
+      err = set_smem(kpconv_bwd_drel<INFL>, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((C + kRelTileC - 1) / kRelTileC,
+                      (M + kRelTileM - 1) / kRelTileM, B);
+      kpconv_bwd_drel<INFL>
+          <<<grid, dim3(kRelTileC, kRelRows), smem, stream>>>(
+              feat, idx, rel, mask, kp, kw, g, drel, N, M, K, C, P, extent,
+              gauss_denom);
+      err = cudaGetLastError();
+    }
   }
   return err;
+}
+
+template <typename T>
+int backward(const void* feat, const void* idx, const void* rel,
+             const void* mask, const void* kp, const void* kw, const void* g,
+             void* dfeat, void* dkw, void* dkw_part, void* drel,
+             void* scratch, int B, int N, int M, int K, int C, int P,
+             int influence, float extent, float gauss_denom, int want_dfeat,
+             int want_dkw, int want_drel, int device, void* stream) {
+  if (P < 1 || P > kPPad || influence < 0 || influence > 2 ||
+      (want_dfeat && dfeat == nullptr) ||
+      (want_dkw && (dkw == nullptr || dkw_part == nullptr)) ||
+      ((want_dfeat || want_dkw) && scratch == nullptr) ||
+      (want_drel && (drel == nullptr || sizeof(T) != sizeof(float))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!want_dfeat && !want_dkw && !want_drel) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* f = static_cast<const T*>(feat);
+  const auto* i = static_cast<const int*>(idx);
+  const auto* r = static_cast<const float*>(rel);
+  const auto* m = static_cast<const float*>(mask);
+  const auto* p = static_cast<const float*>(kp);
+  const auto* w = static_cast<const float*>(kw);
+  const auto* gr = static_cast<const T*>(g);
+  auto* df = static_cast<T*>(dfeat);
+  auto* dw = static_cast<float*>(dkw);
+  auto* part = static_cast<float*>(dkw_part);
+  auto* dr = static_cast<float*>(drel);
+  auto* sc = static_cast<int*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (influence) {
+    case kConstant:
+      err = launch<T, kConstant>(f, i, r, m, p, w, gr, df, dw, part, dr, sc,
+                                 B, N, M, K, C, P, extent, gauss_denom,
+                                 want_dfeat, want_dkw, want_drel, s);
+      break;
+    case kLinear:
+      err = launch<T, kLinear>(f, i, r, m, p, w, gr, df, dw, part, dr, sc, B,
+                               N, M, K, C, P, extent, gauss_denom,
+                               want_dfeat, want_dkw, want_drel, s);
+      break;
+    default:
+      err = launch<T, kGaussian>(f, i, r, m, p, w, gr, df, dw, part, dr, sc,
+                                 B, N, M, K, C, P, extent, gauss_denom,
+                                 want_dfeat, want_dkw, want_drel, s);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1019,44 +1109,26 @@ extern "C" int kpconv_bwd(const void* feat, const void* idx, const void* rel,
                           float extent, float gauss_denom, int want_dfeat,
                           int want_dkw, int want_drel, int device,
                           void* stream) {
-  if (P < 1 || P > kPPad || influence < 0 || influence > 2 ||
-      (want_dfeat && dfeat == nullptr) ||
-      (want_dkw && (dkw == nullptr || dkw_part == nullptr)) ||
-      ((want_dfeat || want_dkw) && scratch == nullptr) ||
-      (want_drel && drel == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!want_dfeat && !want_dkw && !want_drel) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* f = static_cast<const float*>(feat);
-  const auto* i = static_cast<const int*>(idx);
-  const auto* r = static_cast<const float*>(rel);
-  const auto* m = static_cast<const float*>(mask);
-  const auto* p = static_cast<const float*>(kp);
-  const auto* w = static_cast<const float*>(kw);
-  const auto* gr = static_cast<const float*>(g);
-  auto* df = static_cast<float*>(dfeat);
-  auto* dw = static_cast<float*>(dkw);
-  auto* part = static_cast<float*>(dkw_part);
-  auto* dr = static_cast<float*>(drel);
-  auto* sc = static_cast<int*>(scratch);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (influence) {
-    case kConstant:
-      err = launch<kConstant>(f, i, r, m, p, w, gr, df, dw, part, dr, sc, B,
-                              N, M, K, C, P, extent, gauss_denom, want_dfeat,
-                              want_dkw, want_drel, s);
-      break;
-    case kLinear:
-      err = launch<kLinear>(f, i, r, m, p, w, gr, df, dw, part, dr, sc, B, N,
-                            M, K, C, P, extent, gauss_denom, want_dfeat,
-                            want_dkw, want_drel, s);
-      break;
-    default:
-      err = launch<kGaussian>(f, i, r, m, p, w, gr, df, dw, part, dr, sc, B,
-                              N, M, K, C, P, extent, gauss_denom, want_dfeat,
-                              want_dkw, want_drel, s);
-      break;
-  }
-  return static_cast<int>(err);
+  return backward<float>(feat, idx, rel, mask, kp, kw, g, dfeat, dkw,
+                         dkw_part, drel, scratch, B, N, M, K, C, P, influence,
+                         extent, gauss_denom, want_dfeat, want_dkw, want_drel,
+                         device, stream);
+}
+
+// kpconv_bwd with bfloat16 feat, g and dfeat (the rest as there, dkw
+// float32): float32 sums, d_feat rounded to bf16 once per element.  There is
+// no bf16 d_rel: want_drel returns cudaErrorInvalidValue.
+extern "C" int kpconv_bwd_bf16(const void* feat, const void* idx,
+                               const void* rel, const void* mask,
+                               const void* kp, const void* kw, const void* g,
+                               void* dfeat, void* dkw, void* dkw_part,
+                               void* drel, void* scratch, int B, int N, int M,
+                               int K, int C, int P, int influence,
+                               float extent, float gauss_denom,
+                               int want_dfeat, int want_dkw, int want_drel,
+                               int device, void* stream) {
+  return backward<bf16>(feat, idx, rel, mask, kp, kw, g, dfeat, dkw,
+                        dkw_part, drel, scratch, B, N, M, K, C, P, influence,
+                        extent, gauss_denom, want_dfeat, want_dkw, want_drel,
+                        device, stream);
 }

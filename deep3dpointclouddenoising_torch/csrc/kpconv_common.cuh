@@ -1,8 +1,10 @@
 // Device helpers shared by the KPConv kernels (kpconv_fwd.cu, kpconv_bwd.cu):
-// asynchronous copies, the 3xTF32 operand split, the TF32 mma and the
-// kernel-point influence.  Everything here is inlined into each kernel.
+// asynchronous copies, the 3xTF32 operand split, the TF32 mma, the
+// kernel-point influence and the two feature element types (float32 and
+// bfloat16).  Everything here is inlined into each kernel.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -73,6 +75,75 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, alo, b0h, b1h);
   mma_tf32(d, ahi, b0l, b1l);
   mma_tf32(d, ahi, b0h, b1h);
+}
+
+// The feature element types.  A kernel templated on T reads its feature
+// rows (and, in the backward, the upstream gradient) as T and keeps every
+// sum in float32; T = bf16 rows move half the bytes, kVec<T> elements to a
+// 16-byte copy.
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// float32 -> T, rounded to nearest even (the one rounding of a bf16 output)
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// two consecutive elements from float32, stored together (p 2-element
+// aligned)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// One element from global to shared memory where a row cannot be copied
+// 16 bytes at a time, zero where !ok: asynchronously for float32 (4 bytes),
+// by a plain load and store for bf16 (cp.async copies 4, 8 or 16 bytes).
+__device__ __forceinline__ void copy_elem(float* dst, const float* src,
+                                          bool ok) {
+  cp_async<4>(dst, src, ok ? 4 : 0);
+}
+__device__ __forceinline__ void copy_elem(bf16* dst, const bf16* src,
+                                          bool ok) {
+  *dst = ok ? __ushort_as_bfloat16(
+                  __ldg(reinterpret_cast<const unsigned short*>(src)))
+            : __float2bfloat16_rn(0.f);
+}
+
+// d += A B with A (the influence weights) split into TF32 hi + lo and B the
+// gathered rows: float32 rows in 3xTF32 (mma_3xtf32); bf16 rows in 2xTF32,
+// lo_a b + hi_a b, since a bf16 value (8 significant bits) is exact in TF32
+// (11 bits): its float32 pattern, the bf16 bits shifted up by 16, has the
+// 13 low mantissa bits clear, so b has no low part.
+__device__ __forceinline__ void mma_rows(float (&d)[4],
+                                         const uint32_t (&ahi)[4],
+                                         const uint32_t (&alo)[4], float b0,
+                                         float b1) {
+  mma_3xtf32(d, ahi, alo, b0, b1);
+}
+__device__ __forceinline__ void mma_rows(float (&d)[4],
+                                         const uint32_t (&ahi)[4],
+                                         const uint32_t (&alo)[4], bf16 b0,
+                                         bf16 b1) {
+  const uint32_t h0 = static_cast<uint32_t>(__bfloat16_as_ushort(b0)) << 16;
+  const uint32_t h1 = static_cast<uint32_t>(__bfloat16_as_ushort(b1)) << 16;
+  mma_tf32(d, alo, h0, h1);
+  mma_tf32(d, ahi, h0, h1);
 }
 
 // inv_extent = 1 / extent and inv_denom = 1 / gauss_denom, rounded once on

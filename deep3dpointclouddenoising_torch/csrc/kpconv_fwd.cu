@@ -72,6 +72,20 @@
 //    as float2, coalesced.  Query rows past M (the ragged edge of the last
 //    tile) are skipped.
 //
+// 6. bfloat16 features (kpconv_fwd_bf16, the JAX package's
+//    compute_dtype: bfloat16, where the Pallas kernels take features.dtype).
+//    The same kernel with the feature element type T as a template
+//    parameter: rows come in as bf16, a 16-byte cp.async carries 8 channels
+//    instead of 4 and the ring holds half the bytes.  The contraction stays
+//    float32-accurate: a bf16 value is exact in TF32 (8 significant bits
+//    against 11), so the gathered operand G needs no low part and 3xTF32
+//    becomes 2xTF32, acc += lo_W G + hi_W G (kpconv_common.cuh mma_rows).
+//    kw, rel, mask, the weights and every sum stay float32, and the output
+//    is rounded to bf16 once, after the whole K-sum and the sum over kernel
+//    points.  (The Pallas kernels add their K-chunks in the output dtype,
+//    out_ref[0] + acc.astype(out_ref.dtype) at pallas_kpconv.py:135-136 and
+//    181-182, so in bf16 they round once per chunk; this kernel rounds once.)
+//
 // Registers and spills are printed by the build (-Xptxas -v).
 
 #include <cuda_runtime.h>
@@ -89,12 +103,15 @@ constexpr int kTileM = 4;            // queries per block, one per warp
 constexpr int kThreads = 32 * kTileM;
 constexpr int kStages = 3;           // depth of the cp.async ring
 constexpr int kMaxGroups = 9;        // 8-channel groups per block (<= 16)
-// 16-byte copy slots of a lane per chunk: 8 rows of up to 2 kMaxGroups
-constexpr int kVecSlots = (kChunk * 2 * kMaxGroups + 31) / 32;
+// 16-byte copy slots of a lane per chunk: 8 rows of up to 8 kMaxGroups
+// channels, kVec<T> to a copy
+template <typename T>
+constexpr int kVecSlots = (kChunk * 8 * kMaxGroups / kVec<T> + 31) / 32;
 constexpr int kMinBlocks = 4 * 132;  // grid size the channel split aims at
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// Shared-memory carve-up of a block, in 4-byte words:
+// Shared-memory carve-up of a block, in 4-byte words (the stages in
+// elements of T, tcp * sizeof(T) a multiple of 16 bytes):
 //   stages [kStages][kTileM][kChunk][tcp]  gathered rows (16-byte aligned)
 //   wf     [kTileM][kStages][32][4]        weights in A-fragment order
 //   kw     [kPPad][tc]                     the block's kw slice
@@ -102,13 +119,17 @@ constexpr size_t kMaxSmem = 227 * 1024;
 //   rel    [kTileM][K][3]
 //   mask   [kTileM][K]
 //   idx    [kTileM][K]
+template <typename T>
 struct Tile {
   int tc, tcp, nchunk, K;
   __host__ __device__ Tile(int ng, int k)
       : tc(8 * ng), tcp(8 * (ng | 1)), nchunk((k + kChunk - 1) / kChunk),
         K(k) {}
-  __host__ __device__ int stage_words() const {
+  __host__ __device__ int stage_elems() const {
     return kTileM * kChunk * tcp;
+  }
+  __host__ __device__ int stage_words() const {
+    return stage_elems() * static_cast<int>(sizeof(T)) / 4;
   }
   __host__ __device__ int wf_offset() const {
     return kStages * stage_words();
@@ -133,18 +154,18 @@ struct Tile {
   }
 };
 
-template <int INFL>
+template <typename T, int INFL>
 __global__ void __launch_bounds__(kThreads)
-kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
+kpconv_fwd_kernel(const T* __restrict__ feat, const int* __restrict__ idx,
                   const float* __restrict__ rel,
                   const float* __restrict__ mask,
                   const float* __restrict__ kp, const float* __restrict__ kw,
-                  float* __restrict__ out, int N, int M, int K, int C, int P,
-                  int ng, int vec4, float inv_extent, float inv_denom) {
+                  T* __restrict__ out, int N, int M, int K, int C, int P,
+                  int ng, int vec, float inv_extent, float inv_denom) {
   extern __shared__ __align__(16) float smem[];
-  const Tile tl(ng, K);
+  const Tile<T> tl(ng, K);
   const int tc = tl.tc, tcp = tl.tcp, nchunk = tl.nchunk;
-  float* stage_s = smem;
+  T* stage_s = reinterpret_cast<T*>(smem);
   float* wf_s = smem + tl.wf_offset();
   float* kw_s = smem + tl.kw_offset();
   float* kp_s = smem + tl.kp_offset();
@@ -161,7 +182,7 @@ kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t row0 = (static_cast<size_t>(b) * M + m0) * K;
-  const float* fb = feat + static_cast<size_t>(b) * N * C + c0;
+  const T* fb = feat + static_cast<size_t>(b) * N * C + c0;
 
   // the tile's indices, positions, masks, kw slice and kernel points: one
   // group of copies, all in flight together (zeros past P and past C)
@@ -171,7 +192,7 @@ kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
   }
   for (int i = tid; i < tm * K * 3; i += kThreads)
     cp_async<4>(rel_s + i, rel + row0 * 3 + i, 4);
-  if (vec4) {  // C % 4 == 0, so the slice's rows are 16-byte aligned
+  if (vec) {  // C % kVec<T> == 0, so the slice's rows are 16-byte aligned
     for (int i = 4 * tid; i < kPPad * tc; i += 4 * kThreads) {
       const int p = i / tc;
       const int c = i - p * tc;
@@ -199,33 +220,34 @@ kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
   const int g = lane >> 2;
   const int t = lane & 3;
   const int* im = idx_s + m * K;
-  float* stage_m = stage_s + m * kChunk * tcp;
+  T* stage_m = stage_s + m * kChunk * tcp;
 
   // the lane's 16-byte copy slots, the same in every chunk: (row kk,
   // column c) of the 8 x tc tile
-  const int per_row = tc / 4;
-  int slot_row[kVecSlots], slot_col[kVecSlots];
+  constexpr int kV = kVec<T>;
+  constexpr int kSlots = kVecSlots<T>;
+  const int per_row = tc / kV;
+  int slot_row[kSlots], slot_col[kSlots];
 #pragma unroll
-  for (int i = 0; i < kVecSlots; ++i) {
+  for (int i = 0; i < kSlots; ++i) {
     const int e = lane + 32 * i;
     const int r = e / per_row;
     slot_row[i] = e < kChunk * per_row ? r : -1;
-    slot_col[i] = 4 * (e - r * per_row);
+    slot_col[i] = kV * (e - r * per_row);
   }
 
   // chunk j's rows (neighbours 8j .. 8j+7) into stage j % kStages; zeros
   // past K and past C
   auto load_chunk = [&](int j) {
-    float* dst = stage_m + (j % kStages) * tl.stage_words();
-    if (vec4) {
+    T* dst = stage_m + (j % kStages) * tl.stage_elems();
+    if (vec) {
 #pragma unroll
-      for (int i = 0; i < kVecSlots; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         if (slot_row[i] < 0) break;
         const int k = j * kChunk + slot_row[i];
         const int c = slot_col[i];
         const bool ok = k < K && c < cw;
-        const float* src =
-            ok ? fb + static_cast<size_t>(im[k]) * C + c : feat;
+        const T* src = ok ? fb + static_cast<size_t>(im[k]) * C + c : feat;
         cp_async<16>(dst + slot_row[i] * tcp + c, src, ok ? 16 : 0);
       }
     } else {
@@ -234,9 +256,8 @@ kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
         const int c = e - r * tc;
         const int k = j * kChunk + r;
         const bool ok = k < K && c < cw;
-        const float* src =
-            ok ? fb + static_cast<size_t>(im[k]) * C + c : feat;
-        cp_async<4>(dst + r * tcp + c, src, ok ? 4 : 0);
+        const T* src = ok ? fb + static_cast<size_t>(im[k]) * C + c : feat;
+        copy_elem(dst + r * tcp + c, src, ok);
       }
     }
   };
@@ -294,12 +315,12 @@ kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
     split_tf32(a4.y, ahi[1], alo[1]);
     split_tf32(a4.z, ahi[2], alo[2]);
     split_tf32(a4.w, ahi[3], alo[3]);
-    const float* bs = stage_s + (j % kStages) * tl.stage_words() +
-                      m * kChunk * tcp + t * tcp + g;
+    const T* bs = stage_s + (j % kStages) * tl.stage_elems() +
+                  m * kChunk * tcp + t * tcp + g;
 #pragma unroll
     for (int grp = 0; grp < kMaxGroups; ++grp) {
       if (grp < ng)
-        mma_3xtf32(acc[grp], ahi, alo, bs[grp * 8], bs[4 * tcp + grp * 8]);
+        mma_rows(acc[grp], ahi, alo, bs[grp * 8], bs[4 * tcp + grp * 8]);
     }
   }
   cp_async_wait<0>();
@@ -326,16 +347,17 @@ kpconv_fwd_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
       }
     }
   }
-  float* orow = out + (static_cast<size_t>(b) * M + m0 + m) * C + c0;
+  // the output's one rounding to T
+  T* orow = out + (static_cast<size_t>(b) * M + m0 + m) * C + c0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int c = (8 * h + g) * 8 + 2 * t;
     if (c >= cw) continue;
     if (c + 1 < cw && (C & 1) == 0) {
-      *reinterpret_cast<float2*>(orow + c) = make_float2(v[h][0], v[h][1]);
+      store2(orow + c, v[h][0], v[h][1]);
     } else {
-      orow[c] = v[h][0];
-      if (c + 1 < cw) orow[c + 1] = v[h][1];
+      orow[c] = from_float<T>(v[h][0]);
+      if (c + 1 < cw) orow[c + 1] = from_float<T>(v[h][1]);
     }
   }
 }
@@ -353,29 +375,63 @@ int pick_groups(int B, int M, int C) {
   return static_cast<int>((n8 + tiles - 1) / tiles);
 }
 
-template <int INFL>
-cudaError_t launch(const float* feat, const int* idx, const float* rel,
+template <typename T, int INFL>
+cudaError_t launch(const T* feat, const int* idx, const float* rel,
                    const float* mask, const float* kp, const float* kw,
-                   float* out, int B, int N, int M, int K, int C, int P,
+                   T* out, int B, int N, int M, int K, int C, int P,
                    float extent, float gauss_denom, cudaStream_t stream) {
   const int ng = pick_groups(B, M, C);
-  const Tile tl(ng, K);
+  const Tile<T> tl(ng, K);
   const size_t smem = tl.bytes();
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kpconv_fwd_kernel<INFL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kpconv_fwd_kernel<T, INFL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int vec4 = C % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(kw) % 16 == 0;
+  const int vec = C % kVec<T> == 0 &&
+                  reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(kw) % 16 == 0;
   const dim3 grid((C + tl.tc - 1) / tl.tc, (M + kTileM - 1) / kTileM, B);
-  kpconv_fwd_kernel<INFL><<<grid, kThreads, smem, stream>>>(
-      feat, idx, rel, mask, kp, kw, out, N, M, K, C, P, ng, vec4,
+  kpconv_fwd_kernel<T, INFL><<<grid, kThreads, smem, stream>>>(
+      feat, idx, rel, mask, kp, kw, out, N, M, K, C, P, ng, vec,
       1.f / extent, 1.f / gauss_denom);
   return cudaGetLastError();
+}
+
+template <typename T>
+int forward(const void* feat, const void* idx, const void* rel,
+            const void* mask, const void* kp, const void* kw, void* out,
+            int B, int N, int M, int K, int C, int P, int influence,
+            float extent, float gauss_denom, int device, void* stream) {
+  if (P < 1 || P > kPPad || influence < 0 || influence > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* f = static_cast<const T*>(feat);
+  const auto* i = static_cast<const int*>(idx);
+  const auto* r = static_cast<const float*>(rel);
+  const auto* m = static_cast<const float*>(mask);
+  const auto* p = static_cast<const float*>(kp);
+  const auto* w = static_cast<const float*>(kw);
+  auto* o = static_cast<T*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (influence) {
+    case kConstant:
+      err = launch<T, kConstant>(f, i, r, m, p, w, o, B, N, M, K, C, P,
+                                 extent, gauss_denom, s);
+      break;
+    case kLinear:
+      err = launch<T, kLinear>(f, i, r, m, p, w, o, B, N, M, K, C, P, extent,
+                               gauss_denom, s);
+      break;
+    default:
+      err = launch<T, kGaussian>(f, i, r, m, p, w, o, B, N, M, K, C, P,
+                                 extent, gauss_denom, s);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -388,31 +444,18 @@ extern "C" int kpconv_fwd(const void* feat, const void* idx, const void* rel,
                           void* out, int B, int N, int M, int K, int C, int P,
                           int influence, float extent, float gauss_denom,
                           int device, void* stream) {
-  if (P < 1 || P > kPPad || influence < 0 || influence > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* f = static_cast<const float*>(feat);
-  const auto* i = static_cast<const int*>(idx);
-  const auto* r = static_cast<const float*>(rel);
-  const auto* m = static_cast<const float*>(mask);
-  const auto* p = static_cast<const float*>(kp);
-  const auto* w = static_cast<const float*>(kw);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (influence) {
-    case kConstant:
-      err = launch<kConstant>(f, i, r, m, p, w, o, B, N, M, K, C, P, extent,
-                              gauss_denom, s);
-      break;
-    case kLinear:
-      err = launch<kLinear>(f, i, r, m, p, w, o, B, N, M, K, C, P, extent,
-                            gauss_denom, s);
-      break;
-    default:
-      err = launch<kGaussian>(f, i, r, m, p, w, o, B, N, M, K, C, P, extent,
-                              gauss_denom, s);
-      break;
-  }
-  return static_cast<int>(err);
+  return forward<float>(feat, idx, rel, mask, kp, kw, out, B, N, M, K, C, P,
+                        influence, extent, gauss_denom, device, stream);
+}
+
+// kpconv_fwd with bfloat16 feat and out (the rest as there): float32 sums,
+// the output rounded to bf16 once.
+extern "C" int kpconv_fwd_bf16(const void* feat, const void* idx,
+                               const void* rel, const void* mask,
+                               const void* kp, const void* kw, void* out,
+                               int B, int N, int M, int K, int C, int P,
+                               int influence, float extent,
+                               float gauss_denom, int device, void* stream) {
+  return forward<bf16>(feat, idx, rel, mask, kp, kw, out, B, N, M, K, C, P,
+                       influence, extent, gauss_denom, device, stream);
 }

@@ -19,8 +19,14 @@ seed gives the same noisy clouds and the same patches:
   together; features are the patch's xyz (or its Fourier features).
 
 ``self.rng`` is consumed in a fixed order (the Fourier matrix, then each
-uncached shape, then the patch table), which decides every patch.
-Processed shapes are cached as ``.npz`` under ``<data_root>/processed_torch``.
+shape's noise, then the patch table), which decides every patch.
+Processed shapes are cached as ``.npz`` under ``<data_root>/processed_torch``
+with the generator's state before and after the shape's draws; a cache hit
+from the same state moves ``self.rng`` on to the state after, as the
+processing would have, so the patch table does not depend on whether the
+cache was warm (the JAX package's draws skip cached shapes, so a run that
+processed its shapes and a later run of the same command, a resumed one,
+drew different patches).
 The JAX package's fused native patch assembly has a random stream of its own;
 the port follows the numpy path, which is that package's oracle.
 """
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import json
 import logging
 import os
 from typing import Dict, List, Optional, Sequence
@@ -57,11 +64,15 @@ class ShapeData:
     labels: np.ndarray    # (P,) int32: 1 = outlier
     offsets: np.ndarray   # (P, 3) GT offsets (denoised = noisy + offset)
 
-    def save(self, path: str) -> None:
+    def save(self, path: str, rng_states=None) -> None:
+        """Write the shape, and ``rng_states`` (the generator's states
+        before and after its draws) where given."""
         tmp = f"{path}.{os.getpid()}.tmp.npz"
+        extra = {} if rng_states is None \
+            else {"rng_states": np.array(json.dumps(rng_states))}
         np.savez(tmp, vertices=self.mesh.vertices, faces=self.mesh.faces,
                  points=self.points, labels=self.labels,
-                 offsets=self.offsets)
+                 offsets=self.offsets, **extra)
         os.replace(tmp, path)
 
     @classmethod
@@ -70,6 +81,14 @@ class ShapeData:
             return cls(mesh=TriMesh(z["vertices"], z["faces"]),
                        points=z["points"], labels=z["labels"],
                        offsets=z["offsets"])
+
+    @staticmethod
+    def load_rng_states(path: str):
+        """The (before, after) generator states saved with the shape, or
+        ``None``."""
+        with np.load(path) as z:
+            return json.loads(str(z["rng_states"])) \
+                if "rng_states" in z.files else None
 
 
 def _add_noise(pos: np.ndarray, gt: np.ndarray, noise_type: str,
@@ -262,13 +281,17 @@ class OffsetDataset:
         tag = (f"{name.replace(os.sep, '_')}_{noise_type}_{noise_level:.2e}"
                f"_{npts:06d}_{outprop:.2f}{lvl_tag}.npz")
         cache = os.path.join(self.cache_dir, tag)
+        before = self.rng.bit_generator.state
         if os.path.exists(cache):
+            states = ShapeData.load_rng_states(cache)
+            if states is not None and states[0] == before:
+                self.rng.bit_generator.state = states[1]
             return ShapeData.load(cache)
         data = process_off_file(
             os.path.join(self.data_root, name + ".off"), npts, outprop,
             noise_type, noise_level, rng=self.rng, mesh=mesh,
             levels=self.diverse_levels)
-        data.save(cache)
+        data.save(cache, rng_states=[before, self.rng.bit_generator.state])
         return data
 
     def _build_patch_table(self, sample_dl_patches: float) -> None:

@@ -36,10 +36,6 @@ class PyramidModel(nn.Module):
             raise NotImplementedError(
                 f"Backbone {cfg.backbone} not implemented")
         self._check_head(cfg)
-        if str(cfg.compute_dtype) != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype} is not ported yet "
-                "(ROADMAP.md)")
         self.cfg = cfg
         self.ResNetEncoder_0 = ResNetEncoder(cfg, generator)
 

@@ -13,7 +13,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.neighbors import gather_rows
-from .layers import ConvBN, he_normal_, linear
+from .layers import ConvBN, compute_dtype, he_normal_, linear
 from .pyramid import Pyramid
 
 
@@ -37,7 +37,7 @@ class UNetDecoder(nn.Module):
         for step, out_w in enumerate([4 * w, 2 * w, w, w // 2]):
             self.add_module(f"ConvBN_{step}", ConvBN(
                 prev + skips[3 - step], out_w, cfg.bn_momentum,
-                generator=generator))
+                generator=generator, dtype=compute_dtype(cfg)))
             prev = out_w
 
     def forward(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
@@ -79,7 +79,7 @@ class MultiDimHead(nn.Module):
         w = int(cfg.width)
         self.UNetDecoder_0 = UNetDecoder(cfg, generator)
         self.ConvBN_0 = ConvBN(w // 2, w // 2, cfg.bn_momentum,
-                               generator=generator)
+                               generator=generator, dtype=compute_dtype(cfg))
         self.Dense_0 = linear(w // 2, num_out, True, generator)
         final_init(self.Dense_0.weight, generator)
         nn.init.zeros_(self.Dense_0.bias)

@@ -6,6 +6,12 @@ its statistics over (batch, points) per channel.  Submodule names follow the
 Flax parameter tree (``Dense_0``, ``BatchNorm_0``) so that ``convert.py``
 maps names one to one.
 
+Under ``cfg.compute_dtype: bfloat16`` (:func:`compute_dtype`) a ``ConvBN``
+runs its ``Dense_0`` in bfloat16, inputs and weight cast as Flax's
+``nn.Dense(dtype=bfloat16)`` casts them, and its BatchNorm takes the
+bfloat16 product and computes in float32, as Flax's ``BatchNorm`` promotes
+it to its float32 parameters; parameters and statistics stay float32.
+
 Initialisers draw from the ``torch.Generator`` they are given (the global
 one when it is ``None``).  A ``Linear`` draws torch's default
 initialisation from it first, as ``nn.Linear`` does from the global one, so
@@ -20,6 +26,29 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+def compute_dtype(cfg) -> Optional[torch.dtype]:
+    """``cfg.compute_dtype`` as the dtype of the matmuls and the KPConv
+    aggregation: ``torch.bfloat16`` for ``bfloat16``, ``None`` (float32)
+    for ``float32``."""
+    name = str(getattr(cfg, "compute_dtype", "float32"))
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name != "float32":
+        raise ValueError(f"compute_dtype {name!r}: float32 or bfloat16")
+    return None
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]
+                      ) -> nn.Module:
+    """Set the compute dtype of every module of ``model`` that has one
+    (``ConvBN``, ``PseudoGrid``); ``None`` computes in the parameters'
+    dtype.  Returns ``model``."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return model
+
 
 # jax.nn.initializers.he_normal is variance scaling over a normal truncated
 # at two standard deviations; this constant restores the variance lost to
@@ -58,14 +87,18 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
     running variance is updated with that same biased variance, as Flax
     does.  ``F.batch_norm`` stores the unbiased one, ``n / (n - 1)`` times
     the biased, so its running variance is corrected in place from the
-    value before the step: one pass over the input, not two."""
+    value before the step: one pass over the input, not two.  A bfloat16
+    input is normalised in float32 (the output is float32)."""
 
     def __init__(self, channels: int, momentum: float = 0.1):
         super().__init__(channels, eps=1e-5, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        x = x.reshape(-1, shape[-1])
+        # a bfloat16 input is promoted to the parameters' dtype, as Flax
+        # promotes it
+        x = x.reshape(-1, shape[-1]).to(
+            torch.promote_types(x.dtype, self.weight.dtype))
         if self.training:
             n = x.shape[0]
             old_var = self.running_var.clone()
@@ -85,19 +118,26 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
 
 
 class ConvBN(nn.Module):
-    """1x1 conv (Linear, no bias) + BatchNorm, optional ReLU."""
+    """1x1 conv (Linear, no bias) + BatchNorm, optional ReLU.  With
+    ``dtype`` (bfloat16) the conv takes its input and weight cast to it and
+    gives its product in it; the BatchNorm's output is float32."""
 
     def __init__(self, in_features: int, features: int,
                  bn_momentum: float = 0.1, relu: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Dense_0 = linear(in_features, features, False, generator)
         he_normal_(self.Dense_0.weight, in_features, generator)
         self.BatchNorm_0 = ChannelsLastBatchNorm(features, bn_momentum)
         self.relu = relu
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Dense_0(x))
+        dt = self.compute_dtype
+        x = self.Dense_0(x) if dt is None \
+            else F.linear(x.to(dt), self.Dense_0.weight.to(dt))
+        x = self.BatchNorm_0(x)
         return F.relu(x) if self.relu else x
 
 

@@ -3,7 +3,11 @@
 Counterpart of ``deep3dpointclouddenoising_tpu/models/local_aggregation.py``.
 This slice ports PseudoGrid (KPConv); the other operators raise.  Every
 PseudoGrid call goes through :func:`..ops.kpconv.kpconv_aggregate`, which on
-the card is the CUDA kernel at every level, with no size threshold.
+the card is the CUDA kernel at every level, with no size threshold.  Under
+``cfg.compute_dtype: bfloat16`` the support features go in as bfloat16 and
+the aggregation comes out in bfloat16 (the JAX package's fused path,
+``local_aggregation.py:119-126``), which the BatchNorm after it promotes
+back to float32.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from torch import nn
 from ..config import Config
 from ..ops.kpconv import kpconv_aggregate
 from .kernel_points import create_kernel_points
-from .layers import BNReLU, ConvBN
+from .layers import BNReLU, ConvBN, compute_dtype
 from .pyramid import Neighborhood
 
 
@@ -43,6 +47,7 @@ class PseudoGrid(nn.Module):
             raise NotImplementedError(
                 f"convolution_mode {pg.convolution_mode} not supported")
         self.influence = pg.KP_influence
+        self.compute_dtype = compute_dtype(cfg)
         self.extent = float(2.0 * pg.KP_extent * radius
                             / cfg.density_parameter)
         kpoints = create_kernel_points(
@@ -57,13 +62,16 @@ class PseudoGrid(nn.Module):
         if pg.output_conv or in_channels != out_channels:
             self.post = "ConvBN_0"
             self.ConvBN_0 = ConvBN(in_channels, out_channels,
-                                   cfg.bn_momentum, generator=generator)
+                                   cfg.bn_momentum, generator=generator,
+                                   dtype=self.compute_dtype)
         else:
             self.post = "BNReLU_0"
             self.BNReLU_0 = BNReLU(out_channels, cfg.bn_momentum)
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            support_features = support_features.to(self.compute_dtype)
         out = kpconv_aggregate(
             support_features.contiguous(), nbr.idx, nbr.rel_xyz,
             _feature_mask(nbr, query_mask).contiguous(), self.kpoints,

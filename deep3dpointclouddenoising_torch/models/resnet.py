@@ -24,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops import group_features
-from .layers import ConvBN
+from .layers import ConvBN, compute_dtype
 from .local_aggregation import LocalAggregation
 from .pyramid import Neighborhood, Pyramid
 
@@ -47,17 +47,18 @@ class Bottleneck(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         mid = out_channels // int(cfg.bottleneck_ratio)
+        dt = compute_dtype(cfg)
         self.strided = strided
         self.ConvBN_0 = ConvBN(in_channels, mid, cfg.bn_momentum,
-                               generator=generator)
+                               generator=generator, dtype=dt)
         self.LocalAggregation_0 = LocalAggregation(mid, mid, radius, cfg,
                                                    generator)
         self.ConvBN_1 = ConvBN(mid, out_channels, cfg.bn_momentum,
-                               relu=False, generator=generator)
+                               relu=False, generator=generator, dtype=dt)
         if in_channels != out_channels:
             self.ConvBN_2 = ConvBN(in_channels, out_channels,
                                    cfg.bn_momentum, relu=False,
-                                   generator=generator)
+                                   generator=generator, dtype=dt)
 
     def forward(self, features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
@@ -110,7 +111,7 @@ class ResNetEncoder(nn.Module):
         self.depth = depth
         self.remat = bool(int(cfg.remat))
         self.ConvBN_0 = ConvBN(in_dim, width // 2, cfg.bn_momentum,
-                               generator=generator)
+                               generator=generator, dtype=compute_dtype(cfg))
         self.LocalAggregation_0 = LocalAggregation(width // 2, width // 2,
                                                    r0, cfg, generator)
         blocks = [Bottleneck(width // 2, width, r0, cfg,

@@ -16,9 +16,20 @@ forward launches ``csrc/kpconv_fwd.cu`` and the backward
 ``csrc/kpconv_bwd.cu``; for CPU tensors both are the plain versions
 :func:`kpconv_aggregate_plain` and :func:`kpconv_aggregate_backward_plain`.
 ``kpconv_aggregate.launches`` and ``kpconv_aggregate_backward.launches``
-count the kernels' launches.  The backward kernel works on inverted
-neighbourhoods (the edges that name each support,
-:func:`invert_neighbors_plain`);
+count the float32 kernels' launches, ``.launches_bf16`` those of their
+bfloat16 forms.
+
+Features may be float32 or bfloat16 (the JAX package's ``compute_dtype:
+bfloat16``, where the Pallas kernels run in ``features.dtype``).  In
+bfloat16 the output and ``d_features`` are bfloat16 and ``grad_out`` must
+be; ``rel``, ``mask``, ``kpoints``, ``kernel_weights`` and
+``d_kernel_weights`` stay float32, every sum is float32, and the output and
+``d_features`` are rounded to bfloat16 once (``kpconv_fwd_bf16``,
+``kpconv_bwd_bf16``; the plain versions upcast, compute in float32 and
+round).  The gradient in ``rel`` has no bfloat16 form.
+
+The backward kernel works on inverted neighbourhoods (the edges that name
+each support, :func:`invert_neighbors_plain`);
 :func:`kpconv_aggregate_backward_inverted_plain` is its form in plain
 tensor ops, for the CPU tests.
 """
@@ -35,6 +46,16 @@ from .neighbors import group_features
 
 INFLUENCES = {"constant": 0, "linear": 1, "gaussian": 2}
 MAX_KERNEL_POINTS = 16  # kPPad in csrc/kpconv_fwd.cu and csrc/kpconv_bwd.cu
+# the feature dtypes the kernels take, and each one's entry-point suffix
+FEATURE_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _check_no_bf16_rel(features: torch.Tensor) -> None:
+    if features.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "kpconv_aggregate: the gradient in rel has no bfloat16 form "
+            "(only the GAN's G-step needs it, and the GAN is not ported); "
+            "run the aggregation in float32 to differentiate in rel")
 
 
 def influence_weights(sq: torch.Tensor, extent: float,
@@ -107,7 +128,12 @@ def kpconv_aggregate_plain(features, idx, rel, mask, kpoints, kernel_weights,
                            extent: float, influence: str = "linear"
                            ) -> torch.Tensor:
     """The plain version of the forward kernel, over ungathered support
-    features."""
+    features.  bfloat16 features are upcast, the output computed in
+    float32 and rounded to bfloat16 once."""
+    if features.dtype == torch.bfloat16:
+        return kpconv_aggregate_plain(
+            features.float(), idx, rel, mask, kpoints, kernel_weights,
+            extent, influence).to(torch.bfloat16)
     return kpconv_aggregate_reference(
         group_features(features, idx), rel, mask, kpoints, kernel_weights,
         extent=extent, influence=influence)
@@ -131,7 +157,21 @@ def kpconv_aggregate_backward_plain(
     * ``d_rel = sum_p dw * (rel - kp) * einsum(grouped, g, kw)``, the
       gradient ``jax.grad`` takes through ``kpconv_aggregate_reference``
       (``_weight_slopes`` gives ``dw``).
+
+    bfloat16 ``features`` and ``grad_out`` are upcast and ``d_features``
+    rounded to bfloat16 once; ``d_kernel_weights`` stays float32 and
+    ``d_rel`` raises.
     """
+    if features.dtype == torch.bfloat16:
+        if need_rel:
+            _check_no_bf16_rel(features)
+        d_features, d_kw, _ = kpconv_aggregate_backward_plain(
+            features.float(), idx, rel, mask, kpoints, kernel_weights,
+            grad_out.float(), extent, influence, need_features,
+            need_kernel_weights)
+        if d_features is not None:
+            d_features = d_features.to(torch.bfloat16)
+        return d_features, d_kw, None
     B, M, K = idx.shape
     N, C = features.shape[1:]
     w = _masked_weights(rel, mask, kpoints, extent, influence)
@@ -236,20 +276,31 @@ def kpconv_aggregate_backward_inverted_plain(
 
 
 def _library(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with the argument types of its
+    entry points (``<name>`` and ``<name>_bf16``) set."""
     lib = _cuda.load(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
+    if getattr(lib, name).argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "kpconv_fwd":
-            fn.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
-        else:
-            fn.argtypes = [vp] * 12 + [i] * 7 + [f, f, i, i, i, i, vp]
+        for suffix in FEATURE_DTYPES.values():
+            fn = getattr(lib, name + suffix)
+            if name == "kpconv_fwd":
+                fn.argtypes = [vp] * 7 + [i] * 7 + [f, f, i, vp]
+            else:
+                fn.argtypes = [vp] * 12 + [i] * 7 + [f, f, i, i, i, i, vp]
+            fn.restype = i
+        if name == "kpconv_bwd":
             lib.kpconv_bwd_num_slots.argtypes = [i, i]
             lib.kpconv_bwd_num_slots.restype = i
             lib.kpconv_bwd_scratch_ints.argtypes = [i] * 4
             lib.kpconv_bwd_scratch_ints.restype = ctypes.c_longlong
-        fn.restype = i
     return lib
+
+
+def _count_launch(wrapper, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -282,7 +333,10 @@ def _check_cuda_inputs(features, idx, rel, mask, kpoints, kernel_weights,
         raise ValueError(f"kpconv_aggregate: {P} kernel points, the kernel "
                          f"takes 1..{MAX_KERNEL_POINTS}")
     dev = features.device
-    _check("features", features, torch.float32, (B, N, C), dev)
+    if features.dtype not in FEATURE_DTYPES:
+        raise TypeError(f"kpconv_aggregate: features must be float32 or "
+                        f"bfloat16, got {features.dtype}")
+    _check("features", features, features.dtype, (B, N, C), dev)
     _check("idx", idx, torch.int32, (B, M, K), dev)
     _check("rel", rel, torch.float32, (B, M, K, 3), dev)
     _check("mask", mask, torch.float32, (B, M, K), dev)
@@ -296,10 +350,12 @@ def _forward_kernel(features, idx, rel, mask, kpoints, kernel_weights,
     B, N, M, K, C, P = _check_cuda_inputs(features, idx, rel, mask, kpoints,
                                           kernel_weights, influence)
     dev = features.device
-    out = torch.empty((B, M, C), dtype=torch.float32, device=dev)
+    out = torch.empty((B, M, C), dtype=features.dtype, device=dev)
     if out.numel() == 0:
         return out
-    rc = _library("kpconv_fwd").kpconv_fwd(
+    fn = getattr(_library("kpconv_fwd"),
+                 "kpconv_fwd" + FEATURE_DTYPES[features.dtype])
+    rc = fn(
         features.data_ptr(), idx.data_ptr(), rel.data_ptr(), mask.data_ptr(),
         kpoints.data_ptr(), kernel_weights.data_ptr(), out.data_ptr(),
         B, N, M, K, C, P, INFLUENCES[influence], float(extent),
@@ -307,7 +363,7 @@ def _forward_kernel(features, idx, rel, mask, kpoints, kernel_weights,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kpconv_fwd kernel launch failed: CUDA error {rc}")
-    kpconv_aggregate.launches += 1
+    _count_launch(kpconv_aggregate, features.dtype)
     return out
 
 
@@ -329,8 +385,12 @@ def kpconv_aggregate_backward(
     ``kpconv_aggregate_backward.launches`` counts calls that launch.  CPU
     tensors go through :func:`kpconv_aggregate_backward_plain`.  Asking for
     ``d_rel`` adds ``kpconv_bwd_drel``, which adds ``d_rel`` with float32
-    atomics (not bitwise reproducible).
+    atomics (not bitwise reproducible).  bfloat16 ``features`` take a
+    bfloat16 ``grad_out`` and give bfloat16 ``d_features``
+    (``kpconv_bwd_bf16``, counted by ``.launches_bf16``), and no ``d_rel``.
     """
+    if need_rel:
+        _check_no_bf16_rel(features)
     if features.device.type == "cpu":
         return kpconv_aggregate_backward_plain(
             features, idx, rel, mask, kpoints, kernel_weights, grad_out,
@@ -339,7 +399,7 @@ def kpconv_aggregate_backward(
                                           kernel_weights, influence)
     dev = features.device
     grad_out = grad_out.contiguous()
-    _check("grad_out", grad_out, torch.float32, (B, M, C), dev)
+    _check("grad_out", grad_out, features.dtype, (B, M, C), dev)
     d_features = torch.empty_like(features) if need_features else None
     d_kw = torch.empty((P, C), dtype=torch.float32, device=dev) \
         if need_kernel_weights else None
@@ -359,7 +419,8 @@ def kpconv_aggregate_backward(
                           dtype=torch.int32, device=dev) \
         if need_features or need_kernel_weights else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.kpconv_bwd(
+    fn = getattr(lib, "kpconv_bwd" + FEATURE_DTYPES[features.dtype])
+    rc = fn(
         features.data_ptr(), idx.data_ptr(), rel.data_ptr(), mask.data_ptr(),
         kpoints.data_ptr(), kernel_weights.data_ptr(), grad_out.data_ptr(),
         ptr(d_features), ptr(d_kw), ptr(part), ptr(d_rel), ptr(scratch), B,
@@ -369,7 +430,7 @@ def kpconv_aggregate_backward(
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kpconv_bwd kernel launch failed: CUDA error {rc}")
-    kpconv_aggregate_backward.launches += 1
+    _count_launch(kpconv_aggregate_backward, features.dtype)
     return d_features, d_kw, d_rel
 
 
@@ -407,7 +468,7 @@ def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
     """KPConv aggregation over ungathered support features.
 
     Args:
-      features: (B, N, C) float32 support features.
+      features: (B, N, C) float32 or bfloat16 support features.
       idx: (B, M, K) int32 neighbour indices into the support set.
       rel: (B, M, K, 3) neighbour positions relative to the query.
       mask: (B, M, K) float32 feature mask.
@@ -416,10 +477,11 @@ def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
       extent: influence extent.
       influence: 'linear' | 'gaussian' | 'constant'.
 
-    Returns (B, M, C) float32, differentiable in ``features``,
-    ``kernel_weights`` and ``rel``.  CUDA tensors go through the kernels
-    (``kpconv_aggregate.launches`` counts the forward's launches), CPU
-    tensors through the plain versions.
+    Returns (B, M, C) in ``features.dtype``, differentiable in
+    ``features``, ``kernel_weights`` and (float32 only) ``rel``.  CUDA
+    tensors go through the kernels (``kpconv_aggregate.launches`` and
+    ``.launches_bf16`` count the forward's launches), CPU tensors through
+    the plain versions.
     """
     if influence not in INFLUENCES:
         raise ValueError(f"Unknown KP_influence {influence}")
@@ -432,3 +494,5 @@ def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
 
 kpconv_aggregate.launches = 0
 kpconv_aggregate_backward.launches = 0
+kpconv_aggregate.launches_bf16 = 0
+kpconv_aggregate_backward.launches_bf16 = 0

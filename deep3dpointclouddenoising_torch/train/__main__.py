@@ -9,17 +9,29 @@ checkpoint per epoch.  Run it as::
 
     python -m deep3dpointclouddenoising_torch.train \\
         --config_file cfgs/l1.yaml --data_root D --log_dir L \\
-        [--num_steps S] [--epochs E] [--batch_size B] [--device cuda]
+        [--num_steps S] [--epochs E] [--batch_size B] [--device cuda] \\
+        [--auto_resume] [--load_path P [--start_epoch E0]] \\
+        [--load_weights_path W]
 
 ``D`` holds ``train/*.off`` and ``val/*.off``.  Checkpoints go to
 ``L/<experiment_name>/current.pt`` (every epoch) and ``ckpt_epoch_<E>.pt``
 (every ``save_freq`` epochs and the last); ``infer --checkpoint`` reads
-either.  The loss is read back from the card only every ``print_freq``
-steps, so the host prepares batches while the card computes.  The JAX
-package's ``steps_per_dispatch`` (scan-fused steps, a workaround for the
-TPU's remote link) is read from the config and ignored: every step is its
-own dispatch.  ``remat: 1`` in the config recomputes the encoder's
-bottlenecks in the backward (``models/resnet.py``).
+either.  A run continues from one with the JAX script's precedence
+(:func:`restore_run`): ``--load_path P`` restores P's whole train state
+(run on from ``--start_epoch``); else ``--load_weights_path W`` takes W's
+weights and BatchNorm statistics under a fresh optimizer and schedule,
+unless ``--auto_resume`` finds a checkpoint; ``--auto_resume`` restores
+``current.pt`` (or the newest ``ckpt_epoch_<E>.pt``) of the run's
+directory and goes on from the epoch after the last one it completed.
+Batches, validation and checkpoints depend on the epoch number alone
+(each patch draws from a generator seeded by its index), so a resumed run
+repeats an unbroken one.  The loss is read back from the card only every
+``print_freq`` steps, so the host prepares batches while the card
+computes.  The JAX package's ``steps_per_dispatch`` (scan-fused steps, a
+workaround for the TPU's remote link) is read from the config and
+ignored: every step is its own dispatch.  ``remat: 1`` in the config
+recomputes the encoder's bottlenecks in the backward
+(``models/resnet.py``).
 """
 from __future__ import annotations
 
@@ -35,14 +47,15 @@ from ..config import load_config
 from ..data.loader import BatchLoader
 from ..data.offset_dataset import OffsetDataset
 from ..data.transforms import build_train_transforms
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import (latest_epoch_checkpoint, load_checkpoint,
+                                load_weights, save_checkpoint)
 from ..utils.device import resolve_device
 from ..utils.metrics import AverageMeter
 from .trainer import Trainer
 
 _OVERRIDES = ("batch_size", "num_points", "width", "num_steps", "epochs",
               "base_learning_rate", "weight_decay", "rng_seed", "val_freq",
-              "num_points_per_shape", "DEBUG")
+              "num_points_per_shape", "DEBUG", "start_epoch", "load_path")
 
 
 _CLIS = {
@@ -83,10 +96,61 @@ def parse_args(argv: Optional[List[str]] = None,
         p.add_argument("--num_points_per_shape", type=int,
                        help="points of each processed training and "
                             "validation cloud")
+    p.add_argument("--start_epoch", type=int,
+                   help="first epoch to run (with --load_path)")
+    p.add_argument("--load_path",
+                   help="restore this checkpoint's whole train state")
+    p.add_argument("--load_weights_path",
+                   help="warm-start the model's weights and BatchNorm "
+                        "statistics from this checkpoint under a fresh "
+                        "optimizer and schedule")
+    p.add_argument("--auto_resume", action="store_true",
+                   help="restore <log_dir>/<experiment_name>/current.pt (or "
+                        "the newest ckpt_epoch_<E>.pt) and continue from "
+                        "the epoch after it")
     p.add_argument("--log_dir", default="log")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+def run_dir(cfg, log_dir: str) -> str:
+    """The directory of a run's checkpoints."""
+    return os.path.join(log_dir, cfg.experiment_name or "run")
+
+
+def restore_run(trainer: Trainer, cfg, directory: str, steps_per_epoch: int,
+                load_weights_path: Optional[str] = None,
+                auto_resume: bool = False) -> Optional[str]:
+    """Restore ``trainer`` as ``scripts/train.py`` does
+    (:167-197) and return what was read, or ``None``:
+
+    1. ``cfg.load_path``: its whole train state; ``cfg.start_epoch`` stays;
+    2. else ``load_weights_path``, unless ``auto_resume`` finds a
+       checkpoint: its weights and BatchNorm statistics only;
+    3. else with ``auto_resume``, ``directory``'s ``current.pt`` or, failing
+       that, its newest ``ckpt_epoch_<E>.pt``: its whole train state, and
+       ``cfg.start_epoch = step // steps_per_epoch + 1`` (checkpoints are
+       written at epochs' ends).
+    """
+    current = os.path.join(directory, "current.pt")
+    if not os.path.isfile(current):
+        current = latest_epoch_checkpoint(directory)
+    if cfg.load_path:
+        step = load_checkpoint(cfg.load_path, trainer)
+        print(f"resumed from {cfg.load_path} at step {step}", flush=True)
+        return cfg.load_path
+    if load_weights_path and not (auto_resume and current):
+        load_weights(load_weights_path, trainer)
+        print(f"warm-started weights from {load_weights_path}", flush=True)
+        return load_weights_path
+    if auto_resume and current:
+        step = load_checkpoint(current, trainer)
+        cfg.start_epoch = step // steps_per_epoch + 1
+        print(f"auto-resumed from {current} at step {step} -> start_epoch "
+              f"{cfg.start_epoch}", flush=True)
+        return current
+    return None
 
 
 def load_run_config(args: argparse.Namespace):
@@ -134,19 +198,23 @@ def main(argv: Optional[List[str]] = None,
     val_ds = OffsetDataset(cfg.data_root, "val", num_epochs=1, **common)
     norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
     return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
-               norm_factor)
+               norm_factor, args.load_weights_path, args.auto_resume)
 
 
 def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
-        loss_mode: str, norm_factor: Optional[float] = None
+        loss_mode: str, norm_factor: Optional[float] = None,
+        load_weights_path: Optional[str] = None, auto_resume: bool = False
         ) -> Dict[str, Any]:
     """Epochs ``cfg.start_epoch..cfg.epochs`` of train steps over
     ``train_ds`` (its ragged last batch dropped), a validation pass over
     ``val_ds`` every ``cfg.val_freq`` epochs, and a checkpoint per epoch
-    under ``<log_dir>/<experiment_name>``.  Returns a summary: every train
-    loss, the val losses, ms per step of each epoch, the step count, val
-    batches, the last checkpoint's path and the trainer."""
-    log_dir = os.path.join(log_dir, cfg.experiment_name or "run")
+    under ``<log_dir>/<experiment_name>``, from the state that
+    :func:`restore_run` restores (``cfg.load_path``,
+    ``load_weights_path``, ``auto_resume``).  Returns a summary: every
+    train loss, the val losses, ms per step of each epoch, the step count,
+    val batches, the last checkpoint's path, what was restored and the
+    trainer."""
+    log_dir = run_dir(cfg, log_dir)
     batch_size = int(cfg.batch_size)
     train_loader = BatchLoader(train_ds, batch_size, drop_last=True)
     val_loader = BatchLoader(val_ds, batch_size)
@@ -156,8 +224,11 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
     trainer = Trainer(cfg, len(train_loader),
                       torch.Generator().manual_seed(int(cfg.rng_seed)),
                       device, loss_mode=loss_mode)
+    restored = restore_run(trainer, cfg, log_dir, len(train_loader),
+                           load_weights_path, auto_resume)
     summary: Dict[str, Any] = {"train_losses": [], "val_losses": [],
-                               "ms_per_step": [], "val_batches": 0}
+                               "ms_per_step": [], "val_batches": 0,
+                               "restored": restored}
     checkpoint = None
     for epoch in range(int(cfg.start_epoch), int(cfg.epochs) + 1):
         meter = AverageMeter()

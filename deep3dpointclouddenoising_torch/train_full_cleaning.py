@@ -10,7 +10,8 @@ It shares the train entry point's flags, epoch loop and checkpoints::
 
     python -m deep3dpointclouddenoising_torch.train_full_cleaning \\
         --config_file cfgs/synthetic_quality_cleaning.yaml --data_root D \\
-        --log_dir L [--num_steps S] [--epochs E] [--device cuda]
+        --log_dir L [--num_steps S] [--epochs E] [--device cuda] \\
+        [--auto_resume] [--load_path P] [--load_weights_path W]
 
 ``infer --full_cleaning --checkpoint L/<experiment>/current.pt`` reads the
 checkpoint.

@@ -10,7 +10,7 @@ entry point's flags and epoch loop, plus the split layout::
     python -m deep3dpointclouddenoising_torch.train_outlier_seg \\
         --config_file cfgs/outlier_seg_edf.yaml --data_root D --log_dir L \\
         [--dataset_type EDFM|EDFS|EDFS{K}f{i}|PCN] [--DEBUG 1] \\
-        [--num_steps S] [--epochs E] [--device cuda]
+        [--num_steps S] [--epochs E] [--device cuda] [--auto_resume]
 
 ``D`` holds the scans (``pointcloud_NN.ply`` for EDF, the
 ``outliers_*_W_NOR`` lists for PCN; ``data.scans.make_scans`` writes
@@ -55,7 +55,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         **common)
     cfg.input_features_dim = train_ds.input_features_dim
     return _train_cli.fit(cfg, args.log_dir, device, train_ds, val_ds,
-                          "segmentation")
+                          "segmentation",
+                          load_weights_path=args.load_weights_path,
+                          auto_resume=args.auto_resume)
 
 
 if __name__ == "__main__":

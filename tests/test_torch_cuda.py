@@ -614,3 +614,141 @@ def test_chamfer15k_train_step_gradients_are_bitwise_reproducible(card):
     assert l0 == l1
     for a, b in zip(g0 + p0, g1 + p1):
         assert torch.equal(a, b)
+
+
+# -- bfloat16 compute and resume ----------------------------------------------
+
+def _assert_bf16_close(got, want, atol):
+    """Each element within one bf16 ulp of the plain value, plus ``atol``
+    for sums that cancel: kernel and plain version each round a float32
+    sum once."""
+    grad_check.check_bf16(got, want, atol, "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
+@pytest.mark.parametrize("M,N,K,C", [(131, 60, 7, 12), (500, 500, 52, 72),
+                                     (3, 15, 26, 1152)])
+def test_bf16_kpconv_kernels_match_plain(card, influence, M, N, K, C):
+    """The bf16 forms (kpconv_fwd_bf16, kpconv_bwd_bf16) against the bf16
+    plain versions: the output and d_features within one bf16 ulp (plus
+    the float32 tolerances' atol), d_kernel_weights (float32) at rtol 3e-4
+    / atol 1e-5 of its largest entry; counted as bf16 launches only.  C =
+    12 takes the element-by-element copies (C % 8 != 0)."""
+    arrays = [a.to(card) for a in _inputs(np.random.default_rng(41), 16, M,
+                                          N, K, C)]
+    arrays[0] = arrays[0].to(torch.bfloat16)
+    g = torch.randn(16, M, C, device=card).to(torch.bfloat16)
+    counts = [(w.launches, w.launches_bf16) for w in (
+        tkp.kpconv_aggregate, tkp.kpconv_aggregate_backward)]
+    with torch.no_grad():
+        got = tkp.kpconv_aggregate(*arrays, 0.12, influence)
+    got_b = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_bf16) for w in (
+        tkp.kpconv_aggregate, tkp.kpconv_aggregate_backward)] == [
+            (f, b + 1) for f, b in counts]
+    want = tkp.kpconv_aggregate_plain(*arrays, 0.12, influence)
+    want_b = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence)
+    _assert_bf16_close(got, want, 2e-5)
+    _assert_bf16_close(got_b[0], want_b[0],
+                       1e-5 * want_b[0].abs().max().item())
+    assert got_b[1].dtype == torch.float32
+    _assert_grad_close(got_b[1], want_b[1], 3e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(16, 500, 500, 52, 72, 15, "random"),
+                                  (2, 200, 40, 30, 72, 15, "sink")])
+def test_bf16_kpconv_backward_kernel_is_deterministic(card, case):
+    arrays, g = _backward_edge_inputs(np.random.default_rng(43), "linear",
+                                      case)
+    arrays, g = [a.to(card) for a in arrays], g.to(card).to(torch.bfloat16)
+    arrays[0] = arrays[0].to(torch.bfloat16)
+    first = tkp.kpconv_aggregate_backward(*arrays, g, 0.12)
+    second = tkp.kpconv_aggregate_backward(*arrays, g, 0.12)
+    torch.cuda.synchronize()
+    assert first[0].dtype == torch.bfloat16
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_bf16_kpconv_refuses_mixed_dtypes_and_the_gradient_in_rel(card):
+    arrays = [a.to(card) for a in _inputs(np.random.default_rng(44), 2, 9, 20,
+                                          5, 8)]
+    arrays[0] = arrays[0].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="grad_out"):
+        tkp.kpconv_aggregate_backward(
+            *arrays, torch.ones(2, 9, 8, device=card), 0.1)
+    with pytest.raises(NotImplementedError, match="no bfloat16 form"):
+        tkp.kpconv_aggregate_backward(
+            *arrays, torch.ones(2, 9, 8, device=card, dtype=torch.bfloat16),
+            0.1, need_rel=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["l1", "synthetic_quality_diverse_bf16"])
+def test_resumed_steps_on_card_equal_straight_steps(card, tmp_path, config):
+    """A width-144 run on the card (l1.yaml, and its bf16 twin of the
+    deployed protocol): four straight train steps against two, a
+    checkpoint, a restore into a trainer built afresh from another seed,
+    and two more, bitwise: parameters, BatchNorm buffers, Adam's state,
+    the update count and the LR."""
+    from deep3dpointclouddenoising_torch.train.trainer import Trainer
+    from deep3dpointclouddenoising_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    cfg = load_config(os.path.join(os.path.dirname(L1_YAML),
+                                   config + ".yaml"))
+    assert int(cfg.width) == 144
+    rng = np.random.default_rng(45)
+    batches = []
+    for _ in range(4):
+        xyz = rng.normal(size=(16, 500, 3))
+        xyz = (0.05 * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+               * rng.random((16, 500, 1))).astype(np.float32)
+        batches.append({"points": xyz, "mask": np.ones((16, 500), np.float32),
+                        "features": xyz.copy(), "offsets": (rng.normal(
+                            size=(16, 500, 3)) * 1e-3).astype(np.float32)})
+    straight = Trainer(cfg, 1, torch.Generator().manual_seed(0), card)
+    for b in batches:
+        straight.train_step(b)
+    first = Trainer(cfg, 1, torch.Generator().manual_seed(0), card)
+    for b in batches[:2]:
+        first.train_step(b)
+    path = save_checkpoint(str(tmp_path / "half.pt"), first.model,
+                           first.optimizer, first.step)
+    resumed = Trainer(cfg, 1, torch.Generator().manual_seed(5), card)
+    assert load_checkpoint(path, resumed) == 2
+    for b in batches[2:]:
+        resumed.train_step(b)
+    torch.cuda.synchronize()
+    assert resumed.step == straight.step == 4
+    for a, b in ((resumed.model.state_dict(), straight.model.state_dict()),
+                 (resumed.optimizer.state_dict(),
+                  straight.optimizer.state_dict())):
+        assert not grad_check.state_difference(a, b)
+    assert [g["lr"] for g in resumed.optimizer.optimizer.param_groups] == \
+        [g["lr"] for g in straight.optimizer.optimizer.param_groups]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BACKWARD_EDGE_CASES)
+def test_bf16_kpconv_kernels_edges_match_plain(card, case):
+    """The bf16 forms at the backward's edge cases (C off 8 and odd, K = 1
+    and 65, P = 1 and 16, N = 1 and 2100, sinks, in-degree-0 supports),
+    held as in test_bf16_kpconv_kernels_match_plain."""
+    arrays, g = _backward_edge_inputs(np.random.default_rng(46), "linear",
+                                      case)
+    arrays, g = [a.to(card) for a in arrays], g.to(card).to(torch.bfloat16)
+    arrays[0] = arrays[0].to(torch.bfloat16)
+    with torch.no_grad():
+        got = tkp.kpconv_aggregate(*arrays, 0.12)
+    got_b = tkp.kpconv_aggregate_backward(*arrays, g, 0.12)
+    torch.cuda.synchronize()
+    want = tkp.kpconv_aggregate_plain(*arrays, 0.12)
+    want_b = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12)
+    _assert_bf16_close(got, want, 2e-5)
+    _assert_bf16_close(got_b[0], want_b[0],
+                       1e-5 * want_b[0].abs().max().item())
+    _assert_grad_close(got_b[1], want_b[1], 3e-4, 1e-5)

@@ -166,9 +166,14 @@ def test_unported_options_raise():
     cfg.local_aggregation_type = "pospool"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         OffsetRegressionModel(cfg)
+    # bfloat16 is ported (tests/test_torch_bf16.py); another compute
+    # dtype raises
     cfg = small_config(default_config())
     cfg.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    model = OffsetRegressionModel(cfg)
+    assert model.ResNetEncoder_0.ConvBN_0.compute_dtype == torch.bfloat16
+    cfg.compute_dtype = "float16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         OffsetRegressionModel(cfg)
 
 
