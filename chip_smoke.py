@@ -6,7 +6,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It imports the port, torch, numpy and scipy only, and goes through
-thirteen phases (phase 9b after 9), each printed with its wall time:
+fourteen phases (phase 9b after 9), each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``deep3dpointclouddenoising_torch/csrc``, one
@@ -45,7 +45,7 @@ thirteen phases (phase 9b after 9), each printed with its wall time:
    plain path), with a floor (``utils/grad_check.py`` says why); 10
    forward and 10 backward launches;
 8. training (this slice's path): the training entry point at full width,
-   B=16, N=500, two epochs of 20 steps on an icosphere and a torus as
+   B=16, N=500, two epochs of 10 steps on an icosphere and a torus as
    ``train`` and ``val`` splits; every loss finite, parameters and
    BatchNorm running stats changed, 10 forward and 10 backward launches per
    step, and the checkpoint reloads through ``infer.load_model``; then a
@@ -56,7 +56,7 @@ thirteen phases (phase 9b after 9), each printed with its wall time:
    ``cfgs/synthetic_quality_diverse.yaml`` and
    ``cfgs/synthetic_quality_stable_low.yaml`` (``diverse_levels``), each
    DEPLOY_STEPS steps on clouds of DEPLOY_TRAIN_POINTS points; then the
-   inference entry point on two held-out shapes (DEPLOY_SHAPES) of 140,000
+   inference entry point on a held-out shape (DEPLOY_SHAPES) of 140,000
    points at gaussian sigma 0.1% and 0.5% with the diverse checkpoint and
    ``--checkpoint_low auto``: the ``_stable_low`` sibling is found, every
    cloud routes LOW at 0.1% and HIGH at 0.5%, the forward kernel runs 10
@@ -130,6 +130,36 @@ thirteen phases (phase 9b after 9), each printed with its wall time:
    run's voted probabilities bitwise equal to the first's.  No metric is
    held to a value (the weights are barely trained).
 
+13. the other aggregations and the attention operators (this slice's
+   path; no KPConv kernel runs on it), on phase 9's shape tree and phase
+   12's scans: (a) each of the 15 500-point configs AGG_CONFIGS (PosPool,
+   adaptive weight, PointWiseMLP and the ten attention types; width 144,
+   depth 2, B=16, N=500) with seeded weights whose BatchNorm statistics,
+   gates and final Dense are O(1), on one real batch: the eval forward,
+   the train forward and every train-mode gradient under the masked L1
+   loss on the card held to the same model's float32 computation on the
+   CPU, within ``grad_check``'s per-tensor limits from that computation's
+   own distance to float64 (the forward by max-abs and L2, the gradients
+   by relative L2; where that one noise sample leaves a tensor over its
+   limit, the larger of it and a second, the CPU's with the inputs one
+   ulp up; a tensor that float32
+   does not pin within FULL_PATH_FLOOR / NOISE_FACTOR held to be finite,
+   and then the card's float64 forward and gradients held to the CPU's
+   within AGG_FLOAT64_TOL; a gradient
+   exactly zero in float64, behind dead ReLUs, exactly zero on the card),
+   and no KPConv launch; (b) AGG_TRAINED
+   through the train entry point, AGG_EPOCHS epochs of AGG_STEPS steps,
+   losses finite and parameters moved, then each checkpoint serving
+   AGG_SHAPE (140,000 points) by host and by device voting, within
+   VOTE_TOL; (c)
+   ``cfgs/outlier_seg_edf_katz.yaml`` (adaptive weight over intensity and
+   Katz features, 15,000 slots) through ``train_outlier_seg`` (STEPS_SEG
+   steps) and ``evaluate_outlier_seg`` on the cut held-out scans; (d) per
+   config the synchronised wall ms per train step and the peak memory,
+   and one profiler window each for AGG_PROFILED (device ms per step,
+   busy share), printed beside the card's name and power limit, with
+   (b)'s points/s.
+
 9b. bf16 (this slice's path), after phase 9 and on its shape tree:
    ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
    bfloat16``) at width 144: (a) the bf16 forms of both kernels
@@ -161,6 +191,9 @@ thirteen phases (phase 9b after 9), each printed with its wall time:
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a card.
+
+``python3 chip_smoke.py --only-aggregations`` runs phases 1, 2 and 13 alone
+(on a shape tree and scans of its own) and prints no result.
 
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
 15k stem call on random neighbourhoods) and prints the kernels' JSON
@@ -215,7 +248,7 @@ from deep3dpointclouddenoising_torch.ops.kpconv import (
     invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
 from deep3dpointclouddenoising_torch.profile_serving import \
-    profile_train_steps
+    profile_train_steps, window_summary
 from deep3dpointclouddenoising_torch.train import __main__ as train_cli
 from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
@@ -241,13 +274,14 @@ MODEL_TOL = dict(rtol=5e-4, atol=5e-5)
 BWD_RTOL, BWD_ATOL_FRAC = 3e-4, 1e-5
 # deployment phase: the two configs trained (the second sets
 # diverse_levels), steps of each, points per training and validation cloud
-# (cut from 140,000), the two held-out shapes denoised (the two of the four
-# with the fewest patches at 140,000 points), the eval noise levels and
-# whether each routes low, and the device-vs-host vote tolerance
+# (cut from 140,000), the held-out shape denoised (of the four, one of the
+# two with the fewest patches at 140,000 points; two until phase 13 came,
+# cut to keep the script's time), the eval noise levels and whether each
+# routes low, and the device-vs-host vote tolerance
 DEPLOY_CONFIGS = ("synthetic_quality_diverse", "synthetic_quality_stable_low")
 DEPLOY_STEPS = 10
 DEPLOY_TRAIN_POINTS = 20000
-DEPLOY_SHAPES = ("cylinder_t", "ellipsoid_t")
+DEPLOY_SHAPES = ("cylinder_t",)
 DEPLOY_LEVELS = ((0.001, True), (0.005, False))
 VOTE_TOL = dict(rtol=1e-5, atol=1e-6)
 CD_RTOL = 1e-5
@@ -304,6 +338,30 @@ BF16_EPOCHS = 3
 BF16_SHAPE = DEPLOY_SHAPES[0]
 BF16_LEVEL = 0.005
 BF16_MODEL_BOUND = dict(max_abs_frac=0.1, min_corr=0.99)
+# aggregations phase: the 15 500-point configs of the other aggregations
+# and the attention operators (width 144, depth 2, B=16), the four trained
+# through the train entry point (AGG_EPOCHS epochs of AGG_STEPS steps) and
+# served on AGG_SHAPE at gaussian sigma AGG_LEVEL, the segmentation config
+# over adaptive weight, the steps timed per config and the two profiled
+AGG_CONFIGS = ("pospool_xyz_avg", "pospool_sincos_avg",
+               "adaptiveweight_dp_fc1_avg", "pointwisemlp_dp_fj_max",
+               "pointwisemlp_dp_fi_df_fc1", "ASCN", "CAA", "CBAM", "CRCR",
+               "DUAT", "NOLO", "OFAT", "POAT", "POTR", "SEAT")
+AGG_TRAINED = ("pospool_sincos_avg", "pointwisemlp_dp_fi_df_fc1", "OFAT",
+               "POTR")
+AGG_STEPS = 10
+AGG_EPOCHS = 2
+AGG_SHAPE = DEPLOY_SHAPES[0]
+AGG_LEVEL = 0.005
+AGG_SEG_CONFIG = "outlier_seg_edf_katz"
+AGG_TIMED_STEPS = 5
+AGG_PROFILED = ("POTR", "CAA")
+PROFILE_STEPS_AGG = 3
+# phase 13(a)'s first paths (agg_paths), and how close the card's float64
+# must come to the CPU's
+AGG_PATHS = ("card", "cpu", "float64")
+AGG_FLOAT64_TOL = 1e-4
+AGG_FLOAT64_VANISH = 1e-9
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # 15k forward, B=8, P=15
 CALLS_15K = [
@@ -550,8 +608,10 @@ def model_loss(cfg):
 
 
 def seeded_model(cfg, device, seed: int = 0):
-    """The config's model with seeded weights; the final Dense and every
-    BatchNorm's running stats get O(1) values, so the output is O(1)."""
+    """The config's model with seeded weights; the final Dense, every
+    BatchNorm's running stats and the attention gates (``gamma``,
+    ``alpha``, zero at init) get O(1) values, so the output is O(1) and no
+    branch vanishes."""
     model = build_model(cfg, seed)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
@@ -570,6 +630,10 @@ def seeded_model(cfg, device, seed: int = 0):
             rng.normal(size=tuple(dense.weight.shape)).astype(np.float32)))
         dense.bias.copy_(torch.from_numpy(
             rng.normal(size=tuple(dense.bias.shape)).astype(np.float32)))
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("gamma", "alpha"):
+                p.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 1.5, size=tuple(p.shape)).astype(np.float32)))
     return model.to(device).eval()
 
 
@@ -976,7 +1040,7 @@ def phase_training(cfg, device, workdir):
         save_off(os.path.join(data_root, split, "sphere.off"),
                  make_icosphere(4))
         save_off(os.path.join(data_root, split, "torus.off"), make_torus())
-    steps_per_epoch, epochs = 20, 2
+    steps_per_epoch, epochs = 10, 2
     argv = ["--config_file", CONFIG, "--data_root", data_root,
             "--log_dir", os.path.join(workdir, "log"),
             "--num_steps", str(steps_per_epoch * int(cfg.batch_size)),
@@ -2409,10 +2473,418 @@ def phase_seg(device, workdir):
     return records, {"training": train_launches, "eval": eval_launches}
 
 
+def to_device(obj, device):
+    """A pyramid (nested named tuples of tensors and floats) on
+    ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        items = [to_device(o, device) for o in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") \
+            else type(obj)(items)
+    return obj
+
+
+def agg_paths(model, pyramid, batch, train: bool, paths=AGG_PATHS):
+    """One forward of ``model`` (on the card, in float32) on ``pyramid``
+    by each of ``paths``, each from its own copy of the model: ``card``
+    and ``cpu`` (float32), ``float64`` (on the card), ``cpu_float64`` and
+    ``cpu_nudged`` (float32 on the CPU with every input feature one
+    float32 ulp up: how far rounding-sized changes move the result).  In
+    train mode the masked L1 loss's gradients of every parameter too.
+    Returns ``{path: (output, [gradients])}``."""
+    cpu = torch.device("cpu")
+    out = {}
+    for path in paths:
+        m, pyr, b = copy.deepcopy(model), pyramid, batch
+        if path.endswith("float64"):
+            m = grad_check.float64_copy(model)
+            b = {k: v.double() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        if path.startswith("cpu"):
+            m, pyr = m.to(cpu), to_device(pyramid, cpu)
+            b = {k: v.to(cpu) for k, v in b.items()}
+            if path == "cpu_nudged":
+                b = dict(b, features=torch.nextafter(
+                    b["features"], torch.tensor(math.inf)))
+        m.train(train)
+        with torch.set_grad_enabled(train):
+            y = m.head(pyr, m.ResNetEncoder_0(pyr, b["features"]))
+            grads = []
+            if train:
+                loss = masked_l1_loss(y, b["offsets"], b["mask"])
+                grads = torch.autograd.grad(loss, list(m.parameters()))
+        out[path] = (y.detach(), [g.detach() for g in grads])
+    return out
+
+
+def _hold_float32(name, names, res, train: bool, samples):
+    """The float32 rule of :func:`check_agg_paths` with each tensor's
+    noise the largest distance from float64 among the paths ``samples``;
+    returns the forward's worst ratio to its limit, the gradients' (ratio,
+    name), the count of zero gradients and the tensors that no sample pins
+    and that the card misses (held to be finite only)."""
+    ref = res["float64"][0]
+    worst, zeros, unpinned = [0.0, (0.0, "")], 0, []
+
+    def hold(what, got, plain, ref, others, distance, floor):
+        noises = [distance(o.to(ref.device), ref) for o in others]
+        limit = max(grad_check.NOISE_FACTOR * max(noises), floor)
+        d = distance(got, plain.to(got.device))
+        if d <= limit:
+            return d / limit
+        spread = max(grad_check.l2_distance(o.to(ref.device), ref)
+                     for o in others)
+        if len(samples) > 1 and spread >= grad_check.FULL_PATH_FLOOR \
+                / grad_check.NOISE_FACTOR:
+            unpinned.append((d, what))
+            return 0.0
+        raise AssertionError(
+            f"{name} ({'train' if train else 'eval'}): {what} on the card "
+            f"{d:.3e} from the CPU's (limit {limit:.3e}; float32 noise "
+            + ", ".join(f"{x:.3e}" for x in noises) + ")")
+
+    got = res["card"][0]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output on the card")
+    for what, distance, floor in (
+            ("output max-abs", grad_check.max_abs_distance,
+             grad_check.SAME_GRAPH_FLOOR),
+            ("output L2", grad_check.l2_distance,
+             grad_check.FULL_PATH_FLOOR)):
+        worst[0] = max(worst[0], hold(
+            what, got, res["cpu"][0], ref, [res[k][0] for k in samples],
+            distance, floor))
+    for i, n in enumerate(names if train else ()):
+        g, r = res["card"][1][i], res["float64"][1][i]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: gradient of {n} is non-finite")
+        if r.abs().max() == 0:
+            if g.abs().max() != 0:
+                raise AssertionError(f"{name}: gradient of {n} is zero in "
+                                     "float64, not on the card")
+            zeros += 1
+            continue
+        ratio = hold(f"gradient of {n}", g, res["cpu"][1][i], r,
+                     [res[k][1][i] for k in samples],
+                     grad_check.l2_distance, grad_check.FULL_PATH_FLOOR)
+        worst[1] = max(worst[1], (ratio, n))
+    return worst[0], worst[1], zeros, unpinned
+
+
+def _hold_float64(name, names, res, train: bool):
+    """The card's float64 forward and gradients against the CPU's: the
+    output within AGG_FLOAT64_TOL of its max-abs; each gradient within
+    AGG_FLOAT64_TOL of its L2 norm, or, where that norm is below
+    AGG_FLOAT64_VANISH of the largest gradient's (zero by construction),
+    the card's below it too.  Returns the largest relative distance."""
+    card, cpu = res["float64"], res["cpu_float64"]
+    worst = grad_check.max_abs_distance(card[0], cpu[0].to(card[0].device))
+    if worst > AGG_FLOAT64_TOL:
+        raise AssertionError(f"{name}: float64 output on the card "
+                             f"{worst:.3e} from the CPU's")
+    if not train:
+        return worst
+    largest = max(float(g.norm()) for g in cpu[1])
+    for n, a, b in zip(names, card[1], cpu[1]):
+        b = b.to(a.device)
+        if float(b.norm()) <= AGG_FLOAT64_VANISH * largest:
+            if float(a.norm()) > AGG_FLOAT64_VANISH * largest:
+                raise AssertionError(f"{name}: float64 gradient of {n} "
+                                     "vanishes on the CPU, not on the card")
+            continue
+        d = grad_check.l2_distance(a, b)
+        worst = max(worst, d)
+        if d > AGG_FLOAT64_TOL:
+            raise AssertionError(f"{name}: float64 gradient of {n} on the "
+                                 f"card {d:.3e} from the CPU's")
+    return worst
+
+
+def check_agg_paths(name, names, res, train: bool, more_paths):
+    """The card held to the CPU.  Float32: the output's max-abs and L2
+    distances from the CPU's (floors SAME_GRAPH_FLOOR, FULL_PATH_FLOOR)
+    and each gradient's relative L2 distance (floor FULL_PATH_FLOOR), each
+    within NOISE_FACTOR times that tensor's float32 noise, the CPU's
+    distance from float64 (``grad_check``'s per-tensor rule); all finite;
+    a gradient exactly zero in float64 (every unit behind a ReLU dead)
+    exactly zero on the card too.  Where one noise sample leaves a tensor
+    over its limit, ``more_paths(("cpu_nudged",))`` adds a second float32
+    sample (each noise is then the larger of the two).  A tensor that the
+    card still misses and that float32 does not pin (a sample misses
+    float64 by at least FULL_PATH_FLOOR / NOISE_FACTOR in relative L2) is
+    float32 noise of an ill-conditioned computation (a softmax over
+    unnormalised channel products, a BatchNorm scale over one channel): it
+    is held to be finite, and then ``more_paths(("cpu_float64",))`` and
+    the card's float64 forward and gradients must equal the CPU's within
+    AGG_FLOAT64_TOL, which shows that the card computes the same function.
+    Returns the forward's and the gradients' worst ratios, the zero count
+    and a note."""
+    try:
+        fwd, grad, zeros, unpinned = _hold_float32(name, names, res, train,
+                                                   ("cpu",))
+        return fwd, grad, zeros, ""
+    except AssertionError as first:
+        print(f"{name}: one float32 noise sample: {first}; taking a "
+              "second", flush=True)
+    res.update(more_paths(("cpu_nudged",)))
+    fwd, grad, zeros, unpinned = _hold_float32(
+        name, names, res, train, ("cpu", "cpu_nudged"))
+    note = " (two float32 noise samples"
+    if unpinned:
+        res.update(more_paths(("cpu_float64",)))
+        d64 = _hold_float64(name, names, res, train)
+        d, what = max(unpinned)
+        note += (f"; {len(unpinned)} tensor(s) that float32 does not pin, "
+                 f"largest {what} at {d:.3e} from the CPU's; float64 "
+                 f"card = CPU within {d64:.3e}")
+    return fwd, grad, zeros, note + ")"
+
+
+def agg_batch(tree):
+    """Phase 13's batch: the first validation batch of phase 9's tree for
+    AGG_CONFIGS[0], which every config of AGG_CONFIGS shares (B, N, patch
+    radius, neighbourhoods)."""
+    cfgs = {n: load_config(os.path.join(ROOT, "cfgs", n + ".yaml"))
+            for n in AGG_CONFIGS}
+    geo = {n: (int(c.width), int(c.depth), int(c.batch_size),
+               int(c.num_points), float(c.in_radius), float(c.radius),
+               list(c.nsamples), list(c.npoints))
+           for n, c in cfgs.items()}
+    if len({str(g) for g in geo.values()}) != 1 \
+            or geo[AGG_CONFIGS[0]][:4] != (144, 2, 16, 500):
+        raise AssertionError(f"phase 13's configs no longer share width "
+                             f"144, depth 2, B=16, N=500: {geo}")
+    return cfgs, val_batch(cfgs[AGG_CONFIGS[0]], tree)
+
+
+def agg_numerics(device, cfgs, batch):
+    """13(a): for each config, the seeded model (O(1) statistics, gates and
+    head) on one real batch: the eval forward, the train forward and the
+    train-mode gradients on the card held to the CPU and float64
+    (:func:`check_agg_paths`), with no KPConv kernel launched."""
+    tensors = {k: torch.as_tensor(batch[k]).to(device)
+               for k in ("points", "mask", "features", "offsets")}
+    launches = grad_check.launches()
+    for name, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        model = seeded_model(cfg, device)
+        names = [n for n, _ in model.named_parameters()]
+        with torch.no_grad():
+            pyramid = model.make_pyramid(tensors["points"], tensors["mask"])
+        line = []
+        for train in (False, True):
+            res = agg_paths(model, pyramid, tensors, train)
+            fwd, (grad, gname), zeros, note = check_agg_paths(
+                name, names, res, train, lambda paths: agg_paths(
+                    model, pyramid, tensors, train, paths))
+            line.append(f"{'train' if train else 'eval'} forward at "
+                        f"{fwd:.3f} of its limit{note}")
+        print(f"{name} ({cfg.local_aggregation_type}"
+              + (f" {cfg.attention.type}" if cfg.local_aggregation_type
+                 == "attention" else "")
+              + f"): {'; '.join(line)}; {len(names)} gradients ({zeros} "
+              f"zero in float64 and on the card), nearest {gname} at "
+              f"{grad:.3f} of its limit; |out| max "
+              f"{res['card'][0].abs().max().item():.3f}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if grad_check.launches() != launches:
+        raise AssertionError("phase 13(a) launched a KPConv kernel")
+
+
+def agg_training(tree, workdir):
+    """13(b): AGG_TRAINED through the train entry point, AGG_EPOCHS epochs
+    of AGG_STEPS steps on phase 9's tree, losses finite, parameters moved,
+    no KPConv launch; then each checkpoint serves AGG_SHAPE (140,000
+    points, gaussian sigma AGG_LEVEL) by host and by device voting, the two
+    within VOTE_TOL (and whether bitwise equal).  Returns
+    {config: points/s by voting}."""
+    serve_root = os.path.join(workdir, "agg_serve")
+    os.makedirs(os.path.join(serve_root, "qualitative_test"))
+    shutil.copy(os.path.join(tree, "qualitative_test", AGG_SHAPE + ".off"),
+                os.path.join(serve_root, "qualitative_test"))
+    log_dir = os.path.join(workdir, "agg_log")
+    pps = {}
+    for name in AGG_TRAINED:
+        path = os.path.join(ROOT, "cfgs", name + ".yaml")
+        cfg = load_config(path)
+        B = int(cfg.batch_size)
+        launches = grad_check.launches()
+        summary = train_cli.main([
+            "--config_file", path, "--data_root", tree, "--log_dir",
+            log_dir, "--num_steps", str(AGG_STEPS * B), "--epochs",
+            str(AGG_EPOCHS), "--val_freq", "1", "--num_points_per_shape",
+            str(DEPLOY_TRAIN_POINTS), "--device", "cuda"])
+        losses = summary["train_losses"] + summary["val_losses"]
+        if summary["steps"] != AGG_STEPS * AGG_EPOCHS \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: {summary['steps']} steps, "
+                                 f"losses {losses}")
+        trainer = summary["trainer"]
+        start = build_model(trainer.cfg, int(cfg.rng_seed)).state_dict()
+        for n, v in trainer.model.state_dict().items():
+            if not n.endswith("num_batches_tracked") \
+                    and torch.equal(v.cpu(), start[n]):
+                raise AssertionError(f"{name}: training left {n} unchanged")
+        print(f"{name}: {summary['steps']} steps, val batches "
+              f"{summary['val_batches']}; train loss first {losses[0]:.6f} "
+              f"last {summary['train_losses'][-1]:.6f}; val loss "
+              f"{summary['val_losses']}; ms per step by epoch (host clock, "
+              "data loading included) " + ", ".join(
+                  f"{ms:.3f}" for ms in summary["ms_per_step"]), flush=True)
+        runs = {}
+        for voting in ("host", "device"):
+            argv = ["--config_file", path, "--data_root", serve_root,
+                    "--out_dir", os.path.join(workdir, f"agg_out_{name}_"
+                                              f"{voting}"),
+                    "--checkpoint", summary["checkpoint"],
+                    "--checkpoint_low", "none", "--noise_type", "gaussian",
+                    "--noise_level", str(AGG_LEVEL), "--device", "cuda"]
+            if voting == "device":
+                argv.append("--device_voting")
+            runs[voting] = infer.main(argv)
+            res = runs[voting]["results"][0]
+            if not np.isfinite(res["offsets"]).all():
+                raise AssertionError(f"{name} {voting} voting: non-finite "
+                                     "offsets")
+            n_points = len(runs[voting]["dataset"].shapes[0].points)
+            pps.setdefault(name, {})[voting] = \
+                n_points / runs[voting]["seconds"]
+        worst = check_votes(runs["device"], runs["host"], name)
+        same = all(np.array_equal(a["offsets"], b["offsets"]) for a, b in
+                   zip(runs["device"]["results"], runs["host"]["results"]))
+        if grad_check.launches() != launches:
+            raise AssertionError(f"{name} launched a KPConv kernel")
+        print(f"{name} serving {AGG_SHAPE} ({n_points} points, "
+              f"{len(runs['host']['dataset'])} patches): host voting "
+              f"{pps[name]['host']:.1f} points/s, device voting "
+              f"{pps[name]['device']:.1f} points/s; device vs host offsets "
+              f"max abs diff {worst:.3e} (bitwise equal: {same})",
+              flush=True)
+    return pps
+
+
+def agg_segmentation(scans, workdir):
+    """13(c): AGG_SEG_CONFIG through ``train_outlier_seg`` (STEPS_SEG steps
+    on phase 12's stand-in scans, ``--dataset_type EDFS``: the config names
+    no split layout) and ``evaluate_outlier_seg`` on the cut
+    held-out scans with its checkpoint: losses finite, every point
+    counted, probabilities finite, no KPConv launch."""
+    path = os.path.join(ROOT, "cfgs", AGG_SEG_CONFIG + ".yaml")
+    cfg = load_config(path, {"DEBUG": 1})
+    if (cfg.local_aggregation_type, list(cfg.features), int(cfg.width),
+            int(cfg.num_points)) != ("adaptive_weight",
+                                     ["intensity", "katz_1"], 144, 15000):
+        raise AssertionError(f"{AGG_SEG_CONFIG} is no longer adaptive "
+                             "weight over intensity and katz_1 at width "
+                             "144 and 15,000 slots")
+    launches = grad_check.launches()
+    B = int(cfg.batch_size)
+    summary = train_outlier_seg.main([
+        "--config_file", path, "--data_root", scans, "--log_dir",
+        os.path.join(workdir, "agg_seg_log"), "--num_steps",
+        str(STEPS_SEG * B), "--epochs", "1", "--val_freq", "1", "--DEBUG",
+        "1", "--dataset_type", "EDFS", "--device", "cuda"])
+    losses = summary["train_losses"] + summary["val_losses"]
+    if summary["steps"] != STEPS_SEG or not np.isfinite(losses).all():
+        raise AssertionError(f"{AGG_SEG_CONFIG}: {summary['steps']} steps, "
+                             f"losses {losses}")
+    print(f"{AGG_SEG_CONFIG}: {summary['steps']} steps, val batches "
+          f"{summary['val_batches']}; train losses " + ", ".join(
+              f"{v:.6f}" for v in summary["train_losses"])
+          + f"; val loss {summary['val_losses']}; ms per step (host clock, "
+          f"data loading and the first step included) "
+          f"{summary['ms_per_step'][0]:.3f}", flush=True)
+    out = evaluate_outlier_seg.main([
+        "--config_file", path, "--data_root", scans, "--load_path",
+        summary["checkpoint"], "--DEBUG", "1", "--dataset_type", "EDFS",
+        "--write_dir", os.path.join(workdir, "agg_seg_eval"), "--device",
+        "cuda"])
+    ds = out["dataset"]
+    points = sum(len(p) for p in ds.clouds_points)
+    counted = sum(out["metrics"][k] for k in ("TN", "FP", "FN", "TP"))
+    if counted != points or out["batches"] != -(-len(ds) // B):
+        raise AssertionError(f"evaluation: {counted} points counted of "
+                             f"{points}, {out['batches']} batches")
+    for n in ds.cloud_names:
+        ply = read_ply(os.path.join(workdir, "agg_seg_eval",
+                                    f"{n}_eval.ply"))
+        if not np.isfinite(ply["proba"]).all():
+            raise AssertionError("evaluation: non-finite probability")
+    if grad_check.launches() != launches:
+        raise AssertionError(f"{AGG_SEG_CONFIG} launched a KPConv kernel")
+    print(f"{AGG_SEG_CONFIG} evaluation: {ds.cloud_names}, {points} "
+          f"points, {len(ds)} patches, {out['batches']} batches, "
+          f"{out['seconds']:.3f} s, {points / out['seconds']:.1f} points/s;"
+          f" metrics " + json.dumps(out["metrics"]), flush=True)
+
+
+def agg_timing(device, cfgs, batch, smi: str):
+    """13(d): per config a Trainer from its seeded init on the batch:
+    synchronised wall ms per train step (CUDA events over AGG_TIMED_STEPS
+    steps after two) and the peak memory allocated in them (weights, Adam
+    state and batch included); for AGG_PROFILED one profiler window of
+    PROFILE_STEPS_AGG steps: device ms per step and busy share."""
+    tensors = {k: torch.as_tensor(batch[k]).to(device)
+               for k in ("points", "mask", "features", "offsets")}
+    print(f"phase 13 train steps, B=16, N=500, width 144, on {smi}:")
+    for name, cfg in cfgs.items():
+        trainer = Trainer(cfg, AGG_STEPS,
+                          torch.Generator().manual_seed(int(cfg.rng_seed)),
+                          device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: trainer.train_step(tensors), AGG_TIMED_STEPS,
+                     warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        line = (f"  {name}: {ms:.3f} ms per train step (wall, synchronised)"
+                f", peak memory {peak:.3f} GiB")
+        if name in AGG_PROFILED:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILE_STEPS_AGG):
+                    trainer.train_step(tensors)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = window_summary(f"{name} train step under the profiler",
+                                 prof, wall, PROFILE_STEPS_AGG)
+            line += "; profiler: " + (
+                "not measured" if got is None else
+                f"device {got[0]:.3f} ms per step, busy share {got[1]:.3f}")
+        print(line, flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def phase_aggregations(device, workdir, tree, scans, smi: str):
+    """Phase 13, the other aggregations and the attention operators:
+    (a) numerics of the 15 500-point configs, (b) four of them trained and
+    served through the entry points, (c) ``outlier_seg_edf_katz`` trained
+    and evaluated, (d) ms per train step, peak memory and two profiler
+    windows.  No KPConv kernel runs on these paths."""
+    cfgs, batch = agg_batch(tree)
+    t0 = time.perf_counter()
+    agg_numerics(device, cfgs, batch)
+    print(f"13(a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pps = agg_training(tree, workdir)
+    print(f"13(b): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    agg_segmentation(scans, workdir)
+    print(f"13(c): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    agg_timing(device, cfgs, batch, smi)
+    print(f"13(d): {time.perf_counter() - t0:.1f} s; serving points/s "
+          + json.dumps({n: {k: round(v, 1) for k, v in d.items()}
+                        for n, d in pps.items()}), flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only-kernels"]):
-        print("usage: chip_smoke.py [--only-kernels]", file=sys.stderr)
+    if argv not in ([], ["--only-kernels"], ["--only-aggregations"]):
+        print("usage: chip_smoke.py [--only-kernels | --only-aggregations]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2437,6 +2909,18 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print("  " + line.strip())
+    if argv == ["--only-aggregations"]:
+        # phase 13 alone, on a tree and scans of its own
+        with tempfile.TemporaryDirectory() as workdir, \
+                phase("aggregations"):
+            tree = os.path.join(workdir, "shapes")
+            make_synthetic_dataset.write_tree(tree, verbose=False)
+            scans = os.path.join(workdir, "scans")
+            make_scans(scans, n=SEG_POINTS, diameter=1.0, write=SEG_SCANS,
+                       cut=SEG_HELD_OUT, corner=SEG_CORNER)
+            phase_aggregations(device, workdir, tree, scans, smi)
+        print(smi)
+        return 0
     with phase("kernel vs plain"):
         record = phase_kernels(cfg, device)
     if argv:  # the kernels' phases alone, for comparing checkouts
@@ -2459,19 +2943,23 @@ def main(argv=None) -> int:
         phase_model_grad(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("training"):
         train_fwd, train_bwd = phase_training(cfg, device, workdir)
-    with tempfile.TemporaryDirectory() as workdir:
+    with tempfile.TemporaryDirectory() as deploy_dir, \
+            tempfile.TemporaryDirectory() as seg_dir:
+        tree = os.path.join(deploy_dir, "shapes")
         with phase("deployment"):
-            deploy_fwd, deploy_bwd = phase_deployment(cfg, workdir)
+            deploy_fwd, deploy_bwd = phase_deployment(cfg, deploy_dir)
         with phase("bf16"):  # on the deployment phase's shape tree
-            bf16_records, path_bf16 = phase_bf16(
-                device, workdir, os.path.join(workdir, "shapes"))
+            bf16_records, path_bf16 = phase_bf16(device, deploy_dir, tree)
         with phase("cleaning"):  # on the deployment phase's shape tree
-            cleaning = phase_cleaning(cfg, workdir)
-    with tempfile.TemporaryDirectory() as workdir, phase("15k family"):
-        records_15k, path_15k = phase_15k(device, workdir)
-    with tempfile.TemporaryDirectory() as workdir, \
-            phase("outlier segmentation"):
-        records_seg, path_seg = phase_seg(device, workdir)
+            cleaning = phase_cleaning(cfg, deploy_dir)
+        with tempfile.TemporaryDirectory() as workdir, phase("15k family"):
+            records_15k, path_15k = phase_15k(device, workdir)
+        with phase("outlier segmentation"):
+            records_seg, path_seg = phase_seg(device, seg_dir)
+        # on phase 9's shape tree and phase 12's scans
+        with phase("aggregations"):
+            phase_aggregations(device, seg_dir, tree,
+                               os.path.join(seg_dir, "scans"), smi)
     # launches: this slice's path (outlier segmentation's training and
     # evaluation); every path's in the detail
     record.update(

@@ -11,6 +11,7 @@ Flax                          torch
 BatchNorm ``scale``/``bias``  ``weight``/``bias``
 BatchNorm ``mean``/``var``    ``running_mean``/``running_var``
 PseudoGrid ``kernel_weights``  as is, (P, C)
+attention ``gamma``/``alpha``  as is, (1,)
 ============================  ======================================
 
 BatchNorm's ``num_batches_tracked`` has no Flax counterpart and is set to
@@ -28,6 +29,11 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+
+# parameters that keep their Flax name and layout: PseudoGrid's kernel
+# weights and the attention operators' scalar gates
+_AS_IS = ("kernel_weights", "gamma", "alpha")
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -67,8 +73,8 @@ def params_from_flax(variables: Mapping[str, Any],
                     and owner.startswith("BatchNorm_") \
                     and leaf in ("mean", "var"):
                 name = "running_" + leaf
-            elif collection == "params" and leaf == "kernel_weights":
-                base, name = ".".join(mods), "kernel_weights"
+            elif collection == "params" and leaf in _AS_IS:
+                name = leaf
             else:
                 raise KeyError(f"no torch counterpart for Flax leaf "
                                f"{collection}/{'/'.join(path)}")
@@ -141,7 +147,7 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor]
             coll, leaf = "params", "scale" if name == "weight" else "bias"
         elif owner.startswith("BatchNorm_") and name.startswith("running_"):
             coll, leaf = "batch_stats", name[len("running_"):]
-        elif name == "kernel_weights":
+        elif name in _AS_IS:
             coll, leaf = "params", name
         else:
             raise KeyError(f"no Flax counterpart for {key}")

@@ -63,6 +63,16 @@ def he_normal_(weight: torch.Tensor, fan_in: int,
                                  generator=generator)
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """jax.nn.initializers.lecun_normal (Flax's default ``Dense`` kernel):
+    he_normal's truncated normal at half its variance."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
 def linear(in_features: int, out_features: int, bias: bool,
            generator: Optional[torch.Generator] = None) -> nn.Linear:
     """``nn.Linear`` with its default initialisation drawn from
@@ -74,6 +84,20 @@ def linear(in_features: int, out_features: int, bias: bool,
     if bias:
         bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 0.0
         nn.init.uniform_(layer.bias, -bound, bound, generator=generator)
+    return layer
+
+
+def dense(in_features: int, out_features: int, bias: bool = True,
+          generator: Optional[torch.Generator] = None,
+          init: str = "lecun") -> nn.Linear:
+    """A Flax ``nn.Dense``: kernel ``lecun_normal`` (Flax's default) or
+    ``he_normal``, bias zero.  Drawn after :func:`linear`'s defaults, as
+    every ``Linear`` of the port is."""
+    layer = linear(in_features, out_features, bias, generator)
+    init_ = {"lecun": lecun_normal_, "he": he_normal_}[init]
+    init_(layer.weight, in_features, generator)
+    if bias:
+        nn.init.zeros_(layer.bias)
     return layer
 
 

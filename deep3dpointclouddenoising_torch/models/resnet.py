@@ -44,15 +44,16 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
                  cfg: Config, strided: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 num_queries: Optional[int] = None):
         super().__init__()
         mid = out_channels // int(cfg.bottleneck_ratio)
         dt = compute_dtype(cfg)
         self.strided = strided
         self.ConvBN_0 = ConvBN(in_channels, mid, cfg.bn_momentum,
                                generator=generator, dtype=dt)
-        self.LocalAggregation_0 = LocalAggregation(mid, mid, radius, cfg,
-                                                   generator)
+        self.LocalAggregation_0 = LocalAggregation(
+            mid, mid, radius, cfg, generator, num_queries)
         self.ConvBN_1 = ConvBN(mid, out_channels, cfg.bn_momentum,
                                relu=False, generator=generator, dtype=dt)
         if in_channels != out_channels:
@@ -110,20 +111,24 @@ class ResNetEncoder(nn.Module):
         in_dim = int(cfg.input_features_dim)
         self.depth = depth
         self.remat = bool(int(cfg.remat))
+        # each level's query slots (level 0 holds the input's points)
+        slots = [int(cfg.num_points)] + [int(n) for n in cfg.npoints]
         self.ConvBN_0 = ConvBN(in_dim, width // 2, cfg.bn_momentum,
                                generator=generator, dtype=compute_dtype(cfg))
-        self.LocalAggregation_0 = LocalAggregation(width // 2, width // 2,
-                                                   r0, cfg, generator)
+        self.LocalAggregation_0 = LocalAggregation(
+            width // 2, width // 2, r0, cfg, generator, slots[0])
         blocks = [Bottleneck(width // 2, width, r0, cfg,
-                             generator=generator)]
+                             generator=generator, num_queries=slots[0])]
         ch = width
         for i in range(1, len(cfg.npoints) + 1):
             blocks.append(Bottleneck(ch, ch * 2, r0 * (2.0 ** (i - 1)), cfg,
-                                     strided=True, generator=generator))
+                                     strided=True, generator=generator,
+                                     num_queries=slots[i]))
             ch *= 2
             for _ in range(depth - 1):
                 blocks.append(Bottleneck(ch, ch, r0 * (2.0 ** i), cfg,
-                                         generator=generator))
+                                         generator=generator,
+                                         num_queries=slots[i]))
         self.num_blocks = len(blocks)
         for n, block in enumerate(blocks):
             self.add_module(f"Bottleneck_{n}", block)

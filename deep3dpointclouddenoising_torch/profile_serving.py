@@ -60,11 +60,14 @@ def _device_events(prof):
     return out
 
 
-def _summary(label: str, prof, wall_s: float, steps: int) -> None:
+def window_summary(label: str, prof, wall_s: float, steps: int):
+    """Print a profiler window's wall and device ms per step, busy share
+    and device time by kernel; returns ``(device ms per step, busy
+    share)``, or ``None`` when the profiler saw no device time."""
     events = _device_events(prof)
     if not events:
         print(f"{label}: the profiler saw no device time: not measured")
-        return
+        return None
     busy_us = sum(us for _, us in events)
     print(f"{label}: wall {wall_s / steps * 1e3:.3f} ms per step, device "
           f"{busy_us / steps / 1e3:.3f} ms per step, busy share "
@@ -76,6 +79,7 @@ def _summary(label: str, prof, wall_s: float, steps: int) -> None:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / steps / 1e3:9.4f} ms/step  {us / busy_us:6.3f}  "
               f"{name[:90]}")
+    return busy_us / steps / 1e3, busy_us / 1e6 / wall_s
 
 
 def _per_call(prof, kernel: str, steps: int, calls: int = 10) -> None:
@@ -136,7 +140,7 @@ def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _summary("train step under the profiler", prof, wall, steps)
+    window_summary("train step under the profiler", prof, wall, steps)
     _per_call(prof, "kpconv_fwd_kernel", steps)
     for kernel in ("kpconv_bwd_invert", "kpconv_bwd_kernel",
                    "kpconv_bwd_reduce"):  # the training path's backward
@@ -187,7 +191,7 @@ def main() -> None:
                 model(xyz, mask, xyz)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _summary("forward under the profiler", prof, wall, steps)
+        window_summary("forward under the profiler", prof, wall, steps)
         _per_call(prof, "kpconv_fwd_kernel", steps)
 
         # host-side cost of one wrapper call, from the stem's inputs
@@ -228,8 +232,8 @@ def main() -> None:
             infer.predict_offsets_voting(predict, dataset, 16)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _summary(f"voting loop ({window} batches of 16 patches)", prof, wall,
-                 window)
+        window_summary(f"voting loop ({window} batches of 16 patches)",
+                       prof, wall, window)
 
 
 if __name__ == "__main__":

@@ -752,3 +752,46 @@ def test_bf16_kpconv_kernels_edges_match_plain(card, case):
     _assert_bf16_close(got_b[0], want_b[0],
                        1e-5 * want_b[0].abs().max().item())
     _assert_grad_close(got_b[1], want_b[1], 3e-4, 1e-5)
+
+
+# -- the other aggregations and the attention operators -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["POTR", "CAA"])
+def test_attention_train_steps_are_bitwise_reproducible(card, name):
+    """Two train steps of ``cfgs/POTR.yaml`` (point-transformer) and
+    ``cfgs/CAA.yaml`` (channel affinity attention) at width 144, B=16,
+    N=500, twice from the same weights on the same patch-like batch: the
+    losses, every gradient, parameter and BatchNorm buffer bitwise equal.
+    The neighbour gathers' backward (advanced indexing) sorts its indices
+    and adds in order; the attention's matmuls, softmaxes and BatchNorms
+    reduce in a fixed order.  A failure names the first tensor, in the
+    model's order, that differs."""
+    from deep3dpointclouddenoising_torch.train.trainer import Trainer
+    cfg = load_config(os.path.join(os.path.dirname(L1_YAML),
+                                   name + ".yaml"))
+    assert (int(cfg.width), int(cfg.batch_size), int(cfg.num_points),
+            cfg.local_aggregation_type) == (144, 16, 500, "attention")
+    rng = np.random.default_rng(43)
+    xyz = rng.normal(size=(16, 500, 3))
+    xyz = cfg.in_radius * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+    xyz = (xyz * rng.random((16, 500, 1))).astype(np.float32)
+    mask = np.ones((16, 500), np.float32)
+    mask[-1, -50:] = 0.0
+    xyz[-1, -50:] = xyz[-1, :50]
+    batch = {"points": xyz, "mask": mask, "features": xyz.copy(),
+             "offsets": (rng.normal(size=(16, 500, 3)) * 0.01).astype(
+                 np.float32)}
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(cfg, 1, torch.Generator().manual_seed(0), card)
+        losses = [trainer.train_step(batch).item() for _ in range(2)]
+        state = {n: p.grad.clone() for n, p in
+                 trainer.model.named_parameters()}
+        state.update({n + " (after)": t.detach().clone() for n, t in
+                      trainer.model.state_dict().items()})
+        runs.append((losses, state))
+    assert runs[0][0] == runs[1][0], f"losses {runs[0][0]} {runs[1][0]}"
+    differ = [n for n, t in runs[0][1].items()
+              if not torch.equal(t, runs[1][1][n])]
+    assert not differ, f"{len(differ)} tensors differ, first {differ[0]}"

@@ -162,9 +162,11 @@ def test_kernel_points_match_jax(models):
 
 
 def test_unported_options_raise():
+    # every aggregation of the JAX package is ported
+    # (tests/test_torch_aggregation.py); an unknown one raises
     cfg = small_config(default_config())
-    cfg.local_aggregation_type = "pospool"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    cfg.local_aggregation_type = "deformable_kpconv"
+    with pytest.raises(NotImplementedError, match="deformable_kpconv"):
         OffsetRegressionModel(cfg)
     # bfloat16 is ported (tests/test_torch_bf16.py); another compute
     # dtype raises
