@@ -6,7 +6,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It imports the port, torch, numpy and scipy only, and goes through
-fourteen phases (phase 9b after 9), each printed with its wall time:
+fifteen phases (phase 9b after 9), each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``deep3dpointclouddenoising_torch/csrc``, one
@@ -159,6 +159,27 @@ fourteen phases (phase 9b after 9), each printed with its wall time:
    and one profiler window each for AGG_PROFILED (device ms per step,
    busy share), printed beside the card's name and power limit, with
    (b)'s points/s.
+14. GAN fine-tuning and discriminator pre-training (this slice's path),
+   on phase 9's shape tree with phase 9's ``synthetic_quality_diverse``
+   checkpoint as the generator (the deployed recipe), width 144, B=16,
+   N=500: (a) the backward kernel's d_rel (``kpconv_bwd_drel``) at the ten
+   flagship shapes and at the discriminator's ten calls on the pyramid of
+   a real batch denoised by that generator: d_rel, d_features and
+   d_kernel_weights bitwise equal over two calls and within the
+   backward's tolerances of plain, and the whole discriminator's gradient
+   in its input points, kernel against plain, by ``grad_check``'s rule,
+   with 3 d_rel launches; (b) ``train_discriminator`` on
+   ``cfgs/synthetic_quality_disc.yaml``, DISC_EPOCHS epochs of GAN_STEPS
+   steps, the validation accuracy printed; (c) ``train_gan`` on
+   ``cfgs/synthetic_quality_gan_tuned.yaml`` from (b)'s discriminator and
+   phase 9's generator, GAN_EPOCHS epochs of GAN_STEPS updates unbroken,
+   and killed one update into its last epoch and run again with
+   ``--auto_resume``: both blocks bitwise equal to the unbroken run's,
+   GAN_UPDATE_LAUNCHES (forward, backward, d_rel) per update; (d) a
+   profiler window of GAN updates (device ms per update, busy share,
+   kernels per update, ``kpconv_bwd_drel``'s ms); (e) GAN_SHAPE served
+   with the fine-tuned generator through the inference entry point, then
+   ``compute_cd``.
 
 9b. bf16 (this slice's path), after phase 9 and on its shape tree:
    ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
@@ -193,7 +214,10 @@ The line before the last is a JSON object of the kernels; the last line is
 exits non-zero and prints no result; so it does without a card.
 
 ``python3 chip_smoke.py --only-aggregations`` runs phases 1, 2 and 13 alone
-(on a shape tree and scans of its own) and prints no result.
+(on a shape tree and scans of its own) and prints no result;
+``--only-gan`` runs phases 1, 2 and 14 alone (on a shape tree of its own,
+with a generator trained as phase 9 trains it) and prints the d_rel
+kernel's record, not the result.
 
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
 15k stem call on random neighbourhoods) and prints the kernels' JSON
@@ -220,7 +244,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from deep3dpointclouddenoising_torch import compute_cd, \
     evaluate_outlier_seg, infer, make_synthetic_dataset, \
-    measure_performance, train_full_cleaning, train_outlier_seg
+    measure_performance, train_discriminator, train_full_cleaning, \
+    train_gan, train_outlier_seg
 from deep3dpointclouddenoising_torch.config import load_config
 from deep3dpointclouddenoising_torch.data.loader import BatchLoader
 from deep3dpointclouddenoising_torch.data.meshio import read_ply, save_off
@@ -239,17 +264,19 @@ from deep3dpointclouddenoising_torch.losses.masked import (
     masked_cross_entropy, masked_l1_loss)
 from deep3dpointclouddenoising_torch.models import local_aggregation
 from deep3dpointclouddenoising_torch.models.build import (
-    build_offset_regression, build_scene_segmentation)
+    build_discriminator, build_offset_regression, build_scene_segmentation)
 from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
 from deep3dpointclouddenoising_torch.models.layers import set_compute_dtype
 from deep3dpointclouddenoising_torch.ops import _cuda
+from deep3dpointclouddenoising_torch.ops import kpconv as kpconv_ops
 from deep3dpointclouddenoising_torch.ops.kpconv import (
     invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
 from deep3dpointclouddenoising_torch.profile_serving import \
-    profile_train_steps, window_summary
+    _device_events, profile_train_steps, window_summary
 from deep3dpointclouddenoising_torch.train import __main__ as train_cli
+from deep3dpointclouddenoising_torch.train.gan import GANTrainer
 from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
 
@@ -362,6 +389,26 @@ PROFILE_STEPS_AGG = 3
 AGG_PATHS = ("card", "cpu", "float64")
 AGG_FLOAT64_TOL = 1e-4
 AGG_FLOAT64_VANISH = 1e-9
+# GAN phase: the pre-training and fine-tuning configs (width 144, B=16,
+# N=500), the epochs of each (GAN_STEPS steps each, on clouds of
+# DEPLOY_TRAIN_POINTS points of phase 9's tree; the configs ask for 20
+# epochs of 125), the GAN run killed one update into its last epoch and
+# resumed, the updates of the profiler window, the held-out shape served
+# and its noise, and the discriminator's calls that the G-step
+# differentiates in rel (their support set is the input points)
+DISC_CONFIG = "synthetic_quality_disc"
+GAN_CONFIG = "synthetic_quality_gan_tuned"
+GAN_STEPS = 5
+GAN_EPOCHS = 2
+DISC_EPOCHS = 2
+PROFILE_UPDATES = 3
+GAN_SHAPE = DEPLOY_SHAPES[0]
+GAN_LEVEL = 0.005
+GAN_DREL_CALLS = ("stem LA", "Bottleneck_0", "T1 strided")
+# launches of one GAN update (forward, backward, d_rel): the generator
+# forward of the D-step, the discriminator's train step, the generator's
+# forward and backward through the eval discriminator
+GAN_UPDATE_LAUNCHES = (40, 30, 3)
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # 15k forward, B=8, P=15
 CALLS_15K = [
@@ -607,13 +654,8 @@ def model_loss(cfg):
     return "offsets", masked_l1_loss
 
 
-def seeded_model(cfg, device, seed: int = 0):
-    """The config's model with seeded weights; the final Dense, every
-    BatchNorm's running stats and the attention gates (``gamma``,
-    ``alpha``, zero at init) get O(1) values, so the output is O(1) and no
-    branch vanishes."""
-    model = build_model(cfg, seed)
-    rng = np.random.default_rng(seed)
+def o1_running_stats(model, rng) -> None:
+    """Every BatchNorm's running statistics drawn at O(1) from ``rng``."""
     with torch.no_grad():
         for name, buf in model.named_buffers():
             if name.endswith("running_mean"):
@@ -623,6 +665,17 @@ def seeded_model(cfg, device, seed: int = 0):
                 buf.copy_(torch.from_numpy(
                     rng.uniform(0.5, 2.0, size=buf.shape).astype(
                         np.float32)))
+
+
+def seeded_model(cfg, device, seed: int = 0):
+    """The config's model with seeded weights; the final Dense, every
+    BatchNorm's running stats and the attention gates (``gamma``,
+    ``alpha``, zero at init) get O(1) values, so the output is O(1) and no
+    branch vanishes."""
+    model = build_model(cfg, seed)
+    rng = np.random.default_rng(seed)
+    o1_running_stats(model, rng)
+    with torch.no_grad():
         dense = model.get_submodule(
             [n for n, _ in model.named_modules()
              if n.endswith("MultiDimHead_0.Dense_0")][0])
@@ -941,7 +994,8 @@ def phase_backward(cfg, device):
                         "kpconv_bwd_reduce once (the reduction only when "
                         "d_kernel_weights is needed), and ms times all "
                         "three; kpconv_bwd_drel only when d_rel is asked "
-                        "for, which training does not",
+                        "for, which only the GAN's G-step does (its own "
+                        "record, kpconv_bwd_drel)",
     }
 
 
@@ -2880,11 +2934,480 @@ def phase_aggregations(device, workdir, tree, scans, smi: str):
                         for n, d in pps.items()}), flush=True)
 
 
+def kpconv_drel_bound(B, M, N, K, C, P, live):
+    """Least times (ms) for d_rel alone: features, indices, relative
+    positions, masks, kernel points and weights and the upstream gradient
+    read once, d_rel written once; float32 operations: 2 per (b, m, p, c)
+    for q = kw * g, 2 per (live edge, p, c) for each edge's contraction
+    sum_c q[p,c] feat[idx,c], and 20 per (live edge, p) for the influence
+    slope and the 3-vector.  A masked edge costs nothing."""
+    nbytes = 4 * (B * N * C + B * M * C + B * M * K * 5 + P * 3 + P * C
+                  + B * M * K * 3)
+    flops = 2 * B * M * P * C + 2 * live * P * C + 20 * live * P
+    return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+
+
+def seeded_discriminator(cfg, device, seed: int = 0):
+    """The discriminator with seeded weights and O(1) BatchNorm running
+    statistics, in eval mode."""
+    model = build_discriminator(cfg, torch.Generator().manual_seed(seed))
+    o1_running_stats(model, np.random.default_rng(seed))
+    return model.to(device).eval()
+
+
+def denoised_batch(cfg, device, tree, gen_ckpt):
+    """Phase 9's first validation batch denoised by phase 9's generator
+    (eval mode): the discriminator's input in a G-step."""
+    batch = val_batch(cfg, tree)
+    gen = infer.load_model(cfg, device, gen_ckpt)
+    pts, mask, feats = (torch.as_tensor(batch[k]).to(device)
+                        for k in ("points", "mask", "features"))
+    with torch.no_grad():
+        den = (pts + gen(pts, mask, feats)).cpu().numpy()
+    return {"points": den, "mask": batch["mask"], "features": den.copy()}
+
+
+def disc_input_gradient(disc, batch, device):
+    """The eval discriminator's gradient in its input points (the
+    G-step's: through the features and the level-0 rel) four ways, as
+    ``grad_check.model_gradients`` takes a parameter's, and held by
+    ``grad_check.check_model_gradients``; returns its worst comparisons
+    and the kernel path's (forward, backward, d_rel) launches."""
+    pts, mask = (torch.as_tensor(batch[k]).to(device)
+                 for k in ("points", "mask"))
+    w = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(len(pts), 1)).astype(np.float32)).to(device)
+
+    def grad(model, dtype):
+        x = pts.to(dtype).requires_grad_(True)
+        score = torch.sum(model(x, mask.to(dtype), x) * w.to(dtype))
+        return score, x
+
+    counts = (kpconv_aggregate.launches, kpconv_aggregate_backward.launches,
+              kpconv_aggregate_backward.launches_drel)
+    score, x = grad(disc, torch.float32)
+    kernel = torch.autograd.grad(score, x, retain_graph=True)
+    torch.cuda.synchronize()
+    counts = (kpconv_aggregate.launches - counts[0],
+              kpconv_aggregate_backward.launches - counts[1],
+              kpconv_aggregate_backward.launches_drel - counts[2])
+    backward = kpconv_aggregate_backward
+    kpconv_ops.kpconv_aggregate_backward = kpconv_aggregate_backward_plain
+    try:
+        same_graph = torch.autograd.grad(score, x)
+    finally:
+        kpconv_ops.kpconv_aggregate_backward = backward
+    local_aggregation.kpconv_aggregate = kpconv_aggregate_plain
+    try:
+        score, x = grad(disc, torch.float32)
+        plain = torch.autograd.grad(score, x)
+        score, x = grad(grad_check.float64_copy(disc), torch.float64)
+        float64 = torch.autograd.grad(score, x)
+    finally:
+        local_aggregation.kpconv_aggregate = kpconv_aggregate
+    worst = grad_check.check_model_gradients(dict(
+        names=["input points"], kernel=kernel, same_graph=same_graph,
+        plain=plain, float64=float64))
+    return worst, counts
+
+
+def phase_gan_kernels(cfg, device, batch):
+    """(a) The backward kernel with d_rel (``kpconv_bwd_drel``) at the ten
+    flagship shapes (random neighbourhoods) and at the discriminator's ten
+    calls on the pyramid of ``batch`` (denoised points): d_rel, d_features
+    and d_kernel_weights bitwise equal over two calls and within
+    BWD_RTOL / BWD_ATOL_FRAC of plain, d_rel alone equal to d_rel with the
+    others; times of the three GAN_DREL_CALLS on the real pyramid (the
+    call with and without d_rel, d_rel alone, its plain version, its
+    device time and bound); then the whole discriminator's gradient in its
+    input points by grad_check's rule.  Returns the d_rel kernel's record,
+    less launches."""
+    rng = np.random.default_rng(12)
+    B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
+    r0 = float(cfg.radius)
+    rows = []
+    for name, M, N, K, C, mult in FLAGSHIP_CALLS:
+        args, extent = kpconv_inputs(rng, B, M, N, K, C, P, r0 * mult,
+                                     device)
+        rows.append(("random " + name, M, N, K, C, args, extent))
+    for name, M, N, K, C, mult, idx, rel, fmask in pyramid_calls(
+            cfg, device, batch):
+        extent = 2.0 * r0 * mult / 5.0
+        kp = torch.from_numpy(create_kernel_points(1.5 * extent, P)).to(
+            device)
+        feat, kw = (torch.from_numpy(a.astype(np.float32)).to(device)
+                    for a in (rng.normal(size=(B, N, C)),
+                              rng.normal(size=(P, C)) * math.sqrt(2.0 / C)))
+        rows.append((name, M, N, K, C, (feat, idx, rel, fmask, kp, kw),
+                     extent))
+    worst_abs = 0.0
+    sums = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+    timed = []
+    print("call M N K C | d_feat d_kw d_rel max_abs | with d_rel ms, "
+          "without ms, d_rel alone ms, its plain ms, bound ms bound_by")
+    for name, M, N, K, C, args, extent in rows:
+        g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(
+            np.float32)).to(device)
+        first = kpconv_aggregate_backward(*args, g, extent, "linear",
+                                          need_rel=True)
+        second = kpconv_aggregate_backward(*args, g, extent, "linear",
+                                           need_rel=True)
+        alone = kpconv_aggregate_backward(
+            *args, g, extent, "linear", need_features=False,
+            need_kernel_weights=False, need_rel=True)
+        torch.cuda.synchronize()
+        want = kpconv_aggregate_backward_plain(*args, g, extent, "linear",
+                                               need_rel=True)
+        for what, a, b in zip(("d_feat", "d_kw", "d_rel"), first, second):
+            if not torch.equal(a, b):
+                raise AssertionError(f"d_rel variant {name}: {what} differs "
+                                     "between two calls")
+        if not torch.equal(alone[2], first[2]) or alone[0] is not None:
+            raise AssertionError(f"d_rel alone {name}: not the d_rel of "
+                                 "the full call")
+        errs = [check_grad_close(a, b, f"d_rel variant {name} {what}")
+                for a, b, what in zip(first, want,
+                                      ("d_feat", "d_kw", "d_rel"))]
+        worst_abs = max(worst_abs, *errs)
+        line = (f"{name} {M} {N} {K} {C} | {errs[0]:.3e} {errs[1]:.3e} "
+                f"{errs[2]:.3e}")
+        if not name.startswith("random ") and name in GAN_DREL_CALLS \
+                or name == "random stem LA":
+            full = cuda_ms(lambda: kpconv_aggregate_backward(
+                *args, g, extent, "linear", need_rel=True), 20)
+            base = cuda_ms(lambda: kpconv_aggregate_backward(
+                *args, g, extent, "linear"), 20)
+            drel = lambda: kpconv_aggregate_backward(  # noqa: E731
+                *args, g, extent, "linear", need_features=False,
+                need_kernel_weights=False, need_rel=True)
+            drel_ms = cuda_ms(drel, 20)
+            plain_ms = cuda_ms(lambda: kpconv_aggregate_backward_plain(
+                *args, g, extent, "linear", need_features=False,
+                need_kernel_weights=False, need_rel=True), 5)
+            live = int((args[3] != 0).sum().item())
+            t_bytes, t_ops = kpconv_drel_bound(B, M, N, K, C, P, live)
+            line += (f" | {full:.5f} {base:.5f} {drel_ms:.5f} "
+                     f"{plain_ms:.5f} {max(t_bytes, t_ops):.5f} "
+                     + ("bytes" if t_bytes >= t_ops else "operations"))
+            if not name.startswith("random "):
+                timed.append(drel)
+                for key, v in (("ms", drel_ms), ("plain_ms", plain_ms),
+                               ("bytes", t_bytes), ("ops", t_ops)):
+                    sums[key] += v
+        print(line, flush=True)
+    dev_us = device_us(lambda: [f() for f in timed], "kpconv_bwd_drel", 10)
+    disc = seeded_discriminator(cfg, device)
+    worst, counts = disc_input_gradient(disc, batch, device)
+    if counts != (10, 10, len(GAN_DREL_CALLS)):
+        raise AssertionError(f"the discriminator's input gradient launched "
+                             f"{counts} (forward, backward, d_rel)")
+    print(f"d_rel at the {len(timed)} level-0 calls of the real pyramid: "
+          f"{sums['ms']:.5f} ms (CUDA events), device "
+          f"{dev_us * len(timed) / 1e3:.5f} ms ({dev_us:.2f} us a call), "
+          f"plain {sums['plain_ms']:.5f} ms, bound "
+          f"{max(sums['bytes'], sums['ops']):.5f} ms; the discriminator's "
+          "gradient in its input points (launches forward, backward, "
+          f"d_rel {counts}): " + "; ".join(
+              f"{what}: {d:.3e} of limit {limit:.3e}"
+              for what, d, limit, _ in worst), flush=True)
+    return {
+        "name": "kpconv_bwd_drel", "route": "cuda",
+        "source": "deep3dpointclouddenoising_torch/csrc/kpconv_bwd.cu",
+        "replaces": "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:361",
+        "max_abs_err": worst_abs, "ms": sums["ms"],
+        "plain_ms": sums["plain_ms"],
+        "bound_ms": max(sums["bytes"], sums["ops"]),
+        "bound_by": "bytes" if sums["bytes"] >= sums["ops"]
+        else "operations",
+        "library_ms": None, "device_ms": dev_us * len(timed) / 1e3,
+        "timed_at": "d_rel alone (need_rel only) at the discriminator's "
+                    "three level-0 calls (stem LA, Bottleneck_0, T1) on a "
+                    "real pyramid of denoised points, B=16, width 144; "
+                    "device_ms: torch.profiler",
+        "launches_are": "backward calls that launch kpconv_bwd_drel (the "
+                        "G-step's discriminator calls whose support set is "
+                        "the input points)",
+    }
+
+
+def reset_launches():
+    for wrapper in (kpconv_aggregate, kpconv_aggregate_backward):
+        wrapper.launches = wrapper.launches_bf16 = 0
+    kpconv_aggregate_backward.launches_drel = 0
+
+
+def launch_counts():
+    """(forward, backward, d_rel) launches since reset_launches."""
+    return (kpconv_aggregate.launches, kpconv_aggregate_backward.launches,
+            kpconv_aggregate_backward.launches_drel)
+
+
+def gan_argv(config, tree, log_dir, epochs, *extra):
+    path = os.path.join(ROOT, "cfgs", config + ".yaml")
+    return ["--config_file", path, "--data_root", tree, "--log_dir",
+            log_dir, "--num_steps",
+            str(GAN_STEPS * int(load_config(path).batch_size)), "--epochs",
+            str(epochs),
+            "--num_points_per_shape", str(DEPLOY_TRAIN_POINTS), "--device",
+            "cuda", *extra]
+
+
+def phase_disc_pretraining(tree, workdir):
+    """(b) ``train_discriminator`` on DISC_CONFIG at width 144, DISC_EPOCHS
+    epochs of GAN_STEPS steps, validation every epoch: losses finite,
+    accuracies in [0, 1], 10 forward and 10 backward launches per step (10
+    forward per validation batch), no d_rel.  Returns the checkpoint and
+    the launches."""
+    reset_launches()
+    summary = train_discriminator.main(gan_argv(
+        DISC_CONFIG, tree, workdir, DISC_EPOCHS, "--val_freq", "1"))
+    steps, val = summary["steps"], summary["val_batches"]
+    counts = launch_counts()
+    if steps != GAN_STEPS * DISC_EPOCHS \
+            or counts != (10 * (steps + val), 10 * steps, 0):
+        raise AssertionError(f"pre-training: {steps} steps, {val} val "
+                             f"batches, launches {counts}")
+    acc = summary["val_accuracy"]
+    if not np.isfinite(summary["train_losses"]).all() \
+            or not all(0.0 <= a <= 1.0 for a in acc):
+        raise AssertionError(f"pre-training: losses "
+                             f"{summary['train_losses']}, accuracy {acc}")
+    print(f"discriminator pre-training: {steps} steps, {val} val batches; "
+          f"launches forward {counts[0]}, backward {counts[1]}; loss first "
+          f"{summary['train_losses'][0]:.6f} last "
+          f"{summary['train_losses'][-1]:.6f}; validation accuracy by "
+          f"epoch {acc}; ms per step (host clock, data loading included) "
+          + ", ".join(f"{ms:.3f}" for ms in summary["ms_per_step"]),
+          flush=True)
+    return summary["checkpoint"], counts[:2]
+
+
+def gan_run(argv, kill_at_step=None):
+    """One run of ``train_gan``, ended as by a kill just after update
+    ``kill_at_step`` where that is given; returns its summary (None when
+    killed) and its launches."""
+    reset_launches()
+    update = GANTrainer.update
+
+    def killed(trainer, batch, *args, **kwargs):
+        metrics = update(trainer, batch, *args, **kwargs)
+        if trainer.step == kill_at_step:
+            torch.cuda.synchronize()
+            raise Killed(trainer.step)
+        return metrics
+
+    GANTrainer.update = killed
+    try:
+        summary = train_gan.main(argv)
+    except Killed:
+        summary = None
+    finally:
+        GANTrainer.update = update
+    if kill_at_step is not None and summary is not None:
+        raise AssertionError(f"GAN training ran past update {kill_at_step}")
+    return summary, launch_counts()
+
+
+def phase_gan_training(tree, workdir, gen_ckpt, disc_ckpt):
+    """(c) ``train_gan`` on GAN_CONFIG at width 144 from phase 9's
+    generator and (b)'s discriminator, GAN_EPOCHS epochs of GAN_STEPS
+    updates unbroken; and the same run killed one update into epoch
+    GAN_EPOCHS and run again with ``--auto_resume``: both blocks'
+    parameters, BatchNorm buffers, optimizer state and step, and their
+    checkpoints, bitwise equal to the unbroken run's; both blocks moved
+    from what they loaded; metrics finite; GAN_UPDATE_LAUNCHES per update.
+    Returns the resumed run's summary and the launches of its two calls."""
+    def argv(log_dir):
+        return gan_argv(GAN_CONFIG, tree, log_dir, GAN_EPOCHS,
+                        "--auto_resume", "--load_path_generator", gen_ckpt,
+                        "--load_path_discriminator", disc_ckpt)
+
+    straight_dir = os.path.join(workdir, "gan_straight")
+    straight, c0 = gan_run(argv(straight_dir))
+    updates = GAN_STEPS * GAN_EPOCHS
+    if straight["steps"] != updates or straight["restored"] != {
+            "generator": gen_ckpt, "discriminator": disc_ckpt} \
+            or c0 != tuple(updates * n for n in GAN_UPDATE_LAUNCHES):
+        raise AssertionError(f"GAN training: {straight['steps']} updates, "
+                             f"restored {straight['restored']}, launches "
+                             f"{c0}")
+    log = os.path.join(workdir, "gan_resumed")
+    saved = GAN_STEPS * (GAN_EPOCHS - 1)
+    _, c1 = gan_run(argv(log), kill_at_step=saved + 1)
+    second, c2 = gan_run(argv(log))
+    run = os.path.join(log, GAN_CONFIG)
+    done = saved + 1 + GAN_STEPS
+    counts = tuple(a + b for a, b in zip(c1, c2))
+    if second["restored"] != {k: os.path.join(run, k, "current.pt")
+                              for k in ("generator", "discriminator")} \
+            or second["steps"] != updates \
+            or counts != tuple(done * n for n in GAN_UPDATE_LAUNCHES):
+        raise AssertionError(f"GAN resume: restored {second['restored']}, "
+                             f"{second['steps']} updates, launches {c1} "
+                             f"then {c2}")
+    for name, loaded in (("generator", gen_ckpt),
+                         ("discriminator", disc_ckpt)):
+        a = second["trainer"].blocks[name]
+        b = straight["trainer"].blocks[name]
+        for what, x, y in (("model", a.model.state_dict(),
+                            b.model.state_dict()),
+                           ("optimizer", a.optimizer.state_dict(),
+                            b.optimizer.state_dict())):
+            diff = grad_check.state_difference(x, y)
+            if diff:
+                raise AssertionError(f"GAN resume: {name} {what} differs "
+                                     f"from the unbroken run at {diff}")
+        for leaf in ("current.pt", f"ckpt_epoch_{GAN_EPOCHS}.pt"):
+            diff = grad_check.state_difference(
+                torch.load(os.path.join(run, name, leaf), weights_only=True),
+                torch.load(os.path.join(straight_dir, GAN_CONFIG, name,
+                                        leaf), weights_only=True))
+            if diff:
+                raise AssertionError(f"GAN resume: {name} {leaf} differs "
+                                     f"at {diff}")
+        start = torch.load(loaded, map_location="cpu",
+                           weights_only=True)["model"]
+        moved = [k for k, v in a.model.state_dict().items()
+                 if not torch.equal(v.cpu(), start[k])]
+        if not moved:
+            raise AssertionError(f"GAN training did not move the {name}")
+    metrics = straight["metrics"]
+    if not all(np.isfinite(v).all() for v in metrics.values()):
+        raise AssertionError(f"GAN training: metrics {metrics}")
+    print(f"GAN fine-tuning: {GAN_EPOCHS} epochs of {GAN_STEPS} updates "
+          f"unbroken, and a run killed after update {saved + 1} and "
+          f"continued by --auto_resume from update {saved}: both blocks' "
+          f"parameters, BatchNorm buffers, optimizer state and step "
+          f"{second['trainer'].step} bitwise equal; launches per update "
+          f"(forward, backward, d_rel) {tuple(c // updates for c in c0)}; "
+          "unbroken metrics, last: " + ", ".join(
+              f"{k} {v[-1]:.6f}" for k, v in metrics.items())
+          + "; ms per update by epoch (host clock, data loading included), "
+          "unbroken: " + ", ".join(f"{ms:.3f}"
+                                   for ms in straight["ms_per_update"]),
+          flush=True)
+    return second, counts
+
+
+def profile_gan_updates(trainer, batch):
+    """(d) Wall ms per GAN update on one real batch (10 updates,
+    synchronised, twice), then a profiler window of PROFILE_UPDATES
+    updates: device ms per update, busy share, kernels per update and
+    ``kpconv_bwd_drel``'s device ms per update and per call.  Returns
+    those as a dict."""
+    for _ in range(2):
+        trainer.update(batch)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            trainer.update(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 10 * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_UPDATES):
+            trainer.update(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = window_summary("GAN update under the profiler", prof, wall,
+                             PROFILE_UPDATES)
+    events = _device_events(prof)
+    drel = [us for name, us in events if "kpconv_bwd_drel" in name]
+    out = {"wall_ms": walls,
+           "kernels_per_update": len(events) / PROFILE_UPDATES,
+           "drel_ms_per_update": sum(drel) / PROFILE_UPDATES / 1e3,
+           "drel_us_per_call": sum(drel) / len(drel) if drel else None}
+    if summary is not None:
+        out["device_ms"], out["busy"] = summary
+    print("GAN update, width 144, B=16 (one real batch): wall ms per update "
+          "(10 updates, synchronised) " + ", ".join(f"{w:.3f}" for w in walls)
+          + f"; under the profiler {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_gan_serving(tree, workdir, checkpoint):
+    """(e) GAN_SHAPE at 140,000 points, gaussian sigma GAN_LEVEL, served
+    with the fine-tuned generator (``--checkpoint_low none``), host
+    voting: 10 forward launches per batch, no backward; then
+    ``compute_cd`` on the output tree.  Returns the forward launches."""
+    root = os.path.join(workdir, "gan_serve")
+    os.makedirs(os.path.join(root, "qualitative_test"))
+    shutil.copy(os.path.join(tree, "qualitative_test", GAN_SHAPE + ".off"),
+                os.path.join(root, "qualitative_test"))
+    config = os.path.join(ROOT, "cfgs", GAN_CONFIG + ".yaml")
+    out_dir = os.path.join(workdir, "gan_out")
+    reset_launches()
+    summary = infer.main(["--config_file", config, "--data_root", root,
+                          "--out_dir", out_dir, "--checkpoint", checkpoint,
+                          "--checkpoint_low", "none", "--noise_type",
+                          "gaussian", "--noise_level", str(GAN_LEVEL),
+                          "--device", "cuda"])
+    batches = -(-len(summary["dataset"]) // int(load_config(
+        config).batch_size))
+    counts = launch_counts()
+    if counts != (10 * batches, 0, 0):
+        raise AssertionError(f"GAN serving launched {counts}, not "
+                             f"{10 * batches} forward kernels")
+    res = summary["results"][0]
+    if not np.isfinite(res["offsets"]).all():
+        raise AssertionError("GAN serving: non-finite offsets")
+    table = compute_cd.main(["--in_dir", out_dir])
+    n_points = len(summary["dataset"].shapes[0].points)
+    print(f"GAN generator serving {GAN_SHAPE}: {n_points} points, "
+          f"{batches} batches, {n_points / summary['seconds']:.1f} points/s "
+          f"({summary['seconds']:.3f} s); CD ratio " + ", ".join(
+              f"{n} {r['ratio']:.4f}" for n, r in table.items()), flush=True)
+    return counts[0]
+
+
+def phase_gan(device, workdir, tree, gen_ckpt):
+    """Phase 14, GAN fine-tuning and discriminator pre-training: (a) the
+    d_rel kernel and the discriminator's input gradient, (b)
+    ``train_discriminator``, (c) ``train_gan`` with a kill and
+    ``--auto_resume``, (d) a profiler window of GAN updates, (e) the
+    fine-tuned generator served.  Returns the d_rel kernel's record, the
+    profile and the launches of the main path."""
+    cfg = load_config(os.path.join(ROOT, "cfgs", GAN_CONFIG + ".yaml"))
+    if (int(cfg.width), int(cfg.depth), int(cfg.batch_size),
+            int(cfg.num_points), float(cfg.gan_alpha)) \
+            != (144, 2, 16, 500, 1e-4):
+        raise AssertionError(f"{GAN_CONFIG} is no longer width 144, depth "
+                             "2, B=16, N=500, gan_alpha 1e-4")
+    t0 = time.perf_counter()
+    batch = denoised_batch(cfg, device, tree, gen_ckpt)
+    record = phase_gan_kernels(cfg, device, batch)
+    print(f"14(a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    disc_ckpt, pretrain = phase_disc_pretraining(
+        tree, os.path.join(workdir, "disc"))
+    print(f"14(b): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    summary, training = phase_gan_training(tree, workdir, gen_ckpt,
+                                           disc_ckpt)
+    print(f"14(c): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    real = {k: v for k, v in val_batch(cfg, tree).items()
+            if k in ("points", "mask", "features", "offsets")}
+    prof = profile_gan_updates(summary["trainer"], real)
+    print(f"14(d): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    serving = phase_gan_serving(tree, workdir, os.path.join(
+        workdir, "gan_resumed", GAN_CONFIG, "generator", "current.pt"))
+    print(f"14(e): {time.perf_counter() - t0:.1f} s", flush=True)
+    record.update(profile=prof)
+    return record, {"gan_training": training, "disc_pretraining": pretrain,
+                    "gan_serving": serving}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only-kernels"], ["--only-aggregations"]):
-        print("usage: chip_smoke.py [--only-kernels | --only-aggregations]",
-              file=sys.stderr)
+    if argv not in ([], ["--only-kernels"], ["--only-aggregations"],
+                    ["--only-gan"]):
+        print("usage: chip_smoke.py [--only-kernels | --only-aggregations "
+              "| --only-gan]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2920,6 +3443,19 @@ def main(argv=None) -> int:
                        cut=SEG_HELD_OUT, corner=SEG_CORNER)
             phase_aggregations(device, workdir, tree, scans, smi)
         print(smi)
+        return 0
+    if argv == ["--only-gan"]:
+        # phase 14 alone, on a tree of its own and a generator trained as
+        # phase 9 trains it
+        with tempfile.TemporaryDirectory() as workdir, phase("gan"):
+            tree = os.path.join(workdir, "shapes")
+            make_synthetic_dataset.write_tree(tree, verbose=False)
+            log_dir = os.path.join(workdir, "log")
+            train_short(DEPLOY_CONFIGS[0], tree, log_dir, cfg)
+            record, path_gan = phase_gan(device, workdir, tree, os.path.join(
+                log_dir, DEPLOY_CONFIGS[0], "current.pt"))
+        print(smi)
+        print(json.dumps({"drel": record, "launches": path_gan}))
         return 0
     with phase("kernel vs plain"):
         record = phase_kernels(cfg, device)
@@ -2960,11 +3496,22 @@ def main(argv=None) -> int:
         with phase("aggregations"):
             phase_aggregations(device, seg_dir, tree,
                                os.path.join(seg_dir, "scans"), smi)
-    # launches: this slice's path (outlier segmentation's training and
-    # evaluation); every path's in the detail
+        # on phase 9's shape tree, from phase 9's diverse checkpoint
+        with tempfile.TemporaryDirectory() as workdir, phase("gan"):
+            drel_record, path_gan = phase_gan(
+                device, workdir, tree, os.path.join(
+                    deploy_dir, "log", DEPLOY_CONFIGS[0], "current.pt"))
+    # launches: this slice's path (discriminator pre-training, GAN
+    # fine-tuning and the fine-tuned generator served); every path's in the
+    # detail
+    gan_paths = ("disc_pretraining", "gan_training")
     record.update(
-        launches=path_seg["training"][0] + path_seg["eval"],
+        launches=sum(path_gan[k][0] for k in gan_paths)
+        + path_gan["gan_serving"],
         launches_by_path={
+            "disc_pretraining": path_gan["disc_pretraining"][0],
+            "gan_training": path_gan["gan_training"][0],
+            "gan_serving": path_gan["gan_serving"],
             "serving": serving_launches, "training": train_fwd,
             "deployment": deploy_fwd, "cleaning": cleaning["cleaning"][0],
             "chamfer": cleaning["chamfer"][0],
@@ -2974,8 +3521,10 @@ def main(argv=None) -> int:
             "outlier_seg_eval": path_seg["eval"]},
         shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"])
     bwd_record.update(
-        launches=path_seg["training"][1],
+        launches=sum(path_gan[k][1] for k in gan_paths),
         launches_by_path={
+            "disc_pretraining": path_gan["disc_pretraining"][1],
+            "gan_training": path_gan["gan_training"][1], "gan_serving": 0,
             "serving": 0, "training": train_bwd,  # inference checks its 0
             "deployment": deploy_bwd, "cleaning": cleaning["cleaning"][1],
             "chamfer": cleaning["chamfer"][1],
@@ -2993,8 +3542,13 @@ def main(argv=None) -> int:
         launches=path_bf16["training"][1],
         launches_by_path={"bf16_training": path_bf16["training"][1],
                           "bf16_serving": 0})
+    drel_record.update(
+        launches=path_gan["gan_training"][2],
+        launches_by_path={"gan_training": path_gan["gan_training"][2],
+                          "disc_pretraining": 0, "gan_serving": 0})
     print(smi)
-    print(json.dumps({"kernels": [record, bwd_record] + bf16_records}))
+    print(json.dumps({"kernels": [record, bwd_record] + bf16_records
+                      + [drel_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

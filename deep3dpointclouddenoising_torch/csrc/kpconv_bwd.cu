@@ -118,12 +118,12 @@
 // bf16 form of kpconv_bwd_drel: only the GAN asks for d_rel, and
 // kpconv_bwd_bf16 refuses want_drel.
 //
-// The gradient in rel (need_rel; training never asks for it) keeps the
-// previous design in kpconv_bwd_drel: one thread per channel, one query
-// tile per block, the warp's channels summed by shuffles and the 3-vector
-// added to d_rel by float32 atomics across channel tiles (so d_rel alone is
-// not bitwise reproducible), into a buffer the wrapper zeroes.  d_feat and
-// d_kw come from the kernels above on that route too.
+// The gradient in rel (need_rel; the GAN's G-step asks for it at the
+// discriminator's level-0 calls) comes from kpconv_bwd_drel: one block per
+// query tile, each edge's sum over the channels taken by one warp in a
+// fixed order and stored once, so d_rel is bitwise reproducible and free
+// of float atomics too.  d_feat and d_kw come from the kernels above on
+// that route too.
 //
 // What bounds it on this card.  Counted as chip_smoke.kpconv_bwd_bound
 // counts it (every input byte read once), the float32 operation rate, and
@@ -141,7 +141,8 @@
 // the build (-Xptxas -v): on the H100 machine (CUDA 12.8) kpconv_bwd_kernel
 // uses 128 registers for each influence (held there by its launch bounds
 // of 4 blocks per SM, which the per-chunk adds need), kpconv_bwd_invert 64,
-// kpconv_bwd_reduce 30, kpconv_bwd_drel 55, none spills.
+// kpconv_bwd_reduce 30, kpconv_bwd_drel 72 (32 for constant influence),
+// none spills.
 
 #include <cuda_runtime.h>
 
@@ -822,15 +823,36 @@ kpconv_bwd_reduce(const float* __restrict__ part, float* __restrict__ dkw,
 // with dw = mask * (d infl / d rel) / (rel - kp): -1 / (extent d) for linear
 // influence where 0 < d < extent (0 where the influence is clamped, and 0
 // at d = 0, the where-guarded sqrt's subgradient), -2 infl / gauss_denom
-// for gaussian.  A block owns kRelTileM queries and kRelTileC channels, one
-// per thread of a row; each thread reduces its channel's share for one
-// neighbour, the warp sums its 32 channels by shuffles and lane 0 adds the
-// 3-vector to d_rel with float32 atomics (one per channel tile).
+// for gaussian, 0 for constant.
+//
+// Deterministic: each edge's 3-vector is a sum over all C channels, and
+// one warp computes it whole, in one fixed order.  A block owns
+// kRelTileM queries of one cloud and every channel; warp w owns queries
+// w, w + kRelRows, ...  For each of its queries the warp walks the channel
+// tiles of 32 in order (one channel a lane, kw and g of the tile in
+// registers), and for each neighbour sums the tile's 32 lanes by a
+// butterfly of shuffles (a fixed tree) and adds that to the edge's sum in
+// shared memory (lane 0, the only writer of that edge's sum).  The block
+// then stores its edges' rows once, coalesced, with plain stores: no float
+// atomics, and nothing for the wrapper to zero.  (An earlier design spread
+// the channel tiles over blocks and added them into d_rel by float32
+// atomics, so d_rel changed in its last bits from run to run.)
+//
+// What bounds it: every edge reads its neighbour's feature row (the same
+// bytes as the forward's gather) and does 3 multiply-adds per (p, c); at
+// the GAN's level-0 calls (C = 72 and 144) that is far below both the
+// card's memory and float32 rates, and the time is the dependent chain of
+// each warp's shuffles, edge after edge.
 
 constexpr int kRelTileM = 8;
 constexpr int kRelTileC = 32;
 constexpr int kRelRows = 4;
 constexpr int kRelThreads = kRelTileC * kRelRows;
+
+size_t drel_smem_bytes(int K) {
+  return sizeof(float) * (static_cast<size_t>(kRelTileM) * K * kPPad +
+                          kRelTileM * K + kPPad * 3 + kRelTileM * K * 3);
+}
 
 template <int INFL>
 __global__ void __launch_bounds__(kRelThreads)
@@ -844,10 +866,10 @@ kpconv_bwd_drel(const float* __restrict__ feat, const int* __restrict__ idx,
   float* dw_s = reinterpret_cast<float*>(rsmem4);  // [kRelTileM][K][kPPad]
   int* idx_s = reinterpret_cast<int*>(dw_s + kRelTileM * K * kPPad);
   float* kp_s = reinterpret_cast<float*>(idx_s + kRelTileM * K);  // [kPPad][3]
+  float* acc_s = kp_s + kPPad * 3;  // [kRelTileM][K][3], the edges' sums
 
-  const int c0 = blockIdx.x * kRelTileC;
-  const int m0 = blockIdx.y * kRelTileM;
-  const int b = blockIdx.z;
+  const int m0 = blockIdx.x * kRelTileM;
+  const int b = blockIdx.y;
   const int tm = min(kRelTileM, M - m0);
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -857,83 +879,92 @@ kpconv_bwd_drel(const float* __restrict__ feat, const int* __restrict__ idx,
   for (int i = tid; i < kPPad * 3; i += kRelThreads)
     kp_s[i] = i < P * 3 ? kp[i] : 0.f;
   for (int i = tid; i < tm * K; i += kRelThreads) idx_s[i] = idx[row0 + i];
+  for (int i = tid; i < tm * K * 3; i += kRelThreads) acc_s[i] = 0.f;
   __syncthreads();
 
-  for (int e = tid; e < tm * K * kPPad; e += kRelThreads) {
-    const int p = e % kPPad;
-    const size_t row = row0 + e / kPPad;
-    float dw = 0.f;
-    if (p < P) {
-      const float msk = mask[row];
-      const float dx = rel[row * 3 + 0] - kp_s[p * 3 + 0];
-      const float dy = rel[row * 3 + 1] - kp_s[p * 3 + 1];
-      const float dz = rel[row * 3 + 2] - kp_s[p * 3 + 2];
-      const float sq = dx * dx + dy * dy + dz * dz;
-      if (INFL == kLinear) {
-        const float d = sq > 0.f ? sqrtf(sq) : 0.f;
-        const float infl = fmaxf(1.f - d / extent, 0.f);
-        if (d > 0.f && infl > 0.f) dw = -msk / (extent * d);
-      } else {
-        dw = -2.f * expf(-sq / gauss_denom) * msk / gauss_denom;
-      }
-    }
-    dw_s[e] = dw;
-  }
-  __syncthreads();
-
-  const int c = c0 + tx;
-  const bool c_ok = c < C;
-  float kw_r[kPPad];
-#pragma unroll
-  for (int p = 0; p < kPPad; ++p)
-    kw_r[p] = (c_ok && p < P) ? kw[p * C + c] : 0.f;
-  const float* fb = feat + static_cast<size_t>(b) * N * C;
-  // every lane walks the queries (its shuffles need the whole warp); a lane
-  // past C adds zeros
-  for (int m = ty; m < tm; m += kRelRows) {
-    const float gv =
-        c_ok ? gout[(static_cast<size_t>(b) * M + m0 + m) * C + c] : 0.f;
-    const int* im = idx_s + m * K;
-    for (int k = 0; k < K; ++k) {
-      const float f =
-          c_ok ? __ldg(fb + static_cast<size_t>(im[k]) * C + c) : 0.f;
-      const size_t row = row0 + static_cast<size_t>(m) * K + k;
-      const float4* dwm =
-          reinterpret_cast<const float4*>(dw_s) + (m * K + k) * (kPPad / 4);
-      const float rx = __ldg(rel + row * 3 + 0);
-      const float ry = __ldg(rel + row * 3 + 1);
-      const float rz = __ldg(rel + row * 3 + 2);
-      float zx = 0.f, zy = 0.f, zz = 0.f;
-#pragma unroll
-      for (int q = 0; q < kPPad / 4; ++q) {
-        const float4 d4 = dwm[q];
-        const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int p = 4 * q + i;
-          const float a = dq[i] * kw_r[p];
-          zx = fmaf(a, rx - kp_s[p * 3 + 0], zx);
-          zy = fmaf(a, ry - kp_s[p * 3 + 1], zy);
-          zz = fmaf(a, rz - kp_s[p * 3 + 2], zz);
+  if (INFL != kConstant) {
+    for (int e = tid; e < tm * K * kPPad; e += kRelThreads) {
+      const int p = e % kPPad;
+      const size_t row = row0 + e / kPPad;
+      float dw = 0.f;
+      if (p < P) {
+        const float msk = mask[row];
+        const float dx = rel[row * 3 + 0] - kp_s[p * 3 + 0];
+        const float dy = rel[row * 3 + 1] - kp_s[p * 3 + 1];
+        const float dz = rel[row * 3 + 2] - kp_s[p * 3 + 2];
+        const float sq = dx * dx + dy * dy + dz * dz;
+        if (INFL == kLinear) {
+          const float d = sq > 0.f ? sqrtf(sq) : 0.f;
+          const float infl = fmaxf(1.f - d / extent, 0.f);
+          if (d > 0.f && infl > 0.f) dw = -msk / (extent * d);
+        } else {
+          dw = -2.f * expf(-sq / gauss_denom) * msk / gauss_denom;
         }
       }
-      const float s = gv * f;
-      zx *= s;
-      zy *= s;
-      zz *= s;
+      dw_s[e] = dw;
+    }
+    __syncthreads();
+
+    const float* fb = feat + static_cast<size_t>(b) * N * C;
+    // every lane walks the queries and tiles (its shuffles need the whole
+    // warp); a lane past C adds zeros
+    for (int m = ty; m < tm; m += kRelRows) {
+      const int* im = idx_s + m * K;
+      float* am = acc_s + m * K * 3;
+      const size_t grow = (static_cast<size_t>(b) * M + m0 + m) * C;
+      for (int c0 = 0; c0 < C; c0 += kRelTileC) {
+        const int c = c0 + tx;
+        const bool c_ok = c < C;
+        float kw_r[kPPad];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        zx += __shfl_xor_sync(kFull, zx, o);
-        zy += __shfl_xor_sync(kFull, zy, o);
-        zz += __shfl_xor_sync(kFull, zz, o);
-      }
-      if (tx == 0) {
-        atomicAdd(drel + row * 3 + 0, zx);
-        atomicAdd(drel + row * 3 + 1, zy);
-        atomicAdd(drel + row * 3 + 2, zz);
+        for (int p = 0; p < kPPad; ++p)
+          kw_r[p] = (c_ok && p < P) ? __ldg(kw + p * C + c) : 0.f;
+        const float gv = c_ok ? __ldg(gout + grow + c) : 0.f;
+        for (int k = 0; k < K; ++k) {
+          const float f =
+              c_ok ? __ldg(fb + static_cast<size_t>(im[k]) * C + c) : 0.f;
+          const size_t row = row0 + static_cast<size_t>(m) * K + k;
+          const float4* dwm =
+              reinterpret_cast<const float4*>(dw_s) + (m * K + k) * (kPPad / 4);
+          const float rx = __ldg(rel + row * 3 + 0);
+          const float ry = __ldg(rel + row * 3 + 1);
+          const float rz = __ldg(rel + row * 3 + 2);
+          float zx = 0.f, zy = 0.f, zz = 0.f;
+#pragma unroll
+          for (int q = 0; q < kPPad / 4; ++q) {
+            const float4 d4 = dwm[q];
+            const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int p = 4 * q + i;
+              const float a = dq[i] * kw_r[p];
+              zx = fmaf(a, rx - kp_s[p * 3 + 0], zx);
+              zy = fmaf(a, ry - kp_s[p * 3 + 1], zy);
+              zz = fmaf(a, rz - kp_s[p * 3 + 2], zz);
+            }
+          }
+          const float s = gv * f;
+          zx *= s;
+          zy *= s;
+          zz *= s;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            zx += __shfl_xor_sync(kFull, zx, o);
+            zy += __shfl_xor_sync(kFull, zy, o);
+            zz += __shfl_xor_sync(kFull, zz, o);
+          }
+          if (tx == 0) {  // this warp alone writes query m's edges
+            am[k * 3 + 0] += zx;
+            am[k * 3 + 1] += zy;
+            am[k * 3 + 2] += zz;
+          }
+        }
       }
     }
   }
+  __syncthreads();
+  float* out = drel + row0 * 3;
+  for (int i = tid; i < tm * K * 3; i += kRelThreads) out[i] = acc_s[i];
 }
 
 // ------------------------------------------------------------------ launches
@@ -1013,17 +1044,15 @@ cudaError_t launch(const T* feat, const int* idx, const float* rel,
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
   }
-  // constant: d_rel stays zero; bf16 has no d_rel (refused by backward)
+  // bf16 has no d_rel (refused by backward); constant influence writes
+  // zeros
   if constexpr (sizeof(T) == sizeof(float)) {
-    if (want_drel && INFL != kConstant) {
-      const size_t smem = sizeof(float) *
-          (static_cast<size_t>(kRelTileM) * K * kPPad + kRelTileM * K +
-           kPPad * 3);
+    if (want_drel) {
+      const size_t smem = drel_smem_bytes(K);
       if (smem > kMaxSmem) return cudaErrorInvalidValue;
       err = set_smem(kpconv_bwd_drel<INFL>, smem);
       if (err != cudaSuccess) return err;
-      const dim3 grid((C + kRelTileC - 1) / kRelTileC,
-                      (M + kRelTileM - 1) / kRelTileM, B);
+      const dim3 grid((M + kRelTileM - 1) / kRelTileM, B);
       kpconv_bwd_drel<INFL>
           <<<grid, dim3(kRelTileC, kRelRows), smem, stream>>>(
               feat, idx, rel, mask, kp, kw, g, drel, N, M, K, C, P, extent,
@@ -1100,7 +1129,7 @@ extern "C" long long kpconv_bwd_scratch_ints(int B, int N, int M, int K) {
 // (B, N, C) is written whole; with want_dkw, dkw is (P, C) and dkw_part
 // (kpconv_bwd_num_slots(B, N), P, C) scratch; with either, scratch holds
 // kpconv_bwd_scratch_ints(B, N, M, K) int32; with want_drel, drel
-// (B, M, K, 3) must hold zeros.  A pointer that is not wanted may be null.
+// (B, M, K, 3) is written whole.  A pointer that is not wanted may be null.
 extern "C" int kpconv_bwd(const void* feat, const void* idx, const void* rel,
                           const void* mask, const void* kp, const void* kw,
                           const void* g, void* dfeat, void* dkw,

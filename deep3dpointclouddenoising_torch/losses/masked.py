@@ -40,7 +40,12 @@ def masked_offset_loss(pred: torch.Tensor, target: torch.Tensor,
 
 def _bce(prob: torch.Tensor, target: torch.Tensor, eps: float
          ) -> torch.Tensor:
-    p = torch.clamp(prob, eps, 1.0 - eps)
+    # jnp.clip's gradient: half at a probability exactly on a bound (as
+    # torch.maximum and torch.minimum split it), where torch.clamp passes
+    # all of it
+    lo, hi = (torch.tensor(v, dtype=prob.dtype, device=prob.device)
+              for v in (eps, 1.0 - eps))
+    p = torch.minimum(torch.maximum(prob, lo), hi)
     return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
 
 

@@ -1,7 +1,8 @@
-"""The offset-regression, full-cleaning and scene-segmentation models.
+"""The offset-regression, full-cleaning and scene-segmentation models and
+the GAN discriminator.
 
 Counterpart of ``OffsetRegressionModel``, ``CompleteDenoisingModel``,
-``SceneSegmentationModel`` and their builders in
+``SceneSegmentationModel``, ``DiscriminatorModel`` and their builders in
 ``deep3dpointclouddenoising_tpu/models/build.py``: pyramid -> ResNet
 encoder -> U-Net head, on padded ``(xyz, mask, features)`` batches.  The
 module names follow the Flax tree, so a Flax tree of any of them converts
@@ -9,13 +10,13 @@ by ``convert.params_from_flax``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..config import Config
-from .heads import MultiDimHead, SceneSegHead
+from .heads import DiscriminatorHead, MultiDimHead, SceneSegHead
 from .pyramid import Pyramid, build_pyramid
 from .resnet import ResNetEncoder
 
@@ -27,7 +28,11 @@ class PyramidModel(nn.Module):
     """The encoder over the geometry pyramid; a subclass adds its head
     (created after the encoder, so the initialisers draw in the Flax
     tree's order) and :meth:`head`.  The initialisers draw from
-    ``generator`` (the global generator when it is ``None``)."""
+    ``generator`` (the global generator when it is ``None``).
+    ``build_up`` is whether the pyramid carries the decoder's 1-NN
+    upsampling indices (not for a head without a decoder)."""
+
+    build_up = True
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None):
@@ -49,7 +54,7 @@ class PyramidModel(nn.Module):
             xyz, mask, radius=float(cfg.radius),
             sample_dl=float(cfg.sampleDl), nsamples=list(cfg.nsamples),
             npoints=list(cfg.npoints), build_self=int(cfg.depth) > 1,
-            build_up=True)
+            build_up=self.build_up)
 
     def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
              ) -> torch.Tensor:
@@ -107,6 +112,37 @@ class SceneSegmentationModel(PyramidModel):
         return self.SceneSegHead_0(pyramid, feats)
 
 
+class DiscriminatorModel(PyramidModel):
+    """The GAN discriminator: (B, 1) probabilities that each cloud is clean,
+    from the encoder's deepest features (:class:`heads.DiscriminatorHead`).
+    Like the JAX model, it reads no ``cfg.head`` and builds no upsampling
+    indices.  In train mode its Dropouts draw from ``generator``, or take
+    ``keep_masks`` (:class:`heads.PooledMLPHead`)."""
+
+    build_up = False
+
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        self.DiscriminatorHead_0 = DiscriminatorHead(cfg, generator)
+
+    def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             keep_masks: Optional[List[torch.Tensor]] = None
+             ) -> torch.Tensor:
+        return self.DiscriminatorHead_0(pyramid, feats, generator,
+                                        keep_masks)
+
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
+                features: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep_masks: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        pyramid = self.make_pyramid(xyz, mask)
+        return self.head(pyramid, self.ResNetEncoder_0(pyramid, features),
+                         generator, keep_masks)
+
+
 def build_offset_regression(cfg: Config,
                             generator: Optional[torch.Generator] = None
                             ) -> OffsetRegressionModel:
@@ -129,3 +165,11 @@ def build_scene_segmentation(cfg: Config,
     """The scene-segmentation model; its loss is
     ``losses.masked.masked_cross_entropy``."""
     return SceneSegmentationModel(cfg, generator)
+
+
+def build_discriminator(cfg: Config,
+                        generator: Optional[torch.Generator] = None
+                        ) -> DiscriminatorModel:
+    """The GAN discriminator; its loss is
+    ``losses.masked.masked_binary_cross_entropy`` with an all-ones mask."""
+    return DiscriminatorModel(cfg, generator)

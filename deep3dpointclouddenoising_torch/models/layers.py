@@ -172,3 +172,38 @@ class BNReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.BatchNorm_0(x))
+
+
+def masked_global_avg_pool(features: torch.Tensor, mask: torch.Tensor
+                           ) -> torch.Tensor:
+    """(B, N, C), (B, N) -> (B, C): the sum over all N slots (padding
+    slots hold cycled real features) over the true point count, at least
+    1, as the JAX package's ``masked_global_avg_pool``."""
+    total = torch.sum(features, dim=1)
+    count = torch.sum(mask, dim=1, keepdim=True)
+    return total / torch.clamp(count, min=1.0)
+
+
+class Dropout(nn.Module):
+    """Flax's ``nn.Dropout(rate)``: in train mode each element is kept with
+    probability ``1 - rate`` and divided by it, the others are zero; in
+    eval mode the identity.
+
+    The keep-mask is ``keep`` where given, else ``torch.rand(shape,
+    generator=generator) >= rate`` drawn on the host (the global generator
+    when ``generator`` is ``None``) and moved to the input's device, so one
+    seed gives the same mask on the CPU and on the card."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if keep is None:
+            keep = torch.rand(x.shape, generator=generator) >= self.rate
+        keep = keep.to(device=x.device, dtype=torch.bool)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))

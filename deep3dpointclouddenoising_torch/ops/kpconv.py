@@ -17,7 +17,8 @@ forward launches ``csrc/kpconv_fwd.cu`` and the backward
 :func:`kpconv_aggregate_plain` and :func:`kpconv_aggregate_backward_plain`.
 ``kpconv_aggregate.launches`` and ``kpconv_aggregate_backward.launches``
 count the float32 kernels' launches, ``.launches_bf16`` those of their
-bfloat16 forms.
+bfloat16 forms, and ``kpconv_aggregate_backward.launches_drel`` the
+backward calls that launch ``kpconv_bwd_drel`` for ``d_rel``.
 
 Features may be float32 or bfloat16 (the JAX package's ``compute_dtype:
 bfloat16``, where the Pallas kernels run in ``features.dtype``).  In
@@ -54,8 +55,9 @@ def _check_no_bf16_rel(features: torch.Tensor) -> None:
     if features.dtype == torch.bfloat16:
         raise NotImplementedError(
             "kpconv_aggregate: the gradient in rel has no bfloat16 form "
-            "(only the GAN's G-step needs it, and the GAN is not ported); "
-            "run the aggregation in float32 to differentiate in rel")
+            "(only the GAN's G-step needs it, and every GAN config is "
+            "float32); run the aggregation in float32 to differentiate in "
+            "rel")
 
 
 def influence_weights(sq: torch.Tensor, extent: float,
@@ -384,8 +386,9 @@ def kpconv_aggregate_backward(
     ``d_features`` and ``d_kernel_weights`` are bitwise reproducible;
     ``kpconv_aggregate_backward.launches`` counts calls that launch.  CPU
     tensors go through :func:`kpconv_aggregate_backward_plain`.  Asking for
-    ``d_rel`` adds ``kpconv_bwd_drel``, which adds ``d_rel`` with float32
-    atomics (not bitwise reproducible).  bfloat16 ``features`` take a
+    ``d_rel`` adds ``kpconv_bwd_drel`` (counted by ``.launches_drel``),
+    which writes every row of ``d_rel`` once, each a sum over the channels
+    in a fixed order: bitwise reproducible too.  bfloat16 ``features`` take a
     bfloat16 ``grad_out`` and give bfloat16 ``d_features``
     (``kpconv_bwd_bf16``, counted by ``.launches_bf16``), and no ``d_rel``.
     """
@@ -403,11 +406,11 @@ def kpconv_aggregate_backward(
     d_features = torch.empty_like(features) if need_features else None
     d_kw = torch.empty((P, C), dtype=torch.float32, device=dev) \
         if need_kernel_weights else None
-    d_rel = torch.zeros_like(rel) if need_rel else None
+    d_rel = torch.empty_like(rel) if need_rel else None
     if not (need_features or need_kernel_weights or need_rel):
         return d_features, d_kw, d_rel
     if B * N * C == 0 or M * K == 0:
-        for t in (d_features, d_kw):
+        for t in (d_features, d_kw, d_rel):
             if t is not None:
                 t.zero_()
         return d_features, d_kw, d_rel
@@ -431,6 +434,8 @@ def kpconv_aggregate_backward(
     if rc != 0:
         raise RuntimeError(f"kpconv_bwd kernel launch failed: CUDA error {rc}")
     _count_launch(kpconv_aggregate_backward, features.dtype)
+    if need_rel:
+        kpconv_aggregate_backward.launches_drel += 1
     return d_features, d_kw, d_rel
 
 
@@ -496,3 +501,4 @@ kpconv_aggregate.launches = 0
 kpconv_aggregate_backward.launches = 0
 kpconv_aggregate.launches_bf16 = 0
 kpconv_aggregate_backward.launches_bf16 = 0
+kpconv_aggregate_backward.launches_drel = 0

@@ -47,8 +47,8 @@ from ..config import load_config
 from ..data.loader import BatchLoader
 from ..data.offset_dataset import OffsetDataset
 from ..data.transforms import build_train_transforms
-from ..utils.checkpoint import (latest_epoch_checkpoint, load_checkpoint,
-                                load_weights, save_checkpoint)
+from ..utils.checkpoint import (load_checkpoint, load_weights,
+                                resume_checkpoint, save_checkpoint)
 from ..utils.device import resolve_device
 from ..utils.metrics import AverageMeter
 from .trainer import Trainer
@@ -67,6 +67,12 @@ _CLIS = {
     "segmentation": (
         "python -m deep3dpointclouddenoising_torch.train_outlier_seg",
         "Outlier-segmentation training on labelled scans on one card."),
+    "gan": ("python -m deep3dpointclouddenoising_torch.train_gan",
+            "Adversarial fine-tuning of the offset model on one card."),
+    "discriminator": (
+        "python -m deep3dpointclouddenoising_torch.train_discriminator",
+        "Discriminator pre-training (clean against raw noisy) on one "
+        "card."),
 }
 
 
@@ -98,16 +104,26 @@ def parse_args(argv: Optional[List[str]] = None,
                             "validation cloud")
     p.add_argument("--start_epoch", type=int,
                    help="first epoch to run (with --load_path)")
-    p.add_argument("--load_path",
-                   help="restore this checkpoint's whole train state")
-    p.add_argument("--load_weights_path",
-                   help="warm-start the model's weights and BatchNorm "
-                        "statistics from this checkpoint under a fresh "
-                        "optimizer and schedule")
+    if loss_mode == "gan":
+        p.add_argument("--load_path_generator",
+                       help="the generator's weights and BatchNorm "
+                            "statistics from this checkpoint")
+        p.add_argument("--load_path_discriminator",
+                       help="the discriminator's weights and BatchNorm "
+                            "statistics from this checkpoint")
+    else:
+        p.add_argument("--load_path",
+                       help="restore this checkpoint's whole train state")
+    if loss_mode not in ("gan", "discriminator"):
+        p.add_argument("--load_weights_path",
+                       help="warm-start the model's weights and BatchNorm "
+                            "statistics from this checkpoint under a fresh "
+                            "optimizer and schedule")
     p.add_argument("--auto_resume", action="store_true",
                    help="restore <log_dir>/<experiment_name>/current.pt (or "
-                        "the newest ckpt_epoch_<E>.pt) and continue from "
-                        "the epoch after it")
+                        "the newest ckpt_epoch_<E>.pt; for the GAN both "
+                        "blocks' under generator/ and discriminator/) and "
+                        "continue from the epoch after it")
     p.add_argument("--log_dir", default="log")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
@@ -133,9 +149,7 @@ def restore_run(trainer: Trainer, cfg, directory: str, steps_per_epoch: int,
        ``cfg.start_epoch = step // steps_per_epoch + 1`` (checkpoints are
        written at epochs' ends).
     """
-    current = os.path.join(directory, "current.pt")
-    if not os.path.isfile(current):
-        current = latest_epoch_checkpoint(directory)
+    current = resume_checkpoint(directory)
     if cfg.load_path:
         step = load_checkpoint(cfg.load_path, trainer)
         print(f"resumed from {cfg.load_path} at step {step}", flush=True)
@@ -151,6 +165,20 @@ def restore_run(trainer: Trainer, cfg, directory: str, steps_per_epoch: int,
               f"{cfg.start_epoch}", flush=True)
         return current
     return None
+
+
+def save_epoch(directory: str, trainer, epoch: int, cfg) -> str:
+    """``trainer``'s checkpoint (its ``model``, ``optimizer`` and
+    ``step``) at the end of ``epoch``: ``current.pt`` every epoch, and
+    ``ckpt_epoch_<E>.pt`` every ``cfg.save_freq`` epochs and at the last;
+    returns the last file written."""
+    path = save_checkpoint(os.path.join(directory, "current.pt"),
+                           trainer.model, trainer.optimizer, trainer.step)
+    if epoch % int(cfg.save_freq) == 0 or epoch == int(cfg.epochs):
+        path = save_checkpoint(
+            os.path.join(directory, f"ckpt_epoch_{epoch}.pt"),
+            trainer.model, trainer.optimizer, trainer.step)
+    return path
 
 
 def load_run_config(args: argparse.Namespace):
@@ -175,6 +203,21 @@ def _normed(batch: Dict[str, np.ndarray], norm_factor: Optional[float]):
     return batch
 
 
+def offset_dataset(cfg, split: str, num_epochs: int,
+                   transforms=None) -> OffsetDataset:
+    """The offset dataset of a split of ``cfg.data_root``, as the
+    training entry points build it."""
+    return OffsetDataset(
+        cfg.data_root, split, in_radius=cfg.in_radius,
+        num_points=cfg.num_points, num_steps=cfg.num_steps,
+        num_epochs=num_epochs, noise_type=cfg.noise_type,
+        noise_level=cfg.noise_level,
+        num_points_per_shape=cfg.num_points_per_shape,
+        outlier_proportion=cfg.outlier_percentage, transforms=transforms,
+        fourier_features=bool(cfg.fourier_features), seed=cfg.rng_seed,
+        diverse_levels=list(cfg.diverse_levels) or None)
+
+
 def main(argv: Optional[List[str]] = None,
          loss_mode: str = "offset") -> Dict[str, Any]:
     """Train the model of ``loss_mode`` (``"offset"`` or
@@ -183,19 +226,9 @@ def main(argv: Optional[List[str]] = None,
     args = parse_args(argv, loss_mode)
     device = resolve_device(args.device)
     cfg = load_run_config(args)
-    common = dict(
-        in_radius=cfg.in_radius, num_points=cfg.num_points,
-        num_steps=cfg.num_steps, noise_type=cfg.noise_type,
-        noise_level=cfg.noise_level,
-        num_points_per_shape=cfg.num_points_per_shape,
-        outlier_proportion=cfg.outlier_percentage,
-        fourier_features=bool(cfg.fourier_features), seed=cfg.rng_seed,
-        diverse_levels=list(cfg.diverse_levels) or None)
-    train_ds = OffsetDataset(cfg.data_root, "train",
-                             num_epochs=int(cfg.epochs),
-                             transforms=build_train_transforms(cfg),
-                             **common)
-    val_ds = OffsetDataset(cfg.data_root, "val", num_epochs=1, **common)
+    train_ds = offset_dataset(cfg, "train", int(cfg.epochs),
+                              build_train_transforms(cfg))
+    val_ds = offset_dataset(cfg, "val", 1)
     norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
     return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
                norm_factor, args.load_weights_path, args.auto_resume)
@@ -265,13 +298,7 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
             summary["val_batches"] += len(vpending)
             summary["val_losses"].append(vmeter.avg)
             print(f"val [{epoch}] loss {vmeter.avg:.6f}", flush=True)
-        checkpoint = save_checkpoint(os.path.join(log_dir, "current.pt"),
-                                     trainer.model, trainer.optimizer,
-                                     trainer.step)
-        if epoch % int(cfg.save_freq) == 0 or epoch == int(cfg.epochs):
-            checkpoint = save_checkpoint(
-                os.path.join(log_dir, f"ckpt_epoch_{epoch}.pt"),
-                trainer.model, trainer.optimizer, trainer.step)
+        checkpoint = save_epoch(log_dir, trainer, epoch, cfg)
     summary.update(steps=trainer.step, checkpoint=checkpoint,
                    trainer=trainer)
     print(f"trained {trainer.step} steps; checkpoint {checkpoint}",

@@ -82,3 +82,11 @@ def latest_epoch_checkpoint(log_dir: str) -> Optional[str]:
     if best is None and os.path.isfile(current):
         return current
     return best
+
+
+def resume_checkpoint(log_dir: str) -> Optional[str]:
+    """The checkpoint ``--auto_resume`` restores from a run directory: its
+    ``current.pt``, else its newest ``ckpt_epoch_<N>.pt``, else ``None``."""
+    current = os.path.join(log_dir, "current.pt")
+    return current if os.path.isfile(current) \
+        else latest_epoch_checkpoint(log_dir)

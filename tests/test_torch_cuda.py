@@ -795,3 +795,108 @@ def test_attention_train_steps_are_bitwise_reproducible(card, name):
     differ = [n for n, t in runs[0][1].items()
               if not torch.equal(t, runs[1][1][n])]
     assert not differ, f"{len(differ)} tensors differ, first {differ[0]}"
+
+
+# -- the GAN: the gradient in rel ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
+@pytest.mark.parametrize("case", [(16, 500, 500, 52, 72, 15, "random"),
+                                  (16, 500, 500, 52, 144, 15, "random"),
+                                  (16, 3, 3, 26, 1152, 15, "random"),
+                                  (2, 200, 40, 30, 72, 15, "sink")])
+def test_kpconv_drel_is_deterministic_and_matches_plain(card, influence,
+                                                        case):
+    """``kpconv_bwd_drel`` (C = 72 and 144, the GAN's level-0 widths, three
+    and five channel tiles, and 1152): d_rel, d_features and
+    d_kernel_weights bitwise equal over two calls (d_rel has no float
+    atomics), each within rtol 3e-4 and an atol of 1e-5 of its largest of
+    the plain version; constant influence gives exact zeros (written by
+    the kernel: the wrapper zeroes nothing); one d_rel launch a call."""
+    arrays, g = _backward_edge_inputs(np.random.default_rng(46), influence,
+                                      case)
+    arrays, g = [a.to(card) for a in arrays], g.to(card)
+    before = tkp.kpconv_aggregate_backward.launches_drel
+    first = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence,
+                                          need_rel=True)
+    second = tkp.kpconv_aggregate_backward(*arrays, g, 0.12, influence,
+                                           need_rel=True)
+    want = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence,
+                                               need_rel=True)
+    torch.cuda.synchronize()
+    assert tkp.kpconv_aggregate_backward.launches_drel == before + 2
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        _assert_grad_close(a, w, 3e-4, 1e-5)
+    if influence == "constant":
+        assert first[2].abs().max().item() == 0
+    else:
+        assert first[2].abs().max().item() > 0
+    # d_rel alone, in a block the allocator hands back full of NaNs: every
+    # row written
+    junk = torch.full_like(arrays[2], float("nan"))
+    del junk
+    d_rel_only = tkp.kpconv_aggregate_backward(
+        *arrays, g, 0.12, influence, need_features=False,
+        need_kernel_weights=False, need_rel=True)
+    assert d_rel_only[0] is None and d_rel_only[1] is None
+    assert torch.equal(d_rel_only[2], first[2])
+
+
+@pytest.mark.cuda
+def test_gan_g_step_asks_d_rel_at_level0_only(card, monkeypatch):
+    """One GAN update of ``cfgs/synthetic_quality_gan_tuned.yaml`` at width
+    144, B=16, N=500 on the card: the D-step's and the generator's
+    backwards ask for d_kernel_weights and no d_rel; the G-step's
+    discriminator backwards ask for no d_kernel_weights, and for d_rel
+    exactly at the three calls whose support set is the input points
+    (the stem, Bottleneck_0 and the first strided block): 40 forward, 30
+    backward and 3 d_rel launches; a second update from the same state
+    bitwise equal (d_rel has no atomics)."""
+    from deep3dpointclouddenoising_torch.train.gan import GANTrainer
+    cfg = load_config(os.path.join(os.path.dirname(L1_YAML),
+                                   "synthetic_quality_gan_tuned.yaml"))
+    assert (int(cfg.width), int(cfg.batch_size), int(cfg.num_points)) == \
+        (144, 16, 500)
+    rng = np.random.default_rng(47)
+    xyz = rng.normal(size=(16, 500, 3))
+    xyz = cfg.in_radius * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+    xyz = (xyz * rng.random((16, 500, 1))).astype(np.float32)
+    mask = np.ones((16, 500), np.float32)
+    mask[-1, -50:] = 0.0
+    xyz[-1, -50:] = xyz[-1, :50]
+    batch = {"points": xyz, "mask": mask, "features": xyz.copy(),
+             "offsets": (rng.normal(size=(16, 500, 3)) * 0.01).astype(
+                 np.float32)}
+    calls = []
+    backward = tkp.kpconv_aggregate_backward
+
+    def spy(*args):
+        calls.append((args[0].shape[1], args[9], args[10], args[11]))
+        return backward(*args)
+
+    # the wrapper counts its launches on the module's name, the spy here
+    spy.launches = spy.launches_bf16 = spy.launches_drel = 0
+    monkeypatch.setattr(tkp, "kpconv_aggregate_backward", spy)
+    states = []
+    for _ in range(2):
+        trainer = GANTrainer(cfg, 1, torch.Generator().manual_seed(0), card)
+        calls.clear()
+        counts = [tkp.kpconv_aggregate.launches, spy.launches,
+                  spy.launches_drel]
+        metrics = trainer.update(batch)
+        torch.cuda.synchronize()
+        counts = [tkp.kpconv_aggregate.launches - counts[0],
+                  spy.launches - counts[1], spy.launches_drel - counts[2]]
+        assert counts == [40, 30, 3], counts
+        g_step_disc = [c for c in calls if not c[2]]
+        assert len(calls) == 30 and len(g_step_disc) == 10
+        assert [c for c in calls if c[3]] == \
+            [c for c in g_step_disc if c[0] == 500]
+        assert all(np.isfinite(v.item()) for v in metrics.values())
+        states.append({f"{k}/{n}": t.detach().clone()
+                       for k, b in trainer.blocks.items()
+                       for n, t in b.model.state_dict().items()})
+    differ = [n for n, t in states[0].items()
+              if not torch.equal(t, states[1][n])]
+    assert not differ, f"{len(differ)} tensors differ, first {differ[0]}"

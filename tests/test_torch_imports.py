@@ -42,7 +42,8 @@ def test_port_has_every_module_of_the_slice():
                  "profile_serving", "evaluate", "compute_cd",
                  "measure_performance", "make_synthetic_dataset",
                  "data.device_sampler", "losses.chamfer",
-                 "train_full_cleaning"):
+                 "train_full_cleaning", "train.gan", "train_gan",
+                 "train_discriminator"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
