@@ -6,7 +6,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It imports the port, torch, numpy and scipy only, and goes through
-fifteen phases (phase 9b after 9), each printed with its wall time:
+sixteen phases (phase 9b after 9), each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``deep3dpointclouddenoising_torch/csrc``, one
@@ -180,6 +180,29 @@ fifteen phases (phase 9b after 9), each printed with its wall time:
    kernels per update, ``kpconv_bwd_drel``'s ms); (e) GAN_SHAPE served
    with the fine-tuned generator through the inference entry point, then
    ``compute_cd``.
+15. the PointCleanNet baseline and on-card patch sampling (this slice's
+   paths), on phase 9's shape tree: (a) the ``ResPCPNet`` of
+   ``cfgs/synthetic_quality_pcn4.yaml`` at B=64, N=500, seeded, its final
+   Dense and BatchNorm statistics O(1): the eval forward on the card
+   against the CPU by ``grad_check.check_forward`` and every train-mode
+   gradient by ``grad_check.check_device_gradients`` (float64 card
+   against float64 CPU, float32 by the full-path rule where float32 pins
+   the tensor), no KPConv launch, and ms per
+   forward (CUDA events) beside its float32 FLOP bound; (b) ``train_pcn``
+   PCN_EPOCHS epochs of PCN_STEPS steps with validation on PCN_TREE's
+   clouds, unbroken and killed one step into its last epoch and resumed
+   with ``--auto_resume``: bitwise equal, then a profiler window (device
+   ms per step, busy share, kernels per step); (c) PCN_SHAPE at 140,000
+   points served by ``infer --pcn --device_voting`` (points/s) and by
+   ``infer --pcn`` on the host over the first PCN_HOST_PATCHES patches:
+   equal within VOTE_TOL on every patch that does not underfill (a
+   near-tie at the 500th neighbour excepted and counted), the underfilled
+   ones counted with their largest difference, ``compute_cd`` on both
+   trees; (d) ``cfgs/l1.yaml`` with ``device_sampler: 1`` through the
+   train entry point, DS_STEPS steps at width 144, B=16, twice: 10 forward
+   and 10 backward launches per step, the two runs bitwise equal, and a
+   profiler window of device-sampled steps beside one of host-sampled
+   steps and phase 8's.
 
 9b. bf16 (this slice's path), after phase 9 and on its shape tree:
    ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
@@ -217,7 +240,8 @@ exits non-zero and prints no result; so it does without a card.
 (on a shape tree and scans of its own) and prints no result;
 ``--only-gan`` runs phases 1, 2 and 14 alone (on a shape tree of its own,
 with a generator trained as phase 9 trains it) and prints the d_rel
-kernel's record, not the result.
+kernel's record, not the result; ``--only-pcn`` runs phases 1, 2 and 15
+alone (on a shape tree of its own) and prints the phase's numbers.
 
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
 15k stem call on random neighbourhoods) and prints the kernels' JSON
@@ -245,8 +269,10 @@ from torch.profiler import ProfilerActivity, profile
 from deep3dpointclouddenoising_torch import compute_cd, \
     evaluate_outlier_seg, infer, make_synthetic_dataset, \
     measure_performance, train_discriminator, train_full_cleaning, \
-    train_gan, train_outlier_seg
+    train_gan, train_outlier_seg, train_pcn
 from deep3dpointclouddenoising_torch.config import load_config
+from deep3dpointclouddenoising_torch.data.device_sampler import (
+    DeviceSampler, sample_generator, torch_draws)
 from deep3dpointclouddenoising_torch.data.loader import BatchLoader
 from deep3dpointclouddenoising_torch.data.meshio import read_ply, save_off
 from deep3dpointclouddenoising_torch.data.offset_dataset import OffsetDataset
@@ -264,7 +290,8 @@ from deep3dpointclouddenoising_torch.losses.masked import (
     masked_cross_entropy, masked_l1_loss)
 from deep3dpointclouddenoising_torch.models import local_aggregation
 from deep3dpointclouddenoising_torch.models.build import (
-    build_discriminator, build_offset_regression, build_scene_segmentation)
+    build_discriminator, build_offset_regression, build_offset_regression_PCN,
+    build_scene_segmentation)
 from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
 from deep3dpointclouddenoising_torch.models.layers import set_compute_dtype
@@ -277,6 +304,7 @@ from deep3dpointclouddenoising_torch.profile_serving import \
     _device_events, profile_train_steps, window_summary
 from deep3dpointclouddenoising_torch.train import __main__ as train_cli
 from deep3dpointclouddenoising_torch.train.gan import GANTrainer
+from deep3dpointclouddenoising_torch.train.pcn import PCNTrainer, rotate_back
 from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
 
@@ -409,6 +437,29 @@ GAN_DREL_CALLS = ("stem LA", "Bottleneck_0", "T1 strided")
 # forward of the D-step, the discriminator's train step, the generator's
 # forward and backward through the eval discriminator
 GAN_UPDATE_LAUNCHES = (40, 30, 3)
+# PCN phase: the PointCleanNet config (ResPCPNet, B=64, 500-point patches,
+# L1, Adam), its training (PCN_EPOCHS epochs of PCN_STEPS steps on clouds
+# of DEPLOY_TRAIN_POINTS points of phase 9's tree cut to PCN_TREE's
+# shapes: the config's five noise levels make five clouds of each), the
+# steps of each profiler window, the held-out shape served (every one of
+# its 140,000 points a patch) and its noise, the host path's share of its
+# patch table (the host path serves ~580 PCN patches a second), the
+# squared-distance gap under which two neighbours are a near-tie, and the
+# steps of the device-sampled l1.yaml training
+PCN_CONFIG = "synthetic_quality_pcn4"
+PCN_PATH = os.path.join(ROOT, "cfgs", PCN_CONFIG + ".yaml")
+PCN_BATCH = 64
+PCN_POINTS = 500
+PCN_STEPS = 10
+PCN_EPOCHS = 2
+PCN_TREE = {"train": ("ellipsoid_a", "torus_thin"), "val": ("cylinder_v",)}
+PROFILE_STEPS_PCN = 3
+PCN_SHAPE = DEPLOY_SHAPES[0]
+PCN_LEVEL = 0.005
+PCN_CLOUD_POINTS = 140000
+PCN_HOST_PATCHES = 10000
+PCN_TIE = 1e-6
+DS_STEPS = 10
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # 15k forward, B=8, P=15
 CALLS_15K = [
@@ -1087,7 +1138,8 @@ def phase_model_grad(cfg, device, batch=None):
 
 def phase_training(cfg, device, workdir):
     """This slice's path: the training entry point at full width over
-    two-shape train and val splits; returns the kernels' launches in it."""
+    two-shape train and val splits; returns the kernels' launches in it
+    and the profiler window's (device ms per step, busy share)."""
     data_root = os.path.join(workdir, "train_data")
     for split in ("train", "val"):
         os.makedirs(os.path.join(data_root, split))
@@ -1137,8 +1189,7 @@ def phase_training(cfg, device, workdir):
           f"{summary['val_losses']}; ms per step by epoch (host clock, "
           f"data loading included): "
           + ", ".join(f"{ms:.3f}" for ms in summary["ms_per_step"]))
-    profile_train_steps(trainer, batch)
-    return fwd, bwd
+    return fwd, bwd, profile_train_steps(trainer, batch)
 
 
 def train_short(config: str, data_root: str, log_dir: str, cfg,
@@ -3402,12 +3453,451 @@ def phase_gan(device, workdir, tree, gen_ckpt):
                     "gan_serving": serving}
 
 
+def pcn_flops(model, x) -> float:
+    """Floating-point operations of one ``model(x)`` forward: 2 per
+    multiply-add of every Dense (counted by hooks on the rows it gets)
+    and of the two transforms' products."""
+    total = [0.0]
+
+    def hook(mod, inputs, out):
+        rows = inputs[0].numel() // mod.in_features
+        total[0] += 2.0 * rows * mod.in_features * mod.out_features
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Linear)]
+    try:
+        with torch.no_grad():
+            _, trans, trans2 = model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    B, N = x.shape[:2]
+    return total[0] + 2.0 * B * N * (trans.shape[1] ** 2
+                                     + trans2.shape[1] ** 2)
+
+
+def seeded_pcn(device, seed: int = 0):
+    """The PCN baseline with seeded weights, its final Dense and every
+    BatchNorm's running statistics O(1), in eval mode on ``device``."""
+    model = build_offset_regression_PCN(
+        load_config(PCN_PATH), torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    o1_running_stats(model, rng)
+    with torch.no_grad():
+        for p in (model.Dense_0.weight, model.Dense_0.bias):
+            p.copy_(torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(
+                np.float32)))
+    return model.to(device).eval()
+
+
+def pcn_patches(seed: int):
+    """PCN_BATCH patch-like clouds of PCN_POINTS points: discs of the
+    config's patch radius at differing extent and place, and O(1e-3)
+    target offsets of the centres."""
+    rng = np.random.default_rng(seed)
+    r = float(load_config(PCN_PATH).in_radius)
+    x = rng.normal(size=(PCN_BATCH, PCN_POINTS, 3))
+    x = r * x / np.linalg.norm(x, axis=-1, keepdims=True) \
+        * rng.random((PCN_BATCH, PCN_POINTS, 1)) \
+        * rng.uniform(0.3, 1.0, size=(PCN_BATCH, 1, 1)) \
+        + rng.normal(size=(PCN_BATCH, 1, 3)) * r
+    target = rng.normal(size=(PCN_BATCH, 3)) * 1e-3
+    return (torch.from_numpy(x.astype(np.float32)),
+            torch.from_numpy(target.astype(np.float32)))
+
+
+def phase_pcn_model(device):
+    """15(a) The PCN baseline at B=PCN_BATCH, N=PCN_POINTS on the card
+    against the CPU: the eval forward by ``grad_check.check_forward``
+    (MODEL_TOL, or three times its own float32 noise), every parameter's
+    train-mode L1 gradient by ``grad_check.check_device_gradients`` (the
+    card's float64 within 1e-6 of the CPU's, and the card's float32 by
+    the full-path rule unless float32 does not pin the tensor); no KPConv
+    launch; ms per forward (CUDA events) beside the float32 FLOP bound.
+    Returns the numbers."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the PCN runs in float32")
+    model = seeded_pcn(torch.device("cpu"))
+    x, target = pcn_patches(15)
+    copies = {"card": copy.deepcopy(model).to(device), "cpu": model,
+              "float64": grad_check.float64_copy(model),
+              "card64": grad_check.float64_copy(model).to(device)}
+    reset_launches()
+    out, grads = {}, {}
+    for key, m in copies.items():
+        dev, dtype = next(m.parameters()).device, next(m.parameters()).dtype
+        xi, ti = x.to(dev, dtype), target.to(dev, dtype)
+        m.eval()
+        with torch.no_grad():
+            out[key] = rotate_back(*m(xi)[:2]).cpu().double()
+        m.train()
+        pred, trans, _ = m(xi)
+        loss = torch.mean(torch.abs(rotate_back(pred, trans) - ti))
+        grads[key] = [g.cpu().double() for g in torch.autograd.grad(
+            loss, list(m.parameters()))]
+    if launch_counts() != (0, 0, 0):
+        raise AssertionError(f"the PCN launched KPConv kernels: "
+                             f"{launch_counts()}")
+    worst = grad_check.check_forward(out["card"], out["cpu"],
+                                     out["float64"], **MODEL_TOL)
+    held = grad_check.check_device_gradients(
+        [n for n, _ in model.named_parameters()], grads["card"],
+        grads["cpu"], grads["float64"], grads["card64"])
+    nearest = held["nearest"]
+    card = copies["card"].eval()
+    xc = x.to(device)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: card(xc), 20)
+    flops = pcn_flops(card, xc)
+    bound_ms = flops / PEAK_F32_FLOP_S * 1e3
+    res = {"forward_ms": ms, "gflop": flops / 1e9, "bound_ms": bound_ms,
+           "points_per_s_at_bound": PCN_BATCH / bound_ms * 1e3,
+           "points_per_s_forward": PCN_BATCH / ms * 1e3}
+    print(f"15(a) ResPCPNet B={PCN_BATCH}, N={PCN_POINTS}: eval forward "
+          f"card vs CPU max abs {worst['max_abs']:.3e} (nearest its limit: "
+          f"{worst['diff']:.3e} of {worst['limit']:.3e}); float32 gradients "
+          f"nearest their limit: {nearest[1]} at {nearest[0]:.3f} of it; "
+          f"float64 gradients card vs CPU within "
+          f"{held['float64_max_l2']:.3e}; decided in float64 (float32 does "
+          f"not pin them): {held['decided_in_float64']}; "
+          f"{json.dumps(res)} (float32 FLOP bound at "
+          f"{PEAK_F32_FLOP_S / 1e12:.0f} TFLOP/s)", flush=True)
+    return res
+
+
+def pcn_argv(tree, log_dir, *extra):
+    return ["--config_file", PCN_PATH, "--data_root", tree, "--log_dir",
+            log_dir, "--num_steps", str(PCN_STEPS * PCN_BATCH), "--epochs",
+            str(PCN_EPOCHS), "--val_freq", "1", "--num_points_per_shape",
+            str(DEPLOY_TRAIN_POINTS), "--device", "cuda", *extra]
+
+
+def pcn_run(argv, kill_at_step=None):
+    """One ``train_pcn`` run, ended as by a kill just after step
+    ``kill_at_step`` where that is given; returns its summary (None when
+    killed)."""
+    reset_launches()
+    step = PCNTrainer.train_step
+
+    def killed(trainer, batch):
+        loss = step(trainer, batch)
+        if trainer.step == kill_at_step:
+            torch.cuda.synchronize()
+            raise Killed(trainer.step)
+        return loss
+
+    PCNTrainer.train_step = killed
+    try:
+        summary = train_pcn.main(argv)
+    except Killed:
+        summary = None
+    finally:
+        PCNTrainer.train_step = step
+    if launch_counts() != (0, 0, 0):
+        raise AssertionError(f"PCN training launched KPConv kernels: "
+                             f"{launch_counts()}")
+    return summary
+
+
+def profile_window(label, step_fn, steps: int):
+    """Wall ms per call of ``step_fn`` (10 calls, synchronised), then a
+    profiler window of ``steps`` calls: device ms per call, busy share
+    and kernels per call.  Returns them as a dict."""
+    for _ in range(2):
+        step_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step_fn()
+    torch.cuda.synchronize()
+    out = {"wall_ms": (time.perf_counter() - t0) / 10 * 1e3}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = window_summary(label, prof, wall, steps)
+    out["kernels_per_step"] = len(_device_events(prof)) / steps
+    if summary is not None:
+        out["device_ms"], out["busy"] = summary
+        # the profiler slows the host: the share of the unprofiled wall
+        out["busy_of_unprofiled_wall"] = out["device_ms"] / out["wall_ms"]
+    return out
+
+
+def phase_pcn_training(tree, workdir):
+    """15(b) ``train_pcn`` on PCN_CONFIG, PCN_EPOCHS epochs of PCN_STEPS
+    steps with validation, unbroken, and killed one step into the last
+    epoch and run again with ``--auto_resume``: the end states and the
+    checkpoints bitwise equal, losses finite, the weights moved, no
+    KPConv launch; then a profiler window of train steps on a validation
+    batch.  Returns the unbroken summary and the window."""
+    straight_dir = os.path.join(workdir, "pcn_straight")
+    straight = pcn_run(pcn_argv(tree, straight_dir, "--auto_resume"))
+    steps = PCN_STEPS * PCN_EPOCHS
+    if straight["steps"] != steps or not np.isfinite(
+            straight["train_losses"] + straight["val_losses"]).all():
+        raise AssertionError(f"PCN training: {straight['steps']} steps, "
+                             f"losses {straight['train_losses']}")
+    log = os.path.join(workdir, "pcn_resumed")
+    saved = PCN_STEPS * (PCN_EPOCHS - 1)
+    pcn_run(pcn_argv(tree, log, "--auto_resume"), kill_at_step=saved + 1)
+    second = pcn_run(pcn_argv(tree, log, "--auto_resume"))
+    run = os.path.join(log, PCN_CONFIG)
+    if second["restored"] != os.path.join(run, "current.pt") \
+            or second["steps"] != steps:
+        raise AssertionError(f"PCN resume: restored {second['restored']}, "
+                             f"{second['steps']} steps")
+    a, b = second["trainer"], straight["trainer"]
+    for what, x, y in (("model", a.model.state_dict(), b.model.state_dict()),
+                       ("optimizer", a.optimizer.state_dict(),
+                        b.optimizer.state_dict())):
+        diff = grad_check.state_difference(x, y)
+        if diff:
+            raise AssertionError(f"PCN resume: {what} differs from the "
+                                 f"unbroken run at {diff}")
+    for leaf in ("current.pt", f"ckpt_epoch_{PCN_EPOCHS}.pt"):
+        diff = grad_check.state_difference(
+            torch.load(os.path.join(run, leaf), weights_only=True),
+            torch.load(os.path.join(straight_dir, PCN_CONFIG, leaf),
+                       weights_only=True))
+        if diff:
+            raise AssertionError(f"PCN resume: {leaf} differs at {diff}")
+    start = build_offset_regression_PCN(
+        a.cfg, torch.Generator().manual_seed(int(a.cfg.rng_seed)))
+    if all(torch.equal(v.cpu(), start.state_dict()[k])
+           for k, v in a.model.state_dict().items()):
+        raise AssertionError("PCN training left the weights unchanged")
+    cfg = a.cfg
+    ds = train_cli.offset_dataset(cfg, "val", 1, architecture="PCN")
+    batch = next(iter(BatchLoader(ds, PCN_BATCH).epoch_iter(0)))
+    prof = profile_window("PCN train step under the profiler",
+                          lambda: a.train_step(batch), PROFILE_STEPS_PCN)
+    print(f"15(b) train_pcn {PCN_CONFIG}: {PCN_EPOCHS} epochs of "
+          f"{PCN_STEPS} steps at B={PCN_BATCH} unbroken, and killed after "
+          f"step {saved + 1} and resumed from step {saved}: state and "
+          f"checkpoints bitwise equal; loss first "
+          f"{straight['train_losses'][0]:.6f} last "
+          f"{straight['train_losses'][-1]:.6f}, val {straight['val_losses']}"
+          f"; ms per step by epoch (host clock, data loading included) "
+          + ", ".join(f"{ms:.3f}" for ms in straight["ms_per_step"])
+          + f"; one batch under the profiler {json.dumps(prof)}", flush=True)
+    return straight, prof
+
+
+def pcn_near_tie(points, center, n: int) -> bool:
+    """Whether the ``n``-th and ``n+1``-th nearest cloud points of point
+    ``center`` lie within PCN_TIE of each other's squared distance, where
+    the host's float32 norms and the card's squared distances may order
+    them apart."""
+    diff = points - points[center]
+    d2 = np.sort(diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
+                 + diff[:, 2] * diff[:, 2])
+    return d2[n] - d2[n - 1] <= PCN_TIE * d2[n]
+
+
+def phase_pcn_serving(tree, workdir, checkpoint):
+    """15(c) PCN_SHAPE at 140,000 points, gaussian sigma PCN_LEVEL, served
+    with (b)'s checkpoint by ``infer --pcn --device_voting`` (every point
+    a patch), then by ``infer --pcn`` on the host over the first
+    PCN_HOST_PATCHES patches of the same table (the host path serves ~580
+    patches a second).  Device = host within VOTE_TOL on every host patch
+    that does not underfill (a patch whose 500th and 501st neighbours are
+    a near-tie may take the other: counted and checked); the underfilled
+    ones counted with their largest difference; ``compute_cd`` on both
+    trees; no KPConv launch.  Returns the numbers."""
+    root = os.path.join(workdir, "pcn_serve")
+    os.makedirs(os.path.join(root, "qualitative_test"))
+    shutil.copy(os.path.join(tree, "qualitative_test", PCN_SHAPE + ".off"),
+                os.path.join(root, "qualitative_test"))
+    common = ["--config_file", PCN_PATH, "--data_root", root, "--checkpoint",
+              checkpoint, "--noise_type", "gaussian", "--noise_level",
+              str(PCN_LEVEL), "--pcn", "--device", "cuda"]
+    out = {}
+    reset_launches()
+    dev_dir = os.path.join(workdir, "pcn_out_device")
+    out["device"] = infer.main(common + ["--out_dir", dev_dir,
+                                         "--device_voting"])
+    make_dataset = infer.make_dataset
+
+    def cut(*args, **kwargs):
+        ds = make_dataset(*args, **kwargs)
+        ds.point_inds = ds.point_inds[:PCN_HOST_PATCHES]
+        ds.cloud_inds = ds.cloud_inds[:PCN_HOST_PATCHES]
+        ds.num_steps = PCN_HOST_PATCHES
+        return ds
+
+    host_dir = os.path.join(workdir, "pcn_out_host")
+    infer.make_dataset = cut
+    try:
+        out["host"] = infer.main(common + ["--out_dir", host_dir])
+    finally:
+        infer.make_dataset = make_dataset
+    if launch_counts() != (0, 0, 0):
+        raise AssertionError(f"PCN serving launched KPConv kernels: "
+                             f"{launch_counts()}")
+    dev, host = out["device"]["results"][0], out["host"]["results"][0]
+    n_points = len(dev["offsets"])
+    if n_points != PCN_CLOUD_POINTS or not np.isfinite(dev["offsets"]).all():
+        raise AssertionError(f"PCN serving: {n_points} points")
+    reals = dev["patch_reals"][:PCN_HOST_PATCHES]
+    got = dev["offsets"][:PCN_HOST_PATCHES].astype(np.float64)
+    want = host["offsets"][:PCN_HOST_PATCHES].astype(np.float64)
+    over = np.abs(got - want) - VOTE_TOL["atol"] \
+        - VOTE_TOL["rtol"] * np.abs(want)
+    full = reals == PCN_POINTS
+    bad = np.nonzero(full & (over.max(1) > 0))[0]
+    points = out["device"]["dataset"].shapes[0].points
+    ties = [int(i) for i in bad if pcn_near_tie(points, i, PCN_POINTS)]
+    if len(ties) != len(bad):
+        i = int(next(i for i in bad if int(i) not in ties))
+        raise AssertionError(f"PCN serving: patch {i} (full) device "
+                             f"{got[i]} against host {want[i]}")
+    diff = np.abs(got - want).max(1)
+    tables = {k: compute_cd.main(["--in_dir", d])
+              for k, d in (("device", dev_dir), ("host", host_dir))}
+    res = {"points": n_points,
+           "device_points_per_s": n_points / out["device"]["seconds"],
+           "host_patches": PCN_HOST_PATCHES,
+           "host_points_per_s": PCN_HOST_PATCHES / out["host"]["seconds"],
+           "full_max_abs_diff": float(diff[full].max())
+           if full.any() else None,
+           "near_ties": len(ties),
+           "underfilled": int((~full).sum()),
+           "underfilled_max_abs_diff": float(diff[~full].max())
+           if (~full).any() else None,
+           "underfilled_in_cloud": int((dev["patch_reals"]
+                                        < PCN_POINTS).sum()),
+           "cd_ratio_device": tables["device"]["mean"]["ratio"]}
+    print(f"15(c) PCN serving {PCN_SHAPE}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def phase_device_sampler(workdir, phase8_window=None):
+    """15(d) ``cfgs/l1.yaml`` with ``device_sampler: 1`` through the train
+    entry point at width 144, B=16, DS_STEPS steps on phase 8's sphere and
+    torus (clouds of DEPLOY_TRAIN_POINTS points), twice: 10 forward and 10
+    backward KPConv launches per step (10 forward per validation batch),
+    the two runs bitwise equal; then a profiler window of device-sampled
+    steps (the sampling on the card included) beside one of host-sampled
+    steps on the same data, and beside phase 8's host-sampled window
+    (``phase8_window``: device ms per step and busy share, on patch-like
+    random inputs) where that ran.  Returns the launches and the
+    windows."""
+    data_root = os.path.join(workdir, "ds_data")
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(data_root, split))
+        save_off(os.path.join(data_root, split, "sphere.off"),
+                 make_icosphere(4))
+        save_off(os.path.join(data_root, split, "torus.off"), make_torus())
+    with open(CONFIG) as f:
+        text = f.read()
+    config = os.path.join(workdir, "l1_device_sampler.yaml")
+    with open(config, "w") as f:
+        f.write(text + "\ndevice_sampler: 1\n")
+    cfg = load_config(config)
+    runs, counts = [], []
+    for i in range(2):
+        reset_launches()
+        runs.append(train_cli.main([
+            "--config_file", config, "--data_root", data_root,
+            "--log_dir", os.path.join(workdir, f"ds_log{i}"),
+            "--num_steps", str(DS_STEPS * int(cfg.batch_size)),
+            "--epochs", "1", "--val_freq", "1", "--num_points_per_shape",
+            str(DEPLOY_TRAIN_POINTS), "--device", "cuda"]))
+        counts.append(launch_counts())
+    steps, val = runs[0]["steps"], runs[0]["val_batches"]
+    if steps != DS_STEPS or counts != [(10 * (steps + val), 10 * steps,
+                                        0)] * 2:
+        raise AssertionError(f"device-sampled training: {steps} steps, "
+                             f"{val} val batches, launches {counts}")
+    for what, x, y in (("model", runs[0]["trainer"].model.state_dict(),
+                        runs[1]["trainer"].model.state_dict()),
+                       ("optimizer",
+                        runs[0]["trainer"].optimizer.state_dict(),
+                        runs[1]["trainer"].optimizer.state_dict())):
+        diff = grad_check.state_difference(x, y)
+        if diff:
+            raise AssertionError(f"device-sampled training: the two runs' "
+                                 f"{what} differ at {diff}")
+    if not np.isfinite(runs[0]["train_losses"]).all():
+        raise AssertionError(f"device-sampled training: losses "
+                             f"{runs[0]['train_losses']}")
+    trainer = runs[0]["trainer"]
+    cfg = trainer.cfg  # with the run's data root and overrides
+    ds = train_cli.offset_dataset(cfg, "train", 1,
+                                  build_train_transforms(cfg))
+    sampler = DeviceSampler(ds, cfg, trainer.device)
+    centers = sampler.centers(0, int(cfg.batch_size))[0]
+    generator = sample_generator(0, 0, trainer.device)
+
+    def sampled_step():
+        trainer.train_step(sampler.sample(centers, torch_draws(
+            sampler, generator, int(cfg.batch_size))))
+
+    host_batch = next(iter(BatchLoader(ds, int(cfg.batch_size))))
+    windows = {
+        "device_sampled": profile_window(
+            "device-sampled train step under the profiler", sampled_step,
+            PROFILE_STEPS_PCN),
+        "host_sampled": profile_window(
+            "host-sampled train step (one batch) under the profiler",
+            lambda: trainer.train_step(host_batch), PROFILE_STEPS_PCN)}
+    if phase8_window is not None:
+        windows["phase_8"] = dict(zip(("device_ms", "busy"), phase8_window))
+    print(f"15(d) l1.yaml with device_sampler: 1: {steps} steps, {val} val "
+          f"batches, launches (forward, backward, d_rel) {counts[0]}, two "
+          f"runs bitwise equal; loss first {runs[0]['train_losses'][0]:.6f}"
+          f" last {runs[0]['train_losses'][-1]:.6f}; ms per step (host "
+          f"clock, sampling included) {runs[0]['ms_per_step'][0]:.3f}; "
+          f"windows {json.dumps(windows)}", flush=True)
+    return counts[0], windows
+
+
+def phase_pcn(device, workdir, tree, phase8_window=None):
+    """Phase 15, the PointCleanNet baseline and on-card patch sampling:
+    (a) the PCN model on the card, (b) ``train_pcn`` with a kill and
+    ``--auto_resume``, (c) PCN serving by device and host, (d) l1.yaml
+    with ``device_sampler: 1``.  Returns the numbers and the launches of
+    the three paths."""
+    cfg = load_config(PCN_PATH)
+    if (int(cfg.batch_size), int(cfg.num_points), str(cfg.loss)) \
+            != (PCN_BATCH, PCN_POINTS, "L1"):
+        raise AssertionError(f"{PCN_CONFIG} is no longer B={PCN_BATCH}, "
+                             f"N={PCN_POINTS}, L1")
+    pcn_tree = os.path.join(workdir, "pcn_shapes")
+    for split, names in PCN_TREE.items():
+        os.makedirs(os.path.join(pcn_tree, split))
+        for name in names:
+            shutil.copy(os.path.join(tree, split, name + ".off"),
+                        os.path.join(pcn_tree, split))
+    res = {}
+    for part, fn in (("a", lambda: phase_pcn_model(device)),
+                     ("b", lambda: phase_pcn_training(pcn_tree, workdir)),
+                     ("c", lambda: phase_pcn_serving(
+                         tree, workdir, os.path.join(
+                             workdir, "pcn_resumed", PCN_CONFIG,
+                             "current.pt"))),
+                     ("d", lambda: phase_device_sampler(workdir,
+                                                        phase8_window))):
+        t0 = time.perf_counter()
+        res[part] = fn()
+        print(f"15({part}): {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"pcn_training": 0, "pcn_serving": 0,
+                "device_sampled_training": res["d"][0]}
+    summary = {"model": res["a"], "training_window": res["b"][1],
+               "serving": res["c"], "device_sampler_windows": res["d"][1]}
+    return summary, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only-kernels"], ["--only-aggregations"],
-                    ["--only-gan"]):
+                    ["--only-gan"], ["--only-pcn"]):
         print("usage: chip_smoke.py [--only-kernels | --only-aggregations "
-              "| --only-gan]", file=sys.stderr)
+              "| --only-gan | --only-pcn]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3457,6 +3947,15 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"drel": record, "launches": path_gan}))
         return 0
+    if argv == ["--only-pcn"]:
+        # phase 15 alone, on a tree of its own
+        with tempfile.TemporaryDirectory() as workdir, phase("pcn"):
+            tree = os.path.join(workdir, "shapes")
+            make_synthetic_dataset.write_tree(tree, verbose=False)
+            summary, path_pcn = phase_pcn(device, workdir, tree)
+        print(smi)
+        print(json.dumps({"pcn": summary, "launches": path_pcn}))
+        return 0
     with phase("kernel vs plain"):
         record = phase_kernels(cfg, device)
     if argv:  # the kernels' phases alone, for comparing checkouts
@@ -3478,7 +3977,8 @@ def main(argv=None) -> int:
     with phase("whole-model gradients"):
         phase_model_grad(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("training"):
-        train_fwd, train_bwd = phase_training(cfg, device, workdir)
+        train_fwd, train_bwd, phase8_window = phase_training(cfg, device,
+                                                              workdir)
     with tempfile.TemporaryDirectory() as deploy_dir, \
             tempfile.TemporaryDirectory() as seg_dir:
         tree = os.path.join(deploy_dir, "shapes")
@@ -3501,14 +4001,19 @@ def main(argv=None) -> int:
             drel_record, path_gan = phase_gan(
                 device, workdir, tree, os.path.join(
                     deploy_dir, "log", DEPLOY_CONFIGS[0], "current.pt"))
-    # launches: this slice's path (discriminator pre-training, GAN
-    # fine-tuning and the fine-tuned generator served); every path's in the
-    # detail
-    gan_paths = ("disc_pretraining", "gan_training")
+        # on phase 9's shape tree
+        with tempfile.TemporaryDirectory() as workdir, phase("pcn"):
+            pcn_summary, path_pcn = phase_pcn(device, workdir, tree,
+                                              phase8_window)
+    # launches: this slice's path (l1.yaml trained with device_sampler: 1;
+    # the PCN's training and serving launch no KPConv kernel); every
+    # path's in the detail
+    ds_fwd, ds_bwd, _ = path_pcn["device_sampled_training"]
     record.update(
-        launches=sum(path_gan[k][0] for k in gan_paths)
-        + path_gan["gan_serving"],
+        launches=ds_fwd,
         launches_by_path={
+            "device_sampled_training": ds_fwd, "pcn_training": 0,
+            "pcn_serving": 0,
             "disc_pretraining": path_gan["disc_pretraining"][0],
             "gan_training": path_gan["gan_training"][0],
             "gan_serving": path_gan["gan_serving"],
@@ -3519,10 +4024,13 @@ def main(argv=None) -> int:
             "15k_serving": path_15k["serving"],
             "outlier_seg_training": path_seg["training"][0],
             "outlier_seg_eval": path_seg["eval"]},
-        shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"])
+        shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"],
+        pcn=pcn_summary)
     bwd_record.update(
-        launches=sum(path_gan[k][1] for k in gan_paths),
+        launches=ds_bwd,
         launches_by_path={
+            "device_sampled_training": ds_bwd, "pcn_training": 0,
+            "pcn_serving": 0,
             "disc_pretraining": path_gan["disc_pretraining"][1],
             "gan_training": path_gan["gan_training"][1], "gan_serving": 0,
             "serving": 0, "training": train_bwd,  # inference checks its 0

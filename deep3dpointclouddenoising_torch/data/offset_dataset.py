@@ -18,6 +18,12 @@ seed gives the same noisy clouds and the same patches:
   slot 0, recentres it and, for training, augments points and offsets
   together; features are the patch's xyz (or its Fourier features).
 
+``architecture="PCN"`` (the PointCleanNet baseline) makes every cloud
+point a patch centre in a test split, pads an underfilled patch with
+cloud point 0 in distance order (no shuffle) and gives ``points``,
+``center_ind`` (0), ``cloud_ind``, ``input_inds`` and ``offsets``: the
+centre's (3,) offset in a test split, all (N, 3) otherwise.
+
 ``self.rng`` is consumed in a fixed order (the Fourier matrix, then each
 shape's noise, then the patch table), which decides every patch.
 Processed shapes are cached as ``.npz`` under ``<data_root>/processed_torch``
@@ -213,6 +219,7 @@ class OffsetDataset:
                  noise_type: str = "gaussian", noise_level: float = 5e-3,
                  num_points_per_shape: int = 140000,
                  outlier_proportion: float = 0.0, transforms=None,
+                 architecture: str = "U-Net",
                  sample_dl_patches: Optional[float] = None,
                  fourier_features: bool = False,
                  subsampling_parameter: float = 0.0, seed: int = 0,
@@ -227,6 +234,7 @@ class OffsetDataset:
         self.num_steps = num_steps
         self.num_epochs = num_epochs
         self.transforms = transforms
+        self.architecture = architecture
         self.fourier_features = fourier_features
         self.subsampling_parameter = subsampling_parameter
         self.epoch = 0
@@ -318,8 +326,11 @@ class OffsetDataset:
             return
         pts_ls, cloud_ls = [], []
         for i, s in enumerate(self.shapes):
-            sub = grid_subsample(s.points, sample_dl_patches)
-            inds = np.array([self.indexes[i].nearest(c) for c in sub])
+            if self.architecture == "PCN":  # a patch per cloud point
+                inds = np.arange(len(s.points))
+            else:
+                sub = grid_subsample(s.points, sample_dl_patches)
+                inds = np.array([self.indexes[i].nearest(c) for c in sub])
             pts_ls.append(inds.ravel())
             cloud_ls.append(np.full(len(pts_ls[-1]), i))
         self.point_inds = np.concatenate(pts_ls)
@@ -356,9 +367,13 @@ class OffsetDataset:
             input_inds = keep[rng.permutation(self.num_points)]
             mask = np.ones(self.num_points, np.float32)
         else:
-            query_inds = query_inds[rng.permutation(cur)]
-            pad = rng.integers(0, cur, self.num_points - cur)
-            input_inds = np.concatenate([query_inds, query_inds[pad]])
+            if self.architecture == "PCN":  # pads: cloud point 0
+                input_inds = np.concatenate([query_inds, np.zeros(
+                    self.num_points - cur, np.int64)])
+            else:
+                query_inds = query_inds[rng.permutation(cur)]
+                pad = rng.integers(0, cur, self.num_points - cur)
+                input_inds = np.concatenate([query_inds, query_inds[pad]])
             mask = np.zeros(self.num_points, np.float32)
             mask[:cur] = 1.0
 
@@ -374,6 +389,13 @@ class OffsetDataset:
             stack = self.transforms(np.concatenate([points, offsets]), rng)
             points = stack[: self.num_points]
             offsets = stack[self.num_points:]
+        if self.architecture == "PCN":
+            return {"points": points.astype(np.float32),
+                    "center_ind": np.int64(0),
+                    "cloud_ind": np.int64(cloud_ind),
+                    "input_inds": input_inds.astype(np.int64),
+                    "offsets": (offsets[0] if "test" in self.split
+                                else offsets).astype(np.float32)}
         feats = fourier_input_mapping(points, self.fourier_B) \
             if self.fourier_features else points
         return {

@@ -54,7 +54,18 @@ routed to.  Run it as::
         --out_dir O [--checkpoint L/<experiment>/current.pt] \\
         [--checkpoint_low auto|none|PATH] [--route_sigma 0.002] \\
         [--noise_type gaussian] [--noise_level 0.005] [--num_votes N] \\
-        [--device_voting] [--full_cleaning] [--device cuda]
+        [--device_voting] [--full_cleaning | --pcn] [--device cuda]
+
+The PointCleanNet baseline (``--pcn``, :func:`denoise_clouds_pcn`,
+:func:`denoise_clouds_pcn_device`): one patch per cloud point (the PCN
+``OffsetDataset``), the ``ResPCPNet`` predicting the centre's offset alone,
+rotated back through its point STN and written to that point; losses
+other than ``L1`` see the patch divided by ``in_radius`` and the offset
+multiplied back.  The host path assembles each patch on the host (an
+underfilled patch padded with cloud point 0); ``--pcn --device_voting``
+cuts the patches on the card from the uploaded clouds
+(``data.device_sampler``, pads cycling real neighbours) and writes the
+predictions into one offsets tensor there, copied back once.  No routing.
 
 The repository holds no trained checkpoint: without ``--checkpoint`` the
 model's weights are initialised from ``--seed`` (and nothing is routed).
@@ -71,12 +82,14 @@ import numpy as np
 import torch
 
 from .config import Config, load_config
-from .data.device_sampler import cloud_data
+from .data.device_sampler import DeviceSampler, cloud_data, torch_draws
 from .data.loader import BatchLoader
 from .data.meshio import write_ply
 from .data.offset_dataset import OffsetDataset, fourier_input_mapping
 from .evaluate import estimate_noise_sigma
-from .models import build_complete_denoising, build_offset_regression
+from .models import (build_complete_denoising, build_offset_regression,
+                     build_offset_regression_PCN)
+from .train.pcn import rotate_back
 from .utils.checkpoint import load_model_state
 from .utils.device import resolve_device
 
@@ -424,25 +437,116 @@ def clean_clouds_device(predict_fn, dataset: OffsetDataset,
 
 
 def make_dataset(cfg: Config, data_root: str,
-                 split: str = "qualitative_test") -> OffsetDataset:
+                 split: str = "qualitative_test",
+                 architecture: str = "U-Net") -> OffsetDataset:
     return OffsetDataset(
         data_root, split, in_radius=cfg.in_radius,
         num_points=cfg.num_points, noise_type=cfg.noise_type,
         noise_level=cfg.noise_level,
         num_points_per_shape=cfg.num_points_per_shape,
         outlier_proportion=cfg.outlier_percentage,
+        architecture=architecture,
         fourier_features=bool(cfg.fourier_features),
         sample_dl_patches=cfg.sample_Dl_patches, seed=cfg.rng_seed)
 
 
+def pcn_scale(cfg: Config) -> float:
+    """What a PCN patch is divided by before the network and its offset
+    multiplied by after it: ``in_radius`` for losses other than ``L1``."""
+    return float(cfg.in_radius) if cfg.loss != "L1" else 1.0
+
+
+def make_pcn_predict_fn(model: torch.nn.Module, scale: float = 1.0
+                        ) -> Callable[[np.ndarray], torch.Tensor]:
+    """``points (B, N, 3) -> offsets (B, 3)`` of the patch centres on the
+    model's device, in eval mode, rotated back through the point STN;
+    the patch is divided by ``scale`` and the offset multiplied by it.
+    The tensor stays on the device."""
+    model.eval()
+    device = next(model.parameters()).device
+
+    def predict(points) -> torch.Tensor:
+        with torch.inference_mode():
+            pts = _on(device, points)
+            pred, trans, _ = model(pts / scale if scale != 1.0 else pts)
+            return rotate_back(pred, trans) * scale
+
+    return predict
+
+
+def denoise_clouds_pcn(predict_fn, dataset: OffsetDataset,
+                       batch_size: int = 64) -> List[Dict[str, np.ndarray]]:
+    """PointCleanNet-baseline denoising on the host path: one patch per
+    cloud point (a PCN ``OffsetDataset`` of a test split), each centre's
+    predicted offset written to that point.  ``predict_fn`` maps the
+    batch's points (B, N, 3) to (B, 3) offsets (:func:`make_pcn_predict_fn`);
+    up to two predictions stay in flight."""
+    offsets = [np.zeros((len(s.points), 3), np.float32)
+               for s in dataset.shapes]
+
+    def scatter(pred, batch):
+        pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) \
+            else np.asarray(pred)
+        for b in range(len(pred)):
+            offsets[int(batch["cloud_ind"][b])][
+                int(batch["input_inds"][b][0])] = pred[b]
+
+    in_flight: deque = deque()
+    for batch in BatchLoader(dataset, batch_size):
+        in_flight.append((predict_fn(batch["points"]), batch))
+        while len(in_flight) > 2:
+            scatter(*in_flight.popleft())
+    while in_flight:
+        scatter(*in_flight.popleft())
+    return _results(dataset, offsets)
+
+
+def denoise_clouds_pcn_device(model: torch.nn.Module, cfg: Config,
+                              dataset: OffsetDataset, batch_size: int = 64,
+                              device=None) -> List[Dict[str, np.ndarray]]:
+    """:func:`denoise_clouds_pcn` with the patches cut on ``device``
+    (default: the card; raises without one): the clouds are uploaded once,
+    each batch of the (cloud, point) table is sampled there
+    (``DeviceSampler.sample`` without augmentation, its draws from one
+    generator seeded with 0), predicted by ``model`` and written into one
+    offsets tensor on the device; one copy back at the end.  Each result
+    also holds ``patch_reals``: the real points of each point's patch."""
+    device = resolve_device(device)
+    sampler = DeviceSampler(dataset, cfg, device)
+    table = torch.from_numpy(np.stack(
+        [sampler.cloud_inds, sampler.point_inds], -1)).to(device)
+    n_clouds, max_n = sampler.data["points"].shape[:2]
+    out = torch.zeros((n_clouds, max_n, 3), device=device)
+    reals = torch.zeros((n_clouds, max_n), dtype=torch.int32, device=device)
+    scale = pcn_scale(cfg)
+    generator = torch.Generator(device=device).manual_seed(0)
+    model.eval()
+    with torch.inference_mode():
+        for s in range(0, len(table), batch_size):
+            c = table[s:s + batch_size]
+            batch = sampler.sample(c, torch_draws(
+                sampler, generator, len(c), augment=False), augment=False)
+            pts = batch["points"]
+            pred, trans, _ = model(pts / scale if scale != 1.0 else pts)
+            out[c[:, 0], c[:, 1]] = rotate_back(pred, trans) * scale
+            reals[c[:, 0], c[:, 1]] = batch["mask"].sum(1).int()
+    out, reals = out.cpu().numpy(), reals.cpu().numpy()
+    results = _results(dataset, [out[i, :len(sh.points)]
+                                 for i, sh in enumerate(dataset.shapes)])
+    for i, (res, sh) in enumerate(zip(results, dataset.shapes)):
+        res["patch_reals"] = reals[i, :len(sh.points)]
+    return results
+
+
 def load_model(cfg: Config, device, checkpoint: Optional[str] = None,
-               seed: int = 0, full_cleaning: bool = False
+               seed: int = 0, full_cleaning: bool = False, pcn: bool = False
                ) -> torch.nn.Module:
-    """The offset model (the full-cleaning model with ``full_cleaning``)
-    in eval mode on ``device``: weights from a checkpoint (a training
-    checkpoint or a saved ``state_dict``), else initialised by a generator
-    seeded with ``seed``."""
-    build = build_complete_denoising if full_cleaning \
+    """The offset model (the full-cleaning model with ``full_cleaning``,
+    the PCN baseline with ``pcn``) in eval mode on ``device``: weights
+    from a checkpoint (a training checkpoint or a saved ``state_dict``),
+    else initialised by a generator seeded with ``seed``."""
+    build = build_offset_regression_PCN if pcn \
+        else build_complete_denoising if full_cleaning \
         else build_offset_regression
     model = build(cfg, generator=torch.Generator().manual_seed(seed))
     if checkpoint:
@@ -493,7 +597,8 @@ def run(config_file: str, data_root: str, out_dir: str,
         device=None, noise_type: Optional[str] = None,
         noise_level: Optional[float] = None,
         checkpoint_low: Optional[str] = "auto", route_sigma: float = 0.002,
-        device_voting: bool = False, full_cleaning: bool = False) -> Dict:
+        device_voting: bool = False, full_cleaning: bool = False,
+        pcn: bool = False) -> Dict:
     """The command line's work: denoise every ``qualitative_test`` shape
     under ``data_root`` and write the PLY trees.
 
@@ -502,6 +607,8 @@ def run(config_file: str, data_root: str, out_dir: str,
     that :func:`_auto_low_checkpoint` finds, if any) or None / ``"none"``.
     ``full_cleaning``: the four-output model, :func:`clean_clouds` (or
     :func:`clean_clouds_device`), outputs left unscaled by the predictor.
+    ``pcn``: the PointCleanNet baseline (:func:`denoise_clouds_pcn`, or
+    :func:`denoise_clouds_pcn_device`), no routing.
     Returns a summary: the dataset, the per-cloud results, the seconds the
     voting took, the low checkpoint, and per cloud the estimated sigma and
     whether it routed low (empty without routing)."""
@@ -511,10 +618,26 @@ def run(config_file: str, data_root: str, out_dir: str,
         cfg.noise_type = noise_type
     if noise_level is not None:
         cfg.noise_level = noise_level
-    dataset = make_dataset(cfg, data_root)
-    model = load_model(cfg, device, checkpoint, seed, full_cleaning)
+    dataset = make_dataset(cfg, data_root,
+                           architecture="PCN" if pcn else "U-Net")
     print(f"weights: {checkpoint}" if checkpoint else
           f"weights: no checkpoint, initialised from --seed {seed}")
+    batch_size = int(cfg.batch_size)
+    if pcn:
+        model = load_model(cfg, device, checkpoint, seed, pcn=True)
+        t0 = time.perf_counter()
+        if device_voting:
+            results = denoise_clouds_pcn_device(model, cfg, dataset,
+                                                batch_size, device)
+        else:
+            results = denoise_clouds_pcn(
+                make_pcn_predict_fn(model, pcn_scale(cfg)), dataset,
+                batch_size)
+        seconds = time.perf_counter() - t0
+        write_results(out_dir, dataset, results)
+        return {"dataset": dataset, "results": results, "seconds": seconds,
+                "checkpoint_low": None, "sigmas": [], "route_low": []}
+    model = load_model(cfg, device, checkpoint, seed, full_cleaning)
     norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
     scale_outputs = not full_cleaning
     predict = make_predict_fn(model, norm_factor, scale_outputs)
@@ -539,7 +662,6 @@ def run(config_file: str, data_root: str, out_dir: str,
             scale_outputs)
         predict = make_routed_predict_fn(predict, predict_lo, route_low)
     t0 = time.perf_counter()
-    batch_size = int(cfg.batch_size)
     if full_cleaning and device_voting:
         results = clean_clouds_device(predict, dataset, batch_size,
                                       norm_factor=norm_factor,
@@ -592,6 +714,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     p.add_argument("--full_cleaning", action="store_true",
                    help="the four-output model: drop the points predicted "
                         "as outliers and denoise the others")
+    p.add_argument("--pcn", action="store_true",
+                   help="the PointCleanNet baseline: one patch per cloud "
+                        "point, the ResPCPNet predicting its centre's "
+                        "offset (with --device_voting the patches are cut "
+                        "on the device)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -599,7 +726,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         args.config_file, args.data_root, args.out_dir, args.checkpoint,
         args.num_votes, args.seed, args.device, args.noise_type,
         args.noise_level, args.checkpoint_low, args.route_sigma,
-        args.device_voting, args.full_cleaning)
+        args.device_voting, args.full_cleaning, args.pcn)
     dataset, seconds = summary["dataset"], summary["seconds"]
     n_points = sum(len(s.points) for s in dataset.shapes)
     print(f"denoised {len(summary['results'])} clouds ({n_points} points, "

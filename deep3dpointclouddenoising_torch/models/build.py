@@ -173,3 +173,14 @@ def build_discriminator(cfg: Config,
     """The GAN discriminator; its loss is
     ``losses.masked.masked_binary_cross_entropy`` with an all-ones mask."""
     return DiscriminatorModel(cfg, generator)
+
+
+def build_offset_regression_PCN(cfg: Config,
+                                generator: Optional[torch.Generator] = None
+                                ):
+    """The PointCleanNet baseline: a ``ResPCPNet`` regressing one offset
+    per patch (its loss and the rotation back through the point STN are
+    ``train.pcn.PCNTrainer``'s)."""
+    from .pcpnet import ResPCPNet
+    return ResPCPNet(output_dim=OFFSET_REG_DIM, use_feat_stn=True,
+                     sym_op="max", generator=generator)

@@ -117,12 +117,14 @@ def _host_us_per_call(prof, key: str, steps: int) -> None:
                   f"step")
 
 
-def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
+def profile_train_steps(trainer: Trainer, batch, steps: int = 5):
     """Wall time per train step on one batch, synchronised at the end of
     20 steps with no profiler; then a profiler window over ``steps`` train
     steps: wall and device time per step, the busy share, device time by
     kernel, the KPConv kernels' device time per call and the host time of
-    the aggregation's autograd nodes per call."""
+    the aggregation's autograd nodes per call.  Returns the window's
+    ``(device ms per step, busy share)``, or ``None`` when the profiler
+    saw no device time."""
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()
@@ -140,7 +142,8 @@ def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    window_summary("train step under the profiler", prof, wall, steps)
+    summary = window_summary("train step under the profiler", prof, wall,
+                             steps)
     _per_call(prof, "kpconv_fwd_kernel", steps)
     for kernel in ("kpconv_bwd_invert", "kpconv_bwd_kernel",
                    "kpconv_bwd_reduce"):  # the training path's backward
@@ -148,6 +151,7 @@ def profile_train_steps(trainer: Trainer, batch, steps: int = 5) -> None:
     us = sum(u for name, u in _device_events(prof) if "kpconv_bwd" in name)
     print(f"kpconv_bwd kernels together: {us / steps / 1e3:.4f} ms per step")
     _host_us_per_call(prof, "KPConvAggregate", steps)
+    return summary
 
 
 def _batch(cfg, device, seed: int = 1):

@@ -25,12 +25,18 @@ unless ``--auto_resume`` finds a checkpoint; ``--auto_resume`` restores
 directory and goes on from the epoch after the last one it completed.
 Batches, validation and checkpoints depend on the epoch number alone
 (each patch draws from a generator seeded by its index), so a resumed run
-repeats an unbroken one.  The loss is read back from the card only every
-``print_freq`` steps, so the host prepares batches while the card
-computes.  The JAX package's ``steps_per_dispatch`` (scan-fused steps, a
-workaround for the TPU's remote link) is read from the config and
-ignored: every step is its own dispatch.  ``remat: 1`` in the config
-recomputes the encoder's bottlenecks in the backward
+repeats an unbroken one.  ``device_sampler: 1`` in the config (as
+``scripts/train.py`` reads it) uploads the training clouds to the card
+once and cuts and augments each step's patches there
+(``data.device_sampler``): per step the host takes the (B, 2) centres of
+the dataset's table and seeds the step's generator on the card from
+(``rng_seed``, the global step), so a resumed run draws what an unbroken
+one draws; validation keeps the host path.  The loss is read back from
+the card only every ``print_freq`` steps, so the host prepares batches
+while the card computes.  The JAX package's ``steps_per_dispatch``
+(scan-fused steps, a workaround for the TPU's remote link) is read from
+the config and ignored: every step is its own dispatch.  ``remat: 1`` in
+the config recomputes the encoder's bottlenecks in the backward
 (``models/resnet.py``).
 """
 from __future__ import annotations
@@ -44,6 +50,8 @@ import numpy as np
 import torch
 
 from ..config import load_config
+from ..data.device_sampler import DeviceSampler, sample_generator, \
+    torch_draws
 from ..data.loader import BatchLoader
 from ..data.offset_dataset import OffsetDataset
 from ..data.transforms import build_train_transforms
@@ -51,6 +59,7 @@ from ..utils.checkpoint import (load_checkpoint, load_weights,
                                 resume_checkpoint, save_checkpoint)
 from ..utils.device import resolve_device
 from ..utils.metrics import AverageMeter
+from .pcn import PCNTrainer
 from .trainer import Trainer
 
 _OVERRIDES = ("batch_size", "num_points", "width", "num_steps", "epochs",
@@ -73,6 +82,8 @@ _CLIS = {
         "python -m deep3dpointclouddenoising_torch.train_discriminator",
         "Discriminator pre-training (clean against raw noisy) on one "
         "card."),
+    "pcn": ("python -m deep3dpointclouddenoising_torch.train_pcn",
+            "PointCleanNet-baseline (ResPCPNet) training on one card."),
 }
 
 
@@ -204,7 +215,8 @@ def _normed(batch: Dict[str, np.ndarray], norm_factor: Optional[float]):
 
 
 def offset_dataset(cfg, split: str, num_epochs: int,
-                   transforms=None) -> OffsetDataset:
+                   transforms=None, architecture: str = "U-Net"
+                   ) -> OffsetDataset:
     """The offset dataset of a split of ``cfg.data_root``, as the
     training entry points build it."""
     return OffsetDataset(
@@ -214,6 +226,7 @@ def offset_dataset(cfg, split: str, num_epochs: int,
         noise_level=cfg.noise_level,
         num_points_per_shape=cfg.num_points_per_shape,
         outlier_proportion=cfg.outlier_percentage, transforms=transforms,
+        architecture=architecture,
         fourier_features=bool(cfg.fourier_features), seed=cfg.rng_seed,
         diverse_levels=list(cfg.diverse_levels) or None)
 
@@ -230,20 +243,39 @@ def main(argv: Optional[List[str]] = None,
                               build_train_transforms(cfg))
     val_ds = offset_dataset(cfg, "val", 1)
     norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
+    sampler = None
+    if cfg.device_sampler:
+        sampler = DeviceSampler(train_ds, cfg, device)
+        print("device sampler: the training clouds are on the card, each "
+              "step's patches are cut there", flush=True)
     return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
-               norm_factor, args.load_weights_path, args.auto_resume)
+               norm_factor, args.load_weights_path, args.auto_resume,
+               sampler)
+
+
+def sampled_batches(sampler: DeviceSampler, epoch: int, batch_size: int,
+                    seed: int, first_step: int):
+    """The batches of ``epoch`` (from 1) cut on the card: step ``it``
+    draws from ``sample_generator(seed, first_step + it)``."""
+    for it, centers in enumerate(sampler.centers(epoch - 1, batch_size)):
+        generator = sample_generator(seed, first_step + it, sampler.device)
+        yield sampler.sample(centers, torch_draws(sampler, generator,
+                                                  batch_size))
 
 
 def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
         loss_mode: str, norm_factor: Optional[float] = None,
-        load_weights_path: Optional[str] = None, auto_resume: bool = False
-        ) -> Dict[str, Any]:
+        load_weights_path: Optional[str] = None, auto_resume: bool = False,
+        sampler: Optional[DeviceSampler] = None) -> Dict[str, Any]:
     """Epochs ``cfg.start_epoch..cfg.epochs`` of train steps over
     ``train_ds`` (its ragged last batch dropped), a validation pass over
     ``val_ds`` every ``cfg.val_freq`` epochs, and a checkpoint per epoch
     under ``<log_dir>/<experiment_name>``, from the state that
     :func:`restore_run` restores (``cfg.load_path``,
-    ``load_weights_path``, ``auto_resume``).  Returns a summary: every
+    ``load_weights_path``, ``auto_resume``).  ``loss_mode`` ``"pcn"``
+    trains the PCN baseline (``PCNTrainer``); with ``sampler`` the train
+    batches are cut on the card (:func:`sampled_batches`, normalised
+    there).  Returns a summary: every
     train loss, the val losses, ms per step of each epoch, the step count,
     val batches, the last checkpoint's path, what was restored and the
     trainer."""
@@ -254,9 +286,11 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
     print(f"device {device}; train patches {len(train_ds)} "
           f"({len(train_loader)} steps per epoch), val patches "
           f"{len(val_ds)}", flush=True)
-    trainer = Trainer(cfg, len(train_loader),
-                      torch.Generator().manual_seed(int(cfg.rng_seed)),
-                      device, loss_mode=loss_mode)
+    generator = torch.Generator().manual_seed(int(cfg.rng_seed))
+    trainer = PCNTrainer(cfg, len(train_loader), generator, device) \
+        if loss_mode == "pcn" else Trainer(cfg, len(train_loader),
+                                           generator, device,
+                                           loss_mode=loss_mode)
     restored = restore_run(trainer, cfg, log_dir, len(train_loader),
                            load_weights_path, auto_resume)
     summary: Dict[str, Any] = {"train_losses": [], "val_losses": [],
@@ -268,8 +302,13 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
         pending: List = []  # (loss on the device, batch size)
         t0 = time.perf_counter()
         steps = 0
-        for it, batch in enumerate(train_loader.epoch_iter(epoch - 1)):
-            loss = trainer.train_step(_normed(batch, norm_factor))
+        batches = (sampled_batches(sampler, epoch, batch_size,
+                                   int(cfg.rng_seed), trainer.step)
+                   if sampler is not None else
+                   (_normed(b, norm_factor)
+                    for b in train_loader.epoch_iter(epoch - 1)))
+        for it, batch in enumerate(batches):
+            loss = trainer.train_step(batch)
             pending.append((loss, len(batch["points"])))
             steps += 1
             if it % int(cfg.print_freq) == 0:

@@ -285,3 +285,53 @@ def check_model_gradients(grads: Dict) -> List[Tuple[str, float, float,
                 worst[what] = (d / limit, d, limit, name)
     return [(what, d, limit, name)
             for what, (_, d, limit, name) in worst.items()]
+
+
+# the card's float64 gradients against the CPU's, relative L2: the same
+# function in float64, where even amplified rounding stays far below it
+DEVICE_FLOAT64_TOL = 1e-6
+
+
+def check_device_gradients(names: List[str], card: List[torch.Tensor],
+                           cpu: List[torch.Tensor],
+                           cpu64: List[torch.Tensor],
+                           card64: List[torch.Tensor]) -> Dict:
+    """Hold gradients computed on the card to the CPU's, tensor by tensor.
+    ``card`` and ``cpu`` are float32, ``card64`` and ``cpu64`` the same
+    model in float64.  Every ``card64`` within ``DEVICE_FLOAT64_TOL`` of
+    ``cpu64``, by the L2 norm of the difference over that of ``cpu64``
+    or over a thousandth of the largest ``cpu64`` norm, whichever is
+    larger (a Dense bias before a train-mode BatchNorm has a gradient of
+    exactly zero, which both give as rounding); every ``card`` finite and,
+    by the
+    full-path rule above, within ``NOISE_FACTOR`` times the CPU's own
+    float32 distance from float64 (floor ``FULL_PATH_FLOOR``) of
+    ``cpu64``, except a tensor that float32 does not pin so far (a
+    train-mode BatchNorm over a small batch amplifies rounding by up to
+    1/sqrt(eps), and one float32 noise sample then says little of
+    another): that one is decided by its float64 comparison alone.
+    Raises AssertionError naming the first tensor over its limit; returns
+    the float32 tensor nearest its limit, the largest float64 distance and
+    the tensors decided in float64."""
+    nearest, worst64, by64 = (0.0, ""), 0.0, []
+    floor = 1e-3 * max(ref.double().norm().item() for ref in cpu64)
+    for name, got, plain, ref, got64 in zip(names, card, cpu, cpu64,
+                                            card64):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"gradient of {name} is not finite")
+        ref = ref.double()
+        d64 = ((got64.double() - ref).norm()
+               / max(ref.norm().item(), floor)).item()
+        if d64 > DEVICE_FLOAT64_TOL:
+            raise AssertionError(f"float64 gradient of {name}: {d64:.3e} "
+                                 f"from the CPU's (limit "
+                                 f"{DEVICE_FLOAT64_TOL:.0e})")
+        worst64 = max(worst64, d64)
+        limit = max(NOISE_FACTOR * l2_distance(plain, ref), FULL_PATH_FLOOR)
+        ratio = l2_distance(got, ref) / limit
+        if ratio > 1.0:
+            by64.append(name)
+        else:
+            nearest = max(nearest, (ratio, name))
+    return {"nearest": nearest, "float64_max_l2": worst64,
+            "decided_in_float64": by64}

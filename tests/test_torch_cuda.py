@@ -900,3 +900,164 @@ def test_gan_g_step_asks_d_rel_at_level0_only(card, monkeypatch):
     differ = [n for n, t in states[0].items()
               if not torch.equal(t, states[1][n])]
     assert not differ, f"{len(differ)} tensors differ, first {differ[0]}"
+
+
+def _pcn_model(seed=0):
+    """The PCN baseline with its own init and O(1) BatchNorm statistics,
+    so that eval mode reads them."""
+    from deep3dpointclouddenoising_torch.models.pcpnet import ResPCPNet
+    model = ResPCPNet(generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.from_numpy(
+                    rng.normal(size=buf.shape).astype(np.float32) * 0.5))
+            elif name.endswith("running_var"):
+                buf.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 2.0, size=buf.shape).astype(np.float32)))
+    return model
+
+
+def _patches(rng, B, N, radius=0.05):
+    """Patch-like clouds of differing extent and place."""
+    x = rng.normal(size=(B, N, 3))
+    x = radius * x / np.linalg.norm(x, axis=-1, keepdims=True) \
+        * rng.random((B, N, 1)) * rng.uniform(0.3, 1.0, size=(B, 1, 1))
+    return (x + rng.normal(size=(B, 1, 3)) * radius).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_pcn_forward_and_gradients_on_card_match_cpu(card):
+    """The PCN baseline at B=64, N=500 on the card against the CPU: the
+    eval forward element by element within the larger of rtol 5e-4 /
+    atol 5e-5 and three times its own float32 noise (grad_check's
+    forward rule; TF32 is off); every parameter's train-mode gradient of
+    the L1 loss by ``grad_check.check_device_gradients``: the card's
+    float64 within 1e-6 (relative L2) of the CPU's float64, and the
+    card's float32 within three times the CPU's own float32-vs-float64
+    distance (floor 2e-2) where float32 pins the tensor at all (train
+    mode normalises over the batch after the max over points, which
+    amplifies float32 rounding)."""
+    from deep3dpointclouddenoising_torch.train.pcn import rotate_back
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(_patches(rng, 64, 500))
+    target = torch.from_numpy((rng.normal(size=(64, 3)) * 1e-3).astype(
+        np.float32))
+    model = _pcn_model()
+    copies = {"card": copy.deepcopy(model).to(card), "cpu": model,
+              "float64": grad_check.float64_copy(model),
+              "card64": grad_check.float64_copy(model).to(card)}
+    out, grads = {}, {}
+    for key, m in copies.items():
+        dev = next(m.parameters()).device
+        dtype = next(m.parameters()).dtype
+        xi = x.to(dev, dtype)
+        m.eval()
+        with torch.no_grad():
+            out[key] = rotate_back(*m(xi)[:2]).cpu().double()
+        m.train()
+        pred, trans, _ = m(xi)
+        loss = torch.mean(torch.abs(rotate_back(pred, trans)
+                                    - target.to(dev, dtype)))
+        grads[key] = [g.cpu().double() for g in torch.autograd.grad(
+            loss, list(m.parameters()))]
+    grad_check.check_forward(out["card"], out["cpu"], out["float64"],
+                             rtol=5e-4, atol=5e-5)
+    held = grad_check.check_device_gradients(
+        [n for n, _ in model.named_parameters()], grads["card"],
+        grads["cpu"], grads["float64"], grads["card64"])
+    assert held["float64_max_l2"] <= grad_check.DEVICE_FLOAT64_TOL
+
+
+def _sampler_dataset(tmp_path, fourier=False, num_steps=16):
+    from deep3dpointclouddenoising_torch.data.offset_dataset import \
+        OffsetDataset
+    from deep3dpointclouddenoising_torch.data.synthetic import (
+        make_icosphere, make_torus)
+    return OffsetDataset(str(tmp_path), "train", in_radius=0.08,
+                         num_points=64, num_steps=num_steps, num_epochs=2,
+                         num_points_per_shape=3000, noise_type="gaussian",
+                         noise_level=0.005, seed=0,
+                         fourier_features=fourier,
+                         shapes={"sphere": make_icosphere(2),
+                                 "torus": make_torus(12, 8)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fourier", [False, True])
+def test_device_sampler_on_card_matches_cpu(card, tmp_path, fourier):
+    """``DeviceSampler.sample`` on the card with draws fixed on the CPU
+    (augmentation with jitter, ``norm``) against the same call on the
+    CPU: indices, mask and labels equal; points, offsets and features
+    within rtol 1e-5 and an atol of 1e-6 of their max-abs (the card's
+    sin and cos round otherwise)."""
+    from deep3dpointclouddenoising_torch.config import default_config
+    from deep3dpointclouddenoising_torch.data.device_sampler import (
+        DeviceSampler, SamplerDraws, torch_draws)
+    ds = _sampler_dataset(tmp_path, fourier)
+    cfg = default_config()
+    cfg.num_points, cfg.in_radius, cfg.jitter, cfg.norm = 64, 0.08, 1, 1
+    cfg.scale_low, cfg.scale_high = 0.8, 1.2
+    cfg.noise_std, cfg.noise_clip = 1e-3, 2e-3
+    samplers = {d: DeviceSampler(ds, cfg, d) for d in ("cpu", card)}
+    centers = samplers["cpu"].centers(0, 8)[0]
+    fixed = {}
+
+    def draws_on(device):
+        def draws(cur):
+            if "d" not in fixed:
+                fixed["d"] = torch_draws(samplers["cpu"],
+                                         torch.Generator().manual_seed(3),
+                                         8)(cur.cpu())
+            d = fixed["d"]
+            return SamplerDraws(*(None if t is None else t.to(device)
+                                  for t in (d.perm_keys, d.pad_picks,
+                                            d.angles, d.scale, d.sym_u,
+                                            d.noise_points,
+                                            d.noise_offsets)))
+        return draws
+
+    got, want = (samplers[d].sample(centers, draws_on(d))
+                 for d in (card, "cpu"))
+    assert 0 < want["mask"].sum() < want["mask"].numel()
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.is_floating_point() and k != "mask":
+            torch.testing.assert_close(g, w, rtol=1e-5,
+                                       atol=1e-6 * w.abs().max().item())
+        else:
+            assert torch.equal(g, w), k
+
+
+@pytest.mark.cuda
+def test_device_sampled_train_steps_are_bitwise_reproducible(card,
+                                                             tmp_path):
+    """Three device-sampled train steps of l1.yaml (width 144, B=16) on
+    the card twice, each step's draws from ``sample_generator(seed,
+    step)``: parameters, BatchNorm buffers and Adam's state bitwise
+    equal, and 10 forward and 10 backward kernel launches per step."""
+    from deep3dpointclouddenoising_torch.data.device_sampler import (
+        DeviceSampler, sample_generator, torch_draws)
+    from deep3dpointclouddenoising_torch.train.trainer import Trainer
+    cfg = load_config(L1_YAML)
+    ds = _sampler_dataset(tmp_path, num_steps=48)
+    cfg.in_radius = 0.3  # the test clouds' scale
+    sampler = DeviceSampler(ds, cfg, card)
+    states = []
+    for _ in range(2):
+        trainer = Trainer(cfg, 1, torch.Generator().manual_seed(0), card)
+        counts = (tkp.kpconv_aggregate.launches,
+                  tkp.kpconv_aggregate_backward.launches)
+        for step, centers in enumerate(sampler.centers(0, 16)[:3]):
+            batch = sampler.sample(centers, torch_draws(
+                sampler, sample_generator(7, step, card), 16))
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        assert (tkp.kpconv_aggregate.launches - counts[0],
+                tkp.kpconv_aggregate_backward.launches - counts[1]) \
+            == (30, 30)
+        states.append((trainer.model.state_dict(),
+                       trainer.optimizer.state_dict()))
+    assert not grad_check.state_difference(states[0], states[1])

@@ -43,7 +43,8 @@ def test_port_has_every_module_of_the_slice():
                  "measure_performance", "make_synthetic_dataset",
                  "data.device_sampler", "losses.chamfer",
                  "train_full_cleaning", "train.gan", "train_gan",
-                 "train_discriminator"):
+                 "train_discriminator", "models.pcpnet", "train.pcn",
+                 "train_pcn"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
