@@ -6,7 +6,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It imports the port, torch, numpy and scipy only, and goes through
-sixteen phases (phase 9b after 9), each printed with its wall time:
+seventeen phases (phase 9b after 9), each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``deep3dpointclouddenoising_torch/csrc``, one
@@ -134,8 +134,9 @@ sixteen phases (phase 9b after 9), each printed with its wall time:
    path; no KPConv kernel runs on it), on phase 9's shape tree and phase
    12's scans: (a) each of the 15 500-point configs AGG_CONFIGS (PosPool,
    adaptive weight, PointWiseMLP and the ten attention types; width 144,
-   depth 2, B=16, N=500) with seeded weights whose BatchNorm statistics,
-   gates and final Dense are O(1), on one real batch: the eval forward,
+   depth 2 (AGG_NUMERICS_DEPTH, 1, in (a)), B=16, N=500) with seeded
+   weights whose BatchNorm statistics, gates and final Dense are O(1), on
+   one real batch: the eval forward,
    the train forward and every train-mode gradient under the masked L1
    loss on the card held to the same model's float32 computation on the
    CPU, within ``grad_check``'s per-tensor limits from that computation's
@@ -203,6 +204,28 @@ sixteen phases (phase 9b after 9), each printed with its wall time:
    and 10 backward launches per step, the two runs bitwise equal, and a
    profiler window of device-sampled steps beside one of host-sampled
    steps and phase 8's.
+16. export (this slice's path), last, from phase 8's l1.yaml checkpoint
+   and phase 10's cleaning checkpoint on phase 9's shape tree:
+   (a) ``export_model --check`` of l1.yaml at width 144, B=16, N=500 on
+   the card (the KPConv forward kernel as the custom op
+   ``d3pcd_torch::kpconv_fwd`` in the graph, ten nodes), the artifact
+   loaded by a fresh process that imports ``serving`` alone, ten forward
+   launches and no backward one per call, its output on a real batch of
+   EXPORT_SHAPE within ``1e-5 * max(scale, 1)`` of the eager forward; the
+   export seconds, artifact bytes and load seconds printed; (b)
+   EXPORT_SHAPE (140,000 points, gaussian sigma EXPORT_LEVEL) served by
+   host voting through the artifact ``--check`` loaded in this process (a
+   short last batch padded) and through the eager model: 10 launches per
+   batch, the offsets within VOTE_TOL, points/s of both; (c) the
+   ``synthetic_quality_cleaning`` artifact (``--full_cleaning``): its four
+   raw channels on (a)'s batch bitwise equal to the eager forward's; (d)
+   phase 8's train command with ``--profile_dir``, TRACE_EPOCHS epochs of
+   TRACE_STEPS steps, in a fresh process started beside (a) (no profiler
+   session of that size in this one, which opens many windows): its
+   ``log.txt`` holds every line it printed,
+   ``metrics.jsonl`` ``train/loss``, ``train/lr`` and ``val/loss`` at
+   steps 1..TRACE_EPOCHS, and its Chrome trace names
+   ``kpconv_fwd_kernel`` and ``kpconv_bwd_kernel``.
 
 9b. bf16 (this slice's path), after phase 9 and on its shape tree:
    ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
@@ -232,6 +255,17 @@ sixteen phases (phase 9b after 9), each printed with its wall time:
    same checkpoint; then device ms per train step (profiler) in bf16 and
    in float32 from the same weights.
 
+Phases 1-9, 9b(a) and 14(a) run first, one after another.  Then four
+processes run the rest at once: this one runs 10 and then 16, and three
+started with ``--part`` run 13, then 11 and 12, then 9b(b-d), 14(b-e) and
+15.  Each of the three works on a copy of
+phase 9's meshes and uses phase 9's generator.  Their output is printed
+when they end, and they are killed if this process fails.  So the kernels'
+times of the result line (phases 3, 6, 9b(a), 14(a)) are taken on a card
+that nothing else uses.  The wall and device times of the later phases are
+taken beside the other processes; compare those only with the same phase
+run alone (``--only-*``).
+
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a card.
@@ -243,6 +277,10 @@ with a generator trained as phase 9 trains it) and prints the d_rel
 kernel's record, not the result; ``--only-pcn`` runs phases 1, 2 and 15
 alone (on a shape tree of its own) and prints the phase's numbers.
 
+``--only-export`` runs phases 1, 2, 8 and 16 (phase 16 on a shape tree of
+its own and a cleaning checkpoint trained as phase 10 trains it) and prints
+the phase's numbers.
+
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
 15k stem call on random neighbourhoods) and prints the kernels' JSON
 records: copied into another checkout, it measures
@@ -252,11 +290,13 @@ call.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -267,7 +307,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from deep3dpointclouddenoising_torch import compute_cd, \
-    evaluate_outlier_seg, infer, make_synthetic_dataset, \
+    evaluate_outlier_seg, export_model, infer, make_synthetic_dataset, \
     measure_performance, train_discriminator, train_full_cleaning, \
     train_gan, train_outlier_seg, train_pcn
 from deep3dpointclouddenoising_torch.config import load_config
@@ -307,6 +347,7 @@ from deep3dpointclouddenoising_torch.train.gan import GANTrainer
 from deep3dpointclouddenoising_torch.train.pcn import PCNTrainer, rotate_back
 from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
+from deep3dpointclouddenoising_torch.utils.profiling import TRACE_NAME
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "cfgs", "l1.yaml")
@@ -334,7 +375,7 @@ BWD_RTOL, BWD_ATOL_FRAC = 3e-4, 1e-5
 # cut to keep the script's time), the eval noise levels and whether each
 # routes low, and the device-vs-host vote tolerance
 DEPLOY_CONFIGS = ("synthetic_quality_diverse", "synthetic_quality_stable_low")
-DEPLOY_STEPS = 10
+DEPLOY_STEPS = 5
 DEPLOY_TRAIN_POINTS = 20000
 DEPLOY_SHAPES = ("cylinder_t",)
 DEPLOY_LEVELS = ((0.001, True), (0.005, False))
@@ -388,7 +429,7 @@ BATCHES_SEG = 306
 # from the same weights (tests/test_model.py:121-146)
 BF16_CONFIG = "synthetic_quality_diverse_bf16"
 FP32_TWIN = "synthetic_quality_diverse"
-BF16_STEPS = 10
+BF16_STEPS = 5
 BF16_EPOCHS = 3
 BF16_SHAPE = DEPLOY_SHAPES[0]
 BF16_LEVEL = 0.005
@@ -405,7 +446,7 @@ AGG_CONFIGS = ("pospool_xyz_avg", "pospool_sincos_avg",
 AGG_TRAINED = ("pospool_sincos_avg", "pointwisemlp_dp_fi_df_fc1", "OFAT",
                "POTR")
 AGG_STEPS = 10
-AGG_EPOCHS = 2
+AGG_EPOCHS = 1
 AGG_SHAPE = DEPLOY_SHAPES[0]
 AGG_LEVEL = 0.005
 AGG_SEG_CONFIG = "outlier_seg_edf_katz"
@@ -415,6 +456,9 @@ PROFILE_STEPS_AGG = 3
 # phase 13(a)'s first paths (agg_paths), and how close the card's float64
 # must come to the CPU's
 AGG_PATHS = ("card", "cpu", "float64")
+# the models' depth in 13(a) (the configs' 2 elsewhere): cut to keep the
+# script inside its time limit
+AGG_NUMERICS_DEPTH = 1
 AGG_FLOAT64_TOL = 1e-4
 AGG_FLOAT64_VANISH = 1e-9
 # GAN phase: the pre-training and fine-tuning configs (width 144, B=16,
@@ -426,7 +470,7 @@ AGG_FLOAT64_VANISH = 1e-9
 # differentiates in rel (their support set is the input points)
 DISC_CONFIG = "synthetic_quality_disc"
 GAN_CONFIG = "synthetic_quality_gan_tuned"
-GAN_STEPS = 5
+GAN_STEPS = 3
 GAN_EPOCHS = 2
 DISC_EPOCHS = 2
 PROFILE_UPDATES = 3
@@ -450,16 +494,70 @@ PCN_CONFIG = "synthetic_quality_pcn4"
 PCN_PATH = os.path.join(ROOT, "cfgs", PCN_CONFIG + ".yaml")
 PCN_BATCH = 64
 PCN_POINTS = 500
-PCN_STEPS = 10
+PCN_STEPS = 5
 PCN_EPOCHS = 2
 PCN_TREE = {"train": ("ellipsoid_a", "torus_thin"), "val": ("cylinder_v",)}
 PROFILE_STEPS_PCN = 3
 PCN_SHAPE = DEPLOY_SHAPES[0]
 PCN_LEVEL = 0.005
 PCN_CLOUD_POINTS = 140000
-PCN_HOST_PATCHES = 10000
+PCN_HOST_PATCHES = 3000
 PCN_TIE = 1e-6
 DS_STEPS = 10
+# export phase: the shape served through the loaded artifact, its noise,
+# and a fresh process that loads the artifact with the serving module
+# alone and prints what it saw as one JSON line
+EXPORT_SHAPE = DEPLOY_SHAPES[0]
+EXPORT_LEVEL = 0.005
+# (d)'s traced training: epochs and steps per epoch (the first traced)
+TRACE_EPOCHS = 2
+TRACE_STEPS = 3
+# the default run's phases after 9 and 9b(a) go in four processes at once:
+# this one (10, then 16), and three started with ``--part`` (name: torch
+# CPU threads, phases), each on a copy of phase 9's shape tree without its
+# caches; the kernels' times of the result line are taken before they
+# start, on a card nothing else uses; a part still running PART_LIMIT_S
+# after it started is killed and fails the run
+PARTS = {"aggregations": (3, "13"), "15k_seg": (2, "11, 12"),
+         "bf16_gan_pcn": (2, "9b(b-d), 14(b-e), 15")}
+PART_LIMIT_S = 900
+FRESH_LOAD = r"""
+import json, sys, time
+import numpy as np
+import torch
+t0 = time.perf_counter()
+from deep3dpointclouddenoising_torch import serving
+from deep3dpointclouddenoising_torch.ops import kpconv
+predict = serving.load_denoiser(sys.argv[1])
+load_s = time.perf_counter() - t0
+b = np.load(sys.argv[2])
+args = (b["points"], b["mask"], b["features"])
+t0 = time.perf_counter()
+out = predict(*args)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+counts = []
+for _ in range(2):
+    c0 = (kpconv.kpconv_aggregate.launches,
+          kpconv.kpconv_aggregate_backward.launches)
+    out = predict(*args)
+    torch.cuda.synchronize()
+    counts.append((kpconv.kpconv_aggregate.launches - c0[0],
+                   kpconv.kpconv_aggregate_backward.launches - c0[1]))
+np.save(sys.argv[3], out.cpu().numpy())
+ep = predict.exported
+nodes = sum(1 for n in ep.graph.nodes if n.op == "call_function"
+            and str(n.target).startswith("d3pcd_torch.kpconv_fwd"))
+tensors = list(ep.state_dict.values()) + [
+    t for t in ep.constants.values() if isinstance(t, torch.Tensor)]
+print(json.dumps({
+    "load_s": load_s, "first_call_s": first_s, "launches": counts,
+    "nodes": nodes, "out_device": str(out.device),
+    "weights_devices": sorted({str(t.device) for t in ep.state_dict.values()}),
+    "constants_devices": sorted({str(t.device) for t in tensors}),
+    "modules": sorted(m for m in sys.modules
+                      if m.startswith("deep3dpointclouddenoising"))}))
+"""
 # (name, M, N, K, C, radius multiple of r0) of the ten aggregations of one
 # 15k forward, B=8, P=15
 CALLS_15K = [
@@ -570,8 +668,10 @@ def device_us(fn, kernel: str, iters: int, by_kernel: bool = False,
     then none, and once the backward's invert and reduce kernels without
     its main one), so the mean is over those it kept, and a window that
     kept no launch of some kernel named in ``expect`` (or none at all) is
-    taken again, up to PROFILER_WINDOWS times; raises when no window
-    kept them all."""
+    taken again, up to PROFILER_WINDOWS times.  When no window kept them
+    all it raises with ``by_kernel``, and else returns the microseconds
+    per call of ``fn`` by CUDA events, noted in ``device_us.by_cuda_events``
+    and printed."""
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILER_WINDOWS):
@@ -589,12 +689,26 @@ def device_us(fn, kernel: str, iters: int, by_kernel: bool = False,
                            for x in expect):
             break
     else:
-        raise AssertionError(
-            f"the profiler saw no {kernel} kernel (or not each of "
-            f"{expect}) in {PROFILER_WINDOWS} windows")
+        if by_kernel:
+            raise AssertionError(
+                f"the profiler saw no {kernel} kernel (or not each of "
+                f"{expect}) in {PROFILER_WINDOWS} windows")
+        # late in a run the profiler can stop keeping kernels for good
+        # (seen at phase 11 or 12 of a whole run, after some 60-120 windows):
+        # CUDA events over the calls instead, every kernel of a call and
+        # the gaps between them
+        us = cuda_ms(fn, iters, warmup=1) * 1e3
+        device_us.by_cuda_events.append({"kernel": kernel, "us": us})
+        print(f"device_us: the profiler kept no {kernel} kernel in "
+              f"{PROFILER_WINDOWS} windows; CUDA events over {iters} calls "
+              f"instead: {us:.2f} us per call", flush=True)
+        return us
     means = {name: sum(us) / len(us) for name, us in by_name.items()}
     total = sum(means.values())
     return (total, means) if by_kernel else total
+
+
+device_us.by_cuda_events = []
 
 
 def kpconv_inputs(rng, B, M, N, K, C, P, radius, device):
@@ -1286,6 +1400,17 @@ def cd_tables(out_dir: str):
     return host, worst
 
 
+def deploy_split(tree: str, workdir: str) -> str:
+    """``<workdir>/deploy``: a ``qualitative_test`` split of the tree's
+    DEPLOY_SHAPES."""
+    deploy_root = os.path.join(workdir, "deploy")
+    os.makedirs(os.path.join(deploy_root, "qualitative_test"))
+    for name in DEPLOY_SHAPES:
+        shutil.copy(os.path.join(tree, "qualitative_test", name + ".off"),
+                    os.path.join(deploy_root, "qualitative_test"))
+    return deploy_root
+
+
 def phase_deployment(cfg, workdir):
     """This slice's path: shape tree, two short trainings, routed voting on
     host and device, the Chamfer and performance tables; returns the
@@ -1297,14 +1422,7 @@ def phase_deployment(cfg, workdir):
     for config in DEPLOY_CONFIGS:
         f, b, _ = train_short(config, tree, log_dir, cfg)
         fwd, bwd = fwd + f, bwd + b
-    deploy_root = os.path.join(workdir, "deploy")
-    os.makedirs(os.path.join(deploy_root, "qualitative_test"))
-    for name in DEPLOY_SHAPES:
-        with open(os.path.join(tree, "qualitative_test", name + ".off")) as f:
-            text = f.read()
-        with open(os.path.join(deploy_root, "qualitative_test",
-                               name + ".off"), "w") as f:
-            f.write(text)
+    deploy_root = deploy_split(tree, workdir)
     config = os.path.join(ROOT, "cfgs", DEPLOY_CONFIGS[0] + ".yaml")
     batch = int(load_config(config).batch_size)
     ckpt = os.path.join(log_dir, DEPLOY_CONFIGS[0], "current.pt")
@@ -1812,22 +1930,31 @@ def phase_bf16_serving(tree, workdir, checkpoint):
     return total
 
 
-def phase_bf16(device, workdir, tree):
-    """Phase 9b, bfloat16 compute: (a) both kernels' bf16 forms against
-    their bf16 plain versions, (b) the whole bf16 model and its gradients,
-    (c) training with a stop and ``--auto_resume`` against an unbroken
-    run, bitwise, (d) serving by host and device voting; then device ms
-    per train step in bf16 and in float32 from the same weights, in this
-    process.  Returns the two bf16 kernels' records and the launches of
-    the main path (training and serving)."""
+def bf16_configs():
+    """The bf16 config and its float32 twin, checked to be what phase 9b
+    holds them to be."""
     cfg = load_config(os.path.join(ROOT, "cfgs", BF16_CONFIG + ".yaml"))
     twin = load_config(os.path.join(ROOT, "cfgs", FP32_TWIN + ".yaml"))
     if (int(cfg.width), str(cfg.compute_dtype), str(twin.compute_dtype)) \
             != (144, "bfloat16", "float32"):
         raise AssertionError(f"{BF16_CONFIG} is no longer the width-144 "
                              f"bfloat16 twin of {FP32_TWIN}")
-    records = phase_bf16_kernels(cfg, device,
-                                 bf16_stem_15k(device, workdir, tree))
+    return cfg, twin
+
+
+def phase_bf16(device, workdir, tree, kernels: bool = True):
+    """Phase 9b, bfloat16 compute: (a) both kernels' bf16 forms against
+    their bf16 plain versions (left out when not ``kernels``: the default
+    run takes them on a card nothing else uses), (b) the whole bf16 model
+    and its gradients, (c) training with a stop and ``--auto_resume``
+    against an unbroken run, bitwise, (d) serving by host and device
+    voting; then device ms per train step in bf16 and in float32 from the
+    same weights, in this process.  Returns the two bf16 kernels' records
+    (None without (a)) and the launches of the main path (training and
+    serving)."""
+    cfg, twin = bf16_configs()
+    records = phase_bf16_kernels(cfg, device, bf16_stem_15k(
+        device, workdir, tree)) if kernels else None
     batch = val_batch(cfg, tree)
     phase_bf16_model(cfg, twin, device, batch)
     phase_model_grad(cfg, device, batch)
@@ -2495,7 +2622,7 @@ def seg_evaluation(scans, checkpoint, workdir):
         out = evaluate_outlier_seg.main([
             "--config_file", path, "--data_root", scans, "--load_path",
             checkpoint, "--DEBUG", "1", "--write_dir", out_dir,
-            "--device", "cuda"])
+            "--log_dir", out_dir + "_log", "--device", "cuda"])
         launches = kpconv_aggregate.launches
         if kpconv_aggregate_backward.launches:
             raise AssertionError("the evaluation launched the backward "
@@ -2764,8 +2891,9 @@ def agg_batch(tree):
 
 
 def agg_numerics(device, cfgs, batch):
-    """13(a): for each config, the seeded model (O(1) statistics, gates and
-    head) on one real batch: the eval forward, the train forward and the
+    """13(a): for each config, the seeded model at AGG_NUMERICS_DEPTH (O(1)
+    statistics, gates and head) on one real batch: the eval forward, the
+    train forward and the
     train-mode gradients on the card held to the CPU and float64
     (:func:`check_agg_paths`), with no KPConv kernel launched."""
     tensors = {k: torch.as_tensor(batch[k]).to(device)
@@ -2773,6 +2901,8 @@ def agg_numerics(device, cfgs, batch):
     launches = grad_check.launches()
     for name, cfg in cfgs.items():
         t0 = time.perf_counter()
+        cfg = copy.deepcopy(cfg)
+        cfg.depth = AGG_NUMERICS_DEPTH
         model = seeded_model(cfg, device)
         names = [n for n, _ in model.named_parameters()]
         with torch.no_grad():
@@ -2903,8 +3033,8 @@ def agg_segmentation(scans, workdir):
     out = evaluate_outlier_seg.main([
         "--config_file", path, "--data_root", scans, "--load_path",
         summary["checkpoint"], "--DEBUG", "1", "--dataset_type", "EDFS",
-        "--write_dir", os.path.join(workdir, "agg_seg_eval"), "--device",
-        "cuda"])
+        "--write_dir", os.path.join(workdir, "agg_seg_eval"), "--log_dir",
+        os.path.join(workdir, "agg_seg_eval_log"), "--device", "cuda"])
     ds = out["dataset"]
     points = sum(len(p) for p in ds.clouds_points)
     counted = sum(out["metrics"][k] for k in ("TN", "FP", "FN", "TP"))
@@ -3414,23 +3544,39 @@ def phase_gan_serving(tree, workdir, checkpoint):
     return counts[0]
 
 
-def phase_gan(device, workdir, tree, gen_ckpt):
-    """Phase 14, GAN fine-tuning and discriminator pre-training: (a) the
-    d_rel kernel and the discriminator's input gradient, (b)
-    ``train_discriminator``, (c) ``train_gan`` with a kill and
-    ``--auto_resume``, (d) a profiler window of GAN updates, (e) the
-    fine-tuned generator served.  Returns the d_rel kernel's record, the
-    profile and the launches of the main path."""
+def gan_config():
+    """The fine-tuning config, checked to be what phase 14 holds it to
+    be."""
     cfg = load_config(os.path.join(ROOT, "cfgs", GAN_CONFIG + ".yaml"))
     if (int(cfg.width), int(cfg.depth), int(cfg.batch_size),
             int(cfg.num_points), float(cfg.gan_alpha)) \
             != (144, 2, 16, 500, 1e-4):
         raise AssertionError(f"{GAN_CONFIG} is no longer width 144, depth "
                              "2, B=16, N=500, gan_alpha 1e-4")
+    return cfg
+
+
+def phase_drel(device, tree, gen_ckpt):
+    """14(a) on a batch of ``tree`` denoised by ``gen_ckpt``: returns the
+    d_rel kernel's record."""
+    cfg = gan_config()
     t0 = time.perf_counter()
     batch = denoised_batch(cfg, device, tree, gen_ckpt)
     record = phase_gan_kernels(cfg, device, batch)
     print(f"14(a): {time.perf_counter() - t0:.1f} s", flush=True)
+    return record
+
+
+def phase_gan(device, workdir, tree, gen_ckpt, kernels: bool = True):
+    """Phase 14, GAN fine-tuning and discriminator pre-training: (a) the
+    d_rel kernel and the discriminator's input gradient (left out when not
+    ``kernels``: the default run takes it on a card nothing else uses),
+    (b) ``train_discriminator``, (c) ``train_gan`` with a kill and
+    ``--auto_resume``, (d) a profiler window of GAN updates, (e) the
+    fine-tuned generator served.  Returns the d_rel kernel's record (only
+    the profile without (a)) and the launches of the main path."""
+    cfg = gan_config()
+    record = phase_drel(device, tree, gen_ckpt) if kernels else {}
     t0 = time.perf_counter()
     disc_ckpt, pretrain = phase_disc_pretraining(
         tree, os.path.join(workdir, "disc"))
@@ -3891,13 +4037,399 @@ def phase_pcn(device, workdir, tree, phase8_window=None):
                "serving": res["c"], "device_sampler_windows": res["d"][1]}
     return summary, launches
 
+def export_cli(config: str, checkpoint: str, out: str, *extra):
+    """``export_model --check`` on the card; returns its result (the
+    sidecar, the export seconds, the round trip's error and scale, the
+    loaded artifact)."""
+    return export_model.main(["--config_file", config, "--checkpoint",
+                              checkpoint, "--out", out, "--check",
+                              "--device", "cuda", *extra])
+
+
+def graph_ops(exported, name: str) -> int:
+    return sum(1 for n in exported.graph.nodes if n.op == "call_function"
+               and str(n.target).startswith(f"d3pcd_torch.{name}"))
+
+
+def artifact_predict_fn(predict, batch_size: int):
+    """``infer``'s ``predict_fn`` over a loaded artifact of batch
+    ``batch_size``: a shorter batch (a split's last) is padded with copies
+    of its first patch, whose outputs are dropped."""
+    def fn(batch):
+        n = len(batch["points"])
+        arrays = [np.asarray(batch[k]) for k in ("points", "mask",
+                                                 "features")]
+        if n < batch_size:
+            arrays = [np.concatenate([a, np.repeat(a[:1], batch_size - n,
+                                                   0)]) for a in arrays]
+        return predict(*arrays)[:n]
+    return fn
+
+
+def check_round_trip(got: torch.Tensor, want: torch.Tensor, what: str):
+    """``export_model --check``'s rule: the largest difference within
+    1e-5 * max(scale, 1), scale the largest output; returns (difference,
+    scale, bitwise equal)."""
+    if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: bad output {tuple(got.shape)}")
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.abs().max().item() or 1.0
+    if err > 1e-5 * max(scale, 1.0):
+        raise AssertionError(f"{what}: max abs difference {err:.3e} from "
+                             f"eager (output scale {scale:.3e})")
+    return err, scale, bool(torch.equal(got, want))
+
+
+def fresh_load(artifact: str, batch, workdir: str):
+    """The artifact loaded and run on ``batch`` in a fresh process that
+    imports ``serving`` alone; returns its report and its output."""
+    npz, out = os.path.join(workdir, "batch.npz"), os.path.join(workdir,
+                                                                "out.npy")
+    np.savez(npz, **{k: batch[k] for k in ("points", "mask", "features")})
+    run = subprocess.run([sys.executable, "-c", FRESH_LOAD, artifact, npz,
+                          out], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    if run.returncode != 0:
+        raise AssertionError(f"loading the artifact in a fresh process "
+                             f"failed:\n{run.stderr[-4000:]}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    return report, torch.from_numpy(np.load(out))
+
+
+def start_traced_training(data_root: str, workdir: str, steps: int):
+    """(d): phase 8's train command with ``--profile_dir``, TRACE_EPOCHS
+    epochs of ``steps`` steps, started in a fresh process (a profiler
+    session in this one would add to the many windows the phases open) to
+    run beside (a); :func:`traced_training` waits for it."""
+    B = int(load_config(CONFIG).batch_size)
+    out = {k: open(os.path.join(workdir, f"traced.{k}"), "w")
+           for k in ("stdout", "stderr")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deep3dpointclouddenoising_torch.train",
+         "--config_file", CONFIG, "--data_root", data_root, "--log_dir",
+         os.path.join(workdir, "log"), "--num_steps", str(steps * B),
+         "--epochs", str(TRACE_EPOCHS), "--val_freq", "1", "--device",
+         "cuda", "--profile_dir", os.path.join(workdir, "trace")],
+        cwd=ROOT, stdout=out["stdout"], stderr=out["stderr"],
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    for f in out.values():
+        f.close()
+    return proc
+
+
+def traced_training(proc, workdir: str):
+    """Wait for :func:`start_traced_training`'s process: its ``log.txt``
+    holding every line it printed, ``metrics.jsonl`` JAX's tags at steps
+    1..TRACE_EPOCHS, and a Chrome trace naming both KPConv kernels.
+    Returns what was found."""
+    log_dir, trace = (os.path.join(workdir, d) for d in ("log", "trace"))
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(workdir, "traced.stdout")) as f:
+        stdout = f.read()
+    if rc != 0:
+        with open(os.path.join(workdir, "traced.stderr")) as f:
+            raise AssertionError(f"the traced training failed:\n"
+                                 f"{f.read()[-4000:]}")
+    run_dir = os.path.join(log_dir, load_config(CONFIG).experiment_name)
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        log = f.read()
+    printed = [line for line in stdout.splitlines() if line]
+    missing = [line for line in printed if f"INFO: {line}" not in log]
+    if f"epoch {TRACE_EPOCHS}:" not in stdout or missing:
+        raise AssertionError(f"log.txt lacks printed lines {missing[:3]}")
+    steps_by_tag = {}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            steps_by_tag.setdefault(rec["tag"], []).append(rec["step"])
+            if not math.isfinite(rec["value"]):
+                raise AssertionError(f"metrics.jsonl: {rec}")
+    want = {t: list(range(1, TRACE_EPOCHS + 1))
+            for t in ("train/loss", "train/lr", "val/loss")}
+    if steps_by_tag != want:
+        raise AssertionError(f"metrics.jsonl has {steps_by_tag}, not {want}")
+    path = os.path.join(trace, TRACE_NAME)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for key in ("kpconv_fwd_kernel", "kpconv_bwd_kernel"):
+                if key in e.get("name", ""):
+                    kernels[key] = kernels.get(key, 0) + 1
+    # the profiler may drop launches (device_us), so each kernel is held to
+    # appear, and its count is printed
+    if set(kernels) != {"kpconv_fwd_kernel", "kpconv_bwd_kernel"}:
+        raise AssertionError(f"the trace names the KPConv kernels "
+                             f"{kernels}")
+    return dict(log_lines=len(log.splitlines()), metrics=steps_by_tag,
+                trace_mb=os.path.getsize(path) / 2 ** 20,
+                trace_events=len(events), trace_kernels=kernels)
+
+
+def phase_export(cfg, workdir, deploy_root, l1_ckpt, cleaning_ckpt,
+                 train_data):
+    """This slice's path: (a) ``export_model --check`` of l1.yaml at width
+    144, B=16, N=500 from phase 8's checkpoint, the artifact loaded in a
+    fresh process and held to eager on a real batch; (b) EXPORT_SHAPE served
+    by host voting through the artifact loaded here, against eager voting;
+    (c) the full-cleaning artifact from phase 10's checkpoint, raw outputs
+    against eager; (d) phase 8's train command on its data with
+    ``--profile_dir``, in a fresh process that runs beside (a)
+    (:func:`traced_training`).  Returns the forward launches of (b) and
+    the phase's numbers."""
+    gc.collect()  # the card's cached blocks back for (a)'s and (d)'s
+    torch.cuda.empty_cache()  # fresh processes
+    traced = start_traced_training(train_data, workdir, TRACE_STEPS)
+    try:
+        return _export_paths(cfg, workdir, deploy_root, l1_ckpt,
+                             cleaning_ckpt, traced)
+    finally:  # a failed check leaves no process behind
+        if traced.poll() is None:
+            traced.kill()
+            traced.wait()
+
+
+def _export_paths(cfg, workdir, deploy_root, l1_ckpt, cleaning_ckpt,
+                  traced):
+    device = torch.device("cuda", 0)
+    B = int(cfg.batch_size)
+    art = os.path.join(workdir, "l1.pt2")
+    t0 = time.perf_counter()
+    kpconv_aggregate.launches = 0
+    kpconv_aggregate_backward.launches = 0
+    result = export_cli(CONFIG, l1_ckpt, art)
+    export_wall = time.perf_counter() - t0
+    if kpconv_aggregate_backward.launches:
+        raise AssertionError("export launched the backward kernel")
+    meta = result["meta"]
+    if (meta["platforms"], meta["in_avals"]) != (
+            ["cuda"], [f"float32[{B},{int(cfg.num_points)},3]",
+                       f"float32[{B},{int(cfg.num_points)}]",
+                       f"float32[{B},{int(cfg.num_points)},3]"]):
+        raise AssertionError(f"artifact metadata {meta}")
+    # EXPORT_SHAPE under gaussian EXPORT_LEVEL noise, cut into l1.yaml's
+    # patches as the inference entry point cuts them
+    served = copy.deepcopy(cfg)
+    served.noise_type, served.noise_level = "gaussian", EXPORT_LEVEL
+    dataset = infer.make_dataset(served, deploy_root)
+    batch = next(iter(BatchLoader(dataset, B)))
+    model = infer.load_model(cfg, device, l1_ckpt)
+    eager_fn = infer.make_predict_fn(model)
+    want = eager_fn(batch).cpu()
+    report, got = fresh_load(art, batch, workdir)
+    err, scale, bitwise = check_round_trip(got, want, "fresh-process "
+                                                      "artifact")
+    if report["launches"] != [[10, 0], [10, 0]] or report["nodes"] != 10:
+        raise AssertionError(f"the loaded artifact: {report}")
+    if any(m.endswith((".models", ".infer", ".config", ".train"))
+           for m in report["modules"]) \
+            or not report["out_device"].startswith("cuda") \
+            or report["weights_devices"] != ["cuda:0"]:
+        raise AssertionError(f"the fresh process: {report}")
+    print(f"(a) l1.yaml artifact, width {int(cfg.width)}, B={B}, "
+          f"N={int(cfg.num_points)}: export {result['export_s']:.3f} s "
+          f"({export_wall:.3f} s with the load and --check), "
+          f"{meta['bytes']} bytes, --check max abs err {result['err']:.3e} "
+          f"(scale {result['scale']:.3e}); fresh process: load "
+          f"{report['load_s']:.3f} s, first call "
+          f"{report['first_call_s']:.3f} s, {report['nodes']} kpconv_fwd "
+          f"nodes, launches per call (forward, backward) "
+          f"{report['launches']}, weights on {report['weights_devices']}, "
+          f"constants on {report['constants_devices']}, modules "
+          f"{report['modules']}; against eager on a real batch: max abs "
+          f"diff {err:.3e} (scale {scale:.3e}), bitwise equal {bitwise}",
+          flush=True)
+
+    # (d) done before (b) times the voting: no training beside it
+    logs = traced_training(traced, workdir)
+    predict = result["predict"]  # export_model --check's load
+    if graph_ops(predict.exported, "kpconv_fwd") != 10 \
+            or graph_ops(predict.exported, "kpconv_bwd"):
+        raise AssertionError("the artifact's graph lacks the ten forward ops")
+    art_fn = artifact_predict_fn(predict, B)
+    art_fn(batch)  # the loaded module's first call
+    torch.cuda.synchronize()
+    runs = {}
+    for name, fn in (("eager", eager_fn), ("artifact", art_fn)):
+        kpconv_aggregate.launches = 0
+        kpconv_aggregate_backward.launches = 0
+        t0 = time.perf_counter()
+        offsets = infer.predict_offsets_voting(fn, dataset, B)
+        seconds = time.perf_counter() - t0
+        runs[name] = (offsets, kpconv_aggregate.launches,
+                      kpconv_aggregate_backward.launches, seconds)
+    batches = -(-len(dataset) // B)
+    n_points = sum(len(s.points) for s in dataset.shapes)
+    launches = runs["artifact"][1]
+    if (launches, runs["artifact"][2]) != (10 * batches, 0):
+        raise AssertionError(f"artifact voting launched {launches} forward "
+                             f"and {runs['artifact'][2]} backward kernels "
+                             f"for {batches} batches")
+    worst = max(check_close(torch.from_numpy(g).double(),
+                            torch.from_numpy(w).double(), what="artifact "
+                            "voting against eager voting", **VOTE_TOL)[0]
+                for g, w in zip(runs["artifact"][0], runs["eager"][0]))
+    pps = {k: n_points / v[3] for k, v in runs.items()}
+    print(f"(b) {EXPORT_SHAPE} ({n_points} points, {len(dataset)} patches, "
+          f"{batches} batches) by host voting: artifact "
+          f"{pps['artifact']:.1f} points/s, eager {pps['eager']:.1f} "
+          f"points/s; artifact launches {launches} (10 per batch); offsets "
+          f"max abs diff {worst:.3e} (rtol {VOTE_TOL['rtol']} / atol "
+          f"{VOTE_TOL['atol']})", flush=True)
+
+    clean_cfg = load_config(os.path.join(ROOT, "cfgs",
+                                         CLEANING_CONFIG + ".yaml"))
+    if (int(clean_cfg.batch_size), int(clean_cfg.num_points)) != (
+            B, int(cfg.num_points)):
+        raise AssertionError(f"{CLEANING_CONFIG} no longer serves l1.yaml's "
+                             "batch shape")
+    clean_art = os.path.join(workdir, "cleaning.pt2")
+    clean = export_cli(os.path.join(ROOT, "cfgs", CLEANING_CONFIG + ".yaml"),
+                       cleaning_ckpt, clean_art, "--full_cleaning")
+    norm = float(clean_cfg.in_radius) / 100.0 if clean_cfg.norm else None
+    clean_model = infer.load_model(clean_cfg, device, cleaning_ckpt,
+                                   full_cleaning=True)
+    # (a)'s real batch: the cleaning config's patches have its shape
+    want = infer.make_predict_fn(clean_model, norm, False)(batch).cpu()
+    got = clean["predict"](
+        *(batch[k] for k in ("points", "mask", "features"))).cpu()
+    if got.shape[-1] != 4:
+        raise AssertionError(f"the cleaning artifact gives {got.shape}")
+    c_err, c_scale, c_bitwise = check_round_trip(got, want,
+                                                 "cleaning artifact")
+    if not c_bitwise:  # the same kernels on the same inputs, no atomics
+        raise AssertionError(f"the cleaning artifact's raw outputs differ "
+                             f"from eager's by up to {c_err:.3e}")
+    print(f"(c) {CLEANING_CONFIG} --full_cleaning artifact: export "
+          f"{clean['export_s']:.3f} s, {clean['meta']['bytes']} bytes; raw "
+          f"4 channels against eager on (a)'s batch: bitwise equal "
+          f"(scale {c_scale:.3e})", flush=True)
+
+    print(f"(d) phase 8's train command, {TRACE_EPOCHS} epochs of "
+          f"{TRACE_STEPS} steps, first traced: log.txt {logs['log_lines']} "
+          f"lines, "
+          f"metrics.jsonl {logs['metrics']}, trace {logs['trace_mb']:.1f} "
+          f"MiB, {logs['trace_events']} events, KPConv kernels in it "
+          f"{logs['trace_kernels']}", flush=True)
+    return launches, dict(
+        export_s=result["export_s"], bytes=meta["bytes"],
+        fresh_load_s=report["load_s"],
+        artifact_pps=pps["artifact"], eager_pps=pps["eager"],
+        fresh_max_abs=err, vote_max_abs=worst, cleaning_max_abs=c_err,
+        cleaning_export_s=clean["export_s"], trace_mb=logs["trace_mb"])
+
+
+def run_part(name: str, ctx: dict, device, smi: str) -> dict:
+    """The phases of part ``name`` of PARTS in this process, on a copy of
+    ``ctx["tree"]`` (its meshes: the part processes its own clouds);
+    returns what the result line takes from them."""
+    torch.set_num_threads(PARTS[name][0])
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        tree = os.path.join(workdir, "shapes")
+        shutil.copytree(ctx["tree"], tree,
+                        ignore=shutil.ignore_patterns("processed_torch"))
+        if name == "aggregations":
+            with phase("aggregations"):  # on scans of its own
+                scans = os.path.join(workdir, "scans")
+                make_scans(scans, n=SEG_POINTS, diameter=1.0,
+                           write=SEG_SCANS, cut=SEG_HELD_OUT,
+                           corner=SEG_CORNER)
+                phase_aggregations(device, workdir, tree, scans, smi)
+        elif name == "15k_seg":
+            for key, title, fn in (("15k", "15k family", phase_15k),
+                                   ("seg", "outlier segmentation",
+                                    phase_seg)):
+                sub = os.path.join(workdir, key)
+                os.makedirs(sub)
+                with phase(title):
+                    out[f"records_{key}"], out[f"path_{key}"] = fn(device,
+                                                                   sub)
+        else:
+            for key in ("bf16", "gan", "pcn"):
+                os.makedirs(os.path.join(workdir, key))
+            with phase("bf16"):  # (a) ran in the parent
+                _, out["path_bf16"] = phase_bf16(
+                    device, os.path.join(workdir, "bf16"), tree,
+                    kernels=False)
+            with phase("gan"):  # (a) ran in the parent
+                gan, out["path_gan"] = phase_gan(
+                    device, os.path.join(workdir, "gan"), tree,
+                    ctx["gen_ckpt"], kernels=False)
+                out["gan_profile"] = gan["profile"]
+            with phase("pcn"):
+                out["pcn_summary"], out["path_pcn"] = phase_pcn(
+                    device, os.path.join(workdir, "pcn"), tree,
+                    ctx["phase8_window"])
+    return out
+
+
+def start_parts(ctx: dict, partdir: str) -> dict:
+    """Each part of PARTS started as ``chip_smoke.py --part`` in a session
+    of its own, its output to a file: {name: (process, log, result)}."""
+    parts = {}
+    for name, (threads, _) in PARTS.items():
+        path = os.path.join(partdir, name)
+        with open(path + ".json", "w") as f:
+            json.dump(dict(ctx, out=path + ".out.json"), f)
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+        with open(path + ".log", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--part", name,
+                 path + ".json"], stdout=log, stderr=subprocess.STDOUT,
+                cwd=ROOT, env=env, start_new_session=True)
+        parts[name] = (proc, path + ".log", path + ".out.json")
+    return parts
+
+
+def finish_parts(parts: dict, started: float) -> dict:
+    """Wait for every part (until PART_LIMIT_S after ``started``), print
+    its output, and fail on the first that did not exit 0; returns their
+    results merged."""
+    out = {}
+    for name, (proc, log, result) in parts.items():
+        try:
+            rc = proc.wait(timeout=max(
+                1.0, started + PART_LIMIT_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            stop_parts(parts)
+            rc = None
+        with open(log) as f:
+            text = f.read()
+        print(f"== part {name} (phases {PARTS[name][1]}, a process of its "
+              f"own)\n{text}", end="" if text.endswith("\n") else "\n")
+        if rc != 0:
+            raise AssertionError(
+                f"part {name} " + ("ran past its limit of "
+                                   f"{PART_LIMIT_S} s" if rc is None
+                                   else f"exited with {rc}"))
+        print(f"== part {name}: ok, {time.perf_counter() - started:.3f} s "
+              "after the parts started", flush=True)
+        with open(result) as f:
+            out.update(json.load(f))
+    return out
+
+
+def stop_parts(parts: dict) -> None:
+    """Kill every part still running, with whatever it started."""
+    for proc, _, _ in parts.values():
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only-kernels"], ["--only-aggregations"],
-                    ["--only-gan"], ["--only-pcn"]):
+    part = len(argv) == 3 and argv[0] == "--part" and argv[1] in PARTS
+    if not part and argv not in (
+            [], ["--only-kernels"], ["--only-aggregations"], ["--only-gan"],
+            ["--only-pcn"], ["--only-export"]):
         print("usage: chip_smoke.py [--only-kernels | --only-aggregations "
-              "| --only-gan | --only-pcn]", file=sys.stderr)
+              "| --only-gan | --only-pcn | --only-export]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3916,6 +4448,13 @@ def main(argv=None) -> int:
     cfg = load_config(CONFIG)
     if (int(cfg.width), int(cfg.depth)) != (144, 2):
         raise AssertionError("cfgs/l1.yaml is no longer width 144, depth 2")
+    if part:  # started by the default run, which built the kernels
+        with open(argv[2]) as f:
+            ctx = json.load(f)
+        out = run_part(argv[1], ctx, device, smi)
+        with open(ctx["out"], "w") as f:
+            json.dump(out, f)
+        return 0
     with phase("build"):
         for name, (path, seconds, log) in _cuda.build().items():
             print(f"{name}: {seconds:.2f} s -> {os.path.relpath(path, ROOT)}")
@@ -3956,6 +4495,26 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"pcn": summary, "launches": path_pcn}))
         return 0
+    if argv == ["--only-export"]:
+        # phase 16 alone, after phase 8's training and a short cleaning
+        # training on a tree of its own
+        with tempfile.TemporaryDirectory() as workdir, phase("export"):
+            tree = os.path.join(workdir, "shapes")
+            make_synthetic_dataset.write_tree(tree, verbose=False)
+            train_dir = os.path.join(workdir, "training")
+            with phase("training"):
+                phase_training(cfg, device, train_dir)
+            train_short(CLEANING_CONFIG, tree, os.path.join(
+                workdir, "log_cleaning"), cfg, train_full_cleaning.main)
+            run = os.path.join(train_dir, "log", cfg.experiment_name)
+            launches, summary = phase_export(
+                cfg, workdir, deploy_split(tree, workdir),
+                os.path.join(run, "current.pt"), os.path.join(
+                    workdir, "log_cleaning", CLEANING_CONFIG, "current.pt"),
+                os.path.join(train_dir, "train_data"))
+        print(smi)
+        print(json.dumps({"export": summary, "launches": launches}))
+        return 0
     with phase("kernel vs plain"):
         record = phase_kernels(cfg, device)
     if argv:  # the kernels' phases alone, for comparing checkouts
@@ -3976,42 +4535,57 @@ def main(argv=None) -> int:
         bwd_record = phase_backward(cfg, device)
     with phase("whole-model gradients"):
         phase_model_grad(cfg, device)
-    with tempfile.TemporaryDirectory() as workdir, phase("training"):
-        train_fwd, train_bwd, phase8_window = phase_training(cfg, device,
-                                                              workdir)
-    with tempfile.TemporaryDirectory() as deploy_dir, \
-            tempfile.TemporaryDirectory() as seg_dir:
+    with tempfile.TemporaryDirectory() as deploy_dir:
+        # phase 8's run, its checkpoint and data kept for phase 16
+        train_dir = os.path.join(deploy_dir, "training")
+        with phase("training"):
+            train_fwd, train_bwd, phase8_window = phase_training(
+                cfg, device, train_dir)
         tree = os.path.join(deploy_dir, "shapes")
         with phase("deployment"):
             deploy_fwd, deploy_bwd = phase_deployment(cfg, deploy_dir)
-        with phase("bf16"):  # on the deployment phase's shape tree
-            bf16_records, path_bf16 = phase_bf16(device, deploy_dir, tree)
-        with phase("cleaning"):  # on the deployment phase's shape tree
-            cleaning = phase_cleaning(cfg, deploy_dir)
-        with tempfile.TemporaryDirectory() as workdir, phase("15k family"):
-            records_15k, path_15k = phase_15k(device, workdir)
-        with phase("outlier segmentation"):
-            records_seg, path_seg = phase_seg(device, seg_dir)
-        # on phase 9's shape tree and phase 12's scans
-        with phase("aggregations"):
-            phase_aggregations(device, seg_dir, tree,
-                               os.path.join(seg_dir, "scans"), smi)
-        # on phase 9's shape tree, from phase 9's diverse checkpoint
-        with tempfile.TemporaryDirectory() as workdir, phase("gan"):
-            drel_record, path_gan = phase_gan(
-                device, workdir, tree, os.path.join(
-                    deploy_dir, "log", DEPLOY_CONFIGS[0], "current.pt"))
-        # on phase 9's shape tree
-        with tempfile.TemporaryDirectory() as workdir, phase("pcn"):
-            pcn_summary, path_pcn = phase_pcn(device, workdir, tree,
-                                              phase8_window)
-    # launches: this slice's path (l1.yaml trained with device_sampler: 1;
-    # the PCN's training and serving launch no KPConv kernel); every
-    # path's in the detail
+        gen_ckpt = os.path.join(deploy_dir, "log", DEPLOY_CONFIGS[0],
+                                "current.pt")
+        # the kernels' phases of 9b and 14 here, before the parts start
+        with phase("bf16 kernels vs plain"):  # 9b(a)
+            bf16_records = phase_bf16_kernels(
+                bf16_configs()[0], device,
+                bf16_stem_15k(device, deploy_dir, tree))
+        with phase("d_rel kernel vs plain"):  # 14(a)
+            drel_record = phase_drel(device, tree, gen_ckpt)
+        partdir = os.path.join(deploy_dir, "parts")
+        os.makedirs(partdir)
+        started = time.perf_counter()
+        parts = start_parts({"tree": tree, "gen_ckpt": gen_ckpt,
+                             "phase8_window": phase8_window}, partdir)
+        try:
+            with phase("cleaning"):  # on phase 9's shape tree
+                cleaning = phase_cleaning(cfg, deploy_dir)
+            # phase 8's and phase 10's checkpoints, phase 9's shape
+            with tempfile.TemporaryDirectory() as workdir, phase("export"):
+                export_fwd, export_summary = phase_export(
+                    cfg, workdir, os.path.join(deploy_dir, "deploy"),
+                    os.path.join(train_dir, "log", cfg.experiment_name,
+                                 "current.pt"), os.path.join(
+                        deploy_dir, "log_cleaning", CLEANING_CONFIG,
+                        "current.pt"), os.path.join(train_dir, "train_data"))
+            res = finish_parts(parts, started)
+        finally:
+            stop_parts(parts)
+    records_15k, path_15k = res["records_15k"], res["path_15k"]
+    records_seg, path_seg = res["records_seg"], res["path_seg"]
+    path_bf16, path_gan = res["path_bf16"], res["path_gan"]
+    pcn_summary, path_pcn = res["pcn_summary"], res["path_pcn"]
+    drel_record.update(profile=res["gan_profile"])
+    # launches: this slice's paths (the forward: serving through the
+    # loaded artifact; the backward: phase 8's training, which writes the
+    # run logs);
+    # every path's in the detail
     ds_fwd, ds_bwd, _ = path_pcn["device_sampled_training"]
     record.update(
-        launches=ds_fwd,
+        launches=export_fwd,
         launches_by_path={
+            "export_serving": export_fwd,
             "device_sampled_training": ds_fwd, "pcn_training": 0,
             "pcn_serving": 0,
             "disc_pretraining": path_gan["disc_pretraining"][0],
@@ -4025,10 +4599,12 @@ def main(argv=None) -> int:
             "outlier_seg_training": path_seg["training"][0],
             "outlier_seg_eval": path_seg["eval"]},
         shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"],
-        pcn=pcn_summary)
+        pcn=pcn_summary, export=export_summary,
+        device_us_by_cuda_events=device_us.by_cuda_events)
     bwd_record.update(
-        launches=ds_bwd,
+        launches=train_bwd,
         launches_by_path={
+            "export_serving": 0,
             "device_sampled_training": ds_bwd, "pcn_training": 0,
             "pcn_serving": 0,
             "disc_pretraining": path_gan["disc_pretraining"][1],

@@ -9,10 +9,13 @@ class probabilities voted onto each scan
     python -m deep3dpointclouddenoising_torch.evaluate_outlier_seg \\
         --config_file cfgs/outlier_seg_edf.yaml --data_root D \\
         --load_path L/<experiment_name>/current.pt [--split test] \\
-        [--write_dir O] [--dataset_type EDFS] [--DEBUG 1] [--device cuda]
+        [--write_dir O] [--dataset_type EDFS] [--DEBUG 1] [--device cuda] \\
+        [--log_dir L]
 
 Without ``--load_path`` the weights are initialised from the config's
-``rng_seed``.  ``--write_dir`` receives each scan's ``<name>_eval.ply``
+``rng_seed``.  The printed lines also go to
+``L/<experiment_name>/log.txt`` (``L`` defaults to ``log``, as for the JAX
+script).  ``--write_dir`` receives each scan's ``<name>_eval.ply``
 (points, outlier probability, class, label).
 """
 from __future__ import annotations
@@ -27,10 +30,11 @@ from .data.outlier_dataset import OutlierSegmentationDataset
 from .evaluate import evaluate_outlier_segmentation
 from .infer import make_predict_fn
 from .models import build_scene_segmentation
-from .train.__main__ import load_run_config
+from .train.__main__ import load_run_config, run_dir
 from .train_outlier_seg import dataset_kwargs
 from .utils.checkpoint import load_model_state
 from .utils.device import resolve_device
+from .utils.logger import run_logs
 from .utils.metrics import format_metric_table
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -51,6 +55,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="the model width (must match the checkpoint's)")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--log_dir", default="log",
+                   help="log.txt goes to <log_dir>/<experiment_name>")
     return p.parse_args(argv)
 
 
@@ -61,6 +67,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     device = resolve_device(args.device)
     cfg = load_run_config(args)
     cfg.num_classes = 2
+    with run_logs(run_dir(cfg, args.log_dir), metrics=False) as (logger, _):
+        return _evaluate(cfg, args, device, logger)
+
+
+def _evaluate(cfg, args, device, logger) -> Dict[str, Any]:
     dataset = OutlierSegmentationDataset(
         cfg.data_root, args.split, num_steps=cfg.num_steps,
         **dataset_kwargs(cfg, args.dataset_type))
@@ -69,9 +80,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         cfg, torch.Generator().manual_seed(int(cfg.rng_seed)))
     if args.load_path:
         model.load_state_dict(load_model_state(args.load_path))
-        print(f"loaded {args.load_path}", flush=True)
+        logger.info(f"loaded {args.load_path}")
     else:
-        print("no --load_path: evaluating a random init", flush=True)
+        logger.info("no --load_path: evaluating a random init")
     batch_size = int(cfg.batch_size)
     t0 = time.perf_counter()
     metrics = evaluate_outlier_segmentation(
@@ -80,10 +91,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     seconds = time.perf_counter() - t0
     batches = -(-len(dataset) // batch_size)
     points = sum(len(p) for p in dataset.clouds_points)
-    print(f"{args.split}: {len(dataset.cloud_names)} scans, {points} "
-          f"points, {len(dataset)} patches, {batches} batches, "
-          f"{seconds:.3f} s ({points / seconds:.1f} points/s)", flush=True)
-    print(format_metric_table(metrics, name=args.split), flush=True)
+    logger.info(f"{args.split}: {len(dataset.cloud_names)} scans, {points} "
+                f"points, {len(dataset)} patches, {batches} batches, "
+                f"{seconds:.3f} s ({points / seconds:.1f} points/s)")
+    logger.info(format_metric_table(metrics, name=args.split))
     return dict(metrics=metrics, dataset=dataset, batches=batches,
                 seconds=seconds)
 

@@ -11,10 +11,16 @@ function is
 ``kernel_weights``, and in ``rel`` as the JAX package's oracle path is
 (its jnp reference differentiated by ``jax.grad``; the Pallas ``custom_vjp``
 returns zeros for ``rel``); ``idx``, ``mask`` and ``kpoints`` are
-constants.  For CUDA tensors the
-forward launches ``csrc/kpconv_fwd.cu`` and the backward
-``csrc/kpconv_bwd.cu``; for CPU tensors both are the plain versions
-:func:`kpconv_aggregate_plain` and :func:`kpconv_aggregate_backward_plain`.
+constants.  Forward and backward are the ``torch.library`` custom ops
+``d3pcd_torch::kpconv_fwd`` and ``d3pcd_torch::kpconv_bwd``, so that
+``torch.export`` keeps them as opaque nodes of an exported program
+(``serving.py``).  For CUDA tensors they launch ``csrc/kpconv_fwd.cu`` and
+``csrc/kpconv_bwd.cu``; for CPU tensors they are the plain versions
+:func:`kpconv_aggregate_plain` and :func:`kpconv_aggregate_backward_plain`;
+their fake implementations give a tracer each device's output shapes and
+layouts.  The
+forward op's autograd formula calls :func:`kpconv_aggregate_backward` (by
+its module name, so a test can swap it).
 ``kpconv_aggregate.launches`` and ``kpconv_aggregate_backward.launches``
 count the float32 kernels' launches, ``.launches_bf16`` those of their
 bfloat16 forms, and ``kpconv_aggregate_backward.launches_drel`` the
@@ -40,11 +46,14 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _cuda
 from .neighbors import group_features
 
+# the ops' namespace: d3pcd_torch for this package, another one for a second
+# checkout imported beside it under another name (compare_host)
+NAMESPACE = __name__.split(".")[0].replace("deep3dpointclouddenoising",
+                                           "d3pcd")
 INFLUENCES = {"constant": 0, "linear": 1, "gaussian": 2}
 MAX_KERNEL_POINTS = 16  # kPPad in csrc/kpconv_fwd.cu and csrc/kpconv_bwd.cu
 # the feature dtypes the kernels take, and each one's entry-point suffix
@@ -369,35 +378,12 @@ def _forward_kernel(features, idx, rel, mask, kpoints, kernel_weights,
     return out
 
 
-def kpconv_aggregate_backward(
-        features, idx, rel, mask, kpoints, kernel_weights, grad_out,
-        extent: float, influence: str = "linear", need_features: bool = True,
-        need_kernel_weights: bool = True, need_rel: bool = False
-) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
-           Optional[torch.Tensor]]:
-    """``(d_features, d_kernel_weights, d_rel)`` of the aggregation for
-    the upstream gradient ``grad_out`` (B, M, C); ``None`` for what is not
-    needed.
-
-    CUDA tensors go through ``csrc/kpconv_bwd.cu``: one call launches the
-    inversion of ``idx`` (``kpconv_bwd_invert``), the per-support gather and
-    contraction (``kpconv_bwd_kernel``) and, for ``d_kernel_weights``, its
-    fixed-order reduction (``kpconv_bwd_reduce``), with no float atomics, so
-    ``d_features`` and ``d_kernel_weights`` are bitwise reproducible;
-    ``kpconv_aggregate_backward.launches`` counts calls that launch.  CPU
-    tensors go through :func:`kpconv_aggregate_backward_plain`.  Asking for
-    ``d_rel`` adds ``kpconv_bwd_drel`` (counted by ``.launches_drel``),
-    which writes every row of ``d_rel`` once, each a sum over the channels
-    in a fixed order: bitwise reproducible too.  bfloat16 ``features`` take a
-    bfloat16 ``grad_out`` and give bfloat16 ``d_features``
-    (``kpconv_bwd_bf16``, counted by ``.launches_bf16``), and no ``d_rel``.
-    """
+def _backward_kernel(features, idx, rel, mask, kpoints, kernel_weights,
+                     grad_out, extent: float, influence: str,
+                     need_features: bool, need_kernel_weights: bool,
+                     need_rel: bool):
     if need_rel:
         _check_no_bf16_rel(features)
-    if features.device.type == "cpu":
-        return kpconv_aggregate_backward_plain(
-            features, idx, rel, mask, kpoints, kernel_weights, grad_out,
-            extent, influence, need_features, need_kernel_weights, need_rel)
     B, N, M, K, C, P = _check_cuda_inputs(features, idx, rel, mask, kpoints,
                                           kernel_weights, influence)
     dev = features.device
@@ -439,30 +425,137 @@ def kpconv_aggregate_backward(
     return d_features, d_kw, d_rel
 
 
-class _KPConvAggregate(torch.autograd.Function):
-    """Forward and backward of the aggregation, kernel or plain by device."""
+# the custom ops.  Their bodies run for a device that has no kernel of its
+# own registered below; a custom op returns tensors only, so the backward op
+# gives an empty tensor for each gradient nobody asked for.
+_NONE = (0,)
 
-    @staticmethod
-    def forward(ctx, features, idx, rel, mask, kpoints, kernel_weights,
-                extent: float, influence: str):
-        ctx.save_for_backward(features, idx, rel, mask, kpoints,
-                              kernel_weights)
-        ctx.extent, ctx.influence = extent, influence
-        if features.device.type == "cpu":
-            return kpconv_aggregate_plain(features, idx, rel, mask, kpoints,
-                                          kernel_weights, extent, influence)
-        return _forward_kernel(features, idx, rel, mask, kpoints,
-                               kernel_weights, extent, influence)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        features, idx, rel, mask, kpoints, kernel_weights = ctx.saved_tensors
-        d_features, d_kw, d_rel = kpconv_aggregate_backward(
-            features, idx, rel, mask, kpoints, kernel_weights, grad_out,
-            ctx.extent, ctx.influence, ctx.needs_input_grad[0],
-            ctx.needs_input_grad[5], ctx.needs_input_grad[2])
-        return d_features, None, d_rel, None, None, d_kw, None, None
+@torch.library.custom_op(f"{NAMESPACE}::kpconv_fwd", mutates_args=())
+def _kpconv_fwd_op(features: torch.Tensor, idx: torch.Tensor,
+                   rel: torch.Tensor, mask: torch.Tensor,
+                   kpoints: torch.Tensor, kernel_weights: torch.Tensor,
+                   extent: float, influence: str) -> torch.Tensor:
+    raise ValueError(f"kpconv_aggregate: no kernel for device "
+                     f"{features.device}")
+
+
+@torch.library.custom_op(f"{NAMESPACE}::kpconv_bwd", mutates_args=())
+def _kpconv_bwd_op(features: torch.Tensor, idx: torch.Tensor,
+                   rel: torch.Tensor, mask: torch.Tensor,
+                   kpoints: torch.Tensor, kernel_weights: torch.Tensor,
+                   grad_out: torch.Tensor, extent: float, influence: str,
+                   need_features: bool, need_kernel_weights: bool,
+                   need_rel: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise ValueError(f"kpconv_aggregate_backward: no kernel for device "
+                     f"{features.device}")
+
+
+def _or_empty(grads, features, kernel_weights, rel):
+    """An empty tensor of the input's dtype for each ``None``."""
+    return tuple(x.new_empty(_NONE) if g is None else g
+                 for g, x in zip(grads, (features, kernel_weights, rel)))
+
+
+_kpconv_fwd_op.register_kernel("cuda")(_forward_kernel)
+_kpconv_fwd_op.register_kernel("cpu")(kpconv_aggregate_plain)
+
+
+@_kpconv_bwd_op.register_kernel("cuda")
+def _kpconv_bwd_cuda(features, idx, rel, mask, kpoints, kernel_weights,
+                     grad_out, extent, influence, need_features,
+                     need_kernel_weights, need_rel):
+    return _or_empty(_backward_kernel(
+        features, idx, rel, mask, kpoints, kernel_weights, grad_out, extent,
+        influence, need_features, need_kernel_weights, need_rel),
+        features, kernel_weights, rel)
+
+
+@_kpconv_bwd_op.register_kernel("cpu")
+def _kpconv_bwd_cpu(features, idx, rel, mask, kpoints, kernel_weights,
+                    grad_out, extent, influence, need_features,
+                    need_kernel_weights, need_rel):
+    return _or_empty(kpconv_aggregate_backward_plain(
+        features, idx, rel, mask, kpoints, kernel_weights, grad_out, extent,
+        influence, need_features, need_kernel_weights, need_rel),
+        features, kernel_weights, rel)
+
+
+# The fake implementations state each device's output layout: the kernels'
+# outputs are contiguous; on the CPU the plain versions' einsums choose
+# theirs, which the fake runs them on fake tensors to find (the CPU
+# outputs stay in that layout, so downstream sums round as they always
+# have).
+@_kpconv_fwd_op.register_fake
+def _kpconv_fwd_fake(features, idx, rel, mask, kpoints, kernel_weights,
+                     extent, influence):
+    if features.device.type == "cpu":
+        return kpconv_aggregate_plain(features, idx, rel, mask, kpoints,
+                                      kernel_weights, extent, influence)
+    return features.new_empty((features.shape[0], idx.shape[1],
+                               features.shape[2]))
+
+
+@_kpconv_bwd_op.register_fake
+def _kpconv_bwd_fake(features, idx, rel, mask, kpoints, kernel_weights,
+                     grad_out, extent, influence, need_features,
+                     need_kernel_weights, need_rel):
+    if features.device.type == "cpu":
+        return _kpconv_bwd_cpu(features, idx, rel, mask, kpoints,
+                               kernel_weights, grad_out, extent, influence,
+                               need_features, need_kernel_weights, need_rel)
+    return tuple(x.new_empty(x.shape if need else _NONE) for x, need in (
+        (features, need_features), (kernel_weights, need_kernel_weights),
+        (rel, need_rel)))
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:6])
+    ctx.extent, ctx.influence = inputs[6], inputs[7]
+
+
+def _fwd_backward(ctx, grad_out):
+    features, idx, rel, mask, kpoints, kernel_weights = ctx.saved_tensors
+    d_features, d_kw, d_rel = kpconv_aggregate_backward(
+        features, idx, rel, mask, kpoints, kernel_weights, grad_out,
+        ctx.extent, ctx.influence, ctx.needs_input_grad[0],
+        ctx.needs_input_grad[5], ctx.needs_input_grad[2])
+    return d_features, None, d_rel, None, None, d_kw, None, None
+
+
+_kpconv_fwd_op.register_autograd(_fwd_backward,
+                                 setup_context=_fwd_setup_context)
+
+
+def kpconv_aggregate_backward(
+        features, idx, rel, mask, kpoints, kernel_weights, grad_out,
+        extent: float, influence: str = "linear", need_features: bool = True,
+        need_kernel_weights: bool = True, need_rel: bool = False
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """``(d_features, d_kernel_weights, d_rel)`` of the aggregation for
+    the upstream gradient ``grad_out`` (B, M, C); ``None`` for what is not
+    needed.  Calls the op ``d3pcd_torch::kpconv_bwd``.
+
+    CUDA tensors go through ``csrc/kpconv_bwd.cu``: one call launches the
+    inversion of ``idx`` (``kpconv_bwd_invert``), the per-support gather and
+    contraction (``kpconv_bwd_kernel``) and, for ``d_kernel_weights``, its
+    fixed-order reduction (``kpconv_bwd_reduce``), with no float atomics, so
+    ``d_features`` and ``d_kernel_weights`` are bitwise reproducible;
+    ``kpconv_aggregate_backward.launches`` counts calls that launch.  CPU
+    tensors go through :func:`kpconv_aggregate_backward_plain`.  Asking for
+    ``d_rel`` adds ``kpconv_bwd_drel`` (counted by ``.launches_drel``),
+    which writes every row of ``d_rel`` once, each a sum over the channels
+    in a fixed order: bitwise reproducible too.  bfloat16 ``features`` take a
+    bfloat16 ``grad_out`` and give bfloat16 ``d_features``
+    (``kpconv_bwd_bf16``, counted by ``.launches_bf16``), and no ``d_rel``.
+    """
+    needs = (need_features, need_kernel_weights, need_rel)
+    grads = getattr(torch.ops, NAMESPACE).kpconv_bwd(
+        features, idx, rel, mask, kpoints, kernel_weights, grad_out,
+        float(extent), influence, *needs)
+    return tuple(g if need else None for g, need in zip(grads, needs))
 
 
 def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
@@ -483,18 +576,19 @@ def kpconv_aggregate(features: torch.Tensor, idx: torch.Tensor,
       influence: 'linear' | 'gaussian' | 'constant'.
 
     Returns (B, M, C) in ``features.dtype``, differentiable in
-    ``features``, ``kernel_weights`` and (float32 only) ``rel``.  CUDA
-    tensors go through the kernels (``kpconv_aggregate.launches`` and
-    ``.launches_bf16`` count the forward's launches), CPU tensors through
-    the plain versions.
+    ``features``, ``kernel_weights`` and (float32 only) ``rel``: the op
+    ``d3pcd_torch::kpconv_fwd``.  CUDA tensors go through the kernels
+    (``kpconv_aggregate.launches`` and ``.launches_bf16`` count the
+    forward's launches), CPU tensors through the plain versions.
     """
     if influence not in INFLUENCES:
         raise ValueError(f"Unknown KP_influence {influence}")
     if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"kpconv_aggregate: no kernel for device "
                          f"{features.device}")
-    return _KPConvAggregate.apply(features, idx, rel, mask, kpoints,
-                                  kernel_weights, extent, influence)
+    return getattr(torch.ops, NAMESPACE).kpconv_fwd(
+        features, idx, rel, mask, kpoints, kernel_weights, float(extent),
+        influence)
 
 
 kpconv_aggregate.launches = 0

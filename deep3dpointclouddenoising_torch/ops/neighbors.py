@@ -50,8 +50,10 @@ def auto_compact(b: int, m: int, n: int) -> bool:
     """Whether a query drops the invalid supports first: when it takes
     more than one tile (the 15,000-point configs, whose patches are
     mostly padding), not at the 500-point configs, which so keep a query
-    free of host waits."""
-    return auto_chunk(b, m, n) < m
+    free of host waits.  Never under ``torch.export``: compaction reads a
+    count on the host, which a program of static shapes cannot hold, and
+    the indices are the same without it (:func:`compact_supports`)."""
+    return auto_chunk(b, m, n) < m and not torch.compiler.is_exporting()
 
 
 def compact_supports(support_xyz: torch.Tensor, support_mask: torch.Tensor

@@ -14,7 +14,8 @@ Prints, for ``cfgs/l1.yaml`` (width 144, B=16, N=500, seeded weights):
   Adam; synchronised, no profiler), then the same as for the forward over
   a profiler window of train steps, with the backward's kernels' device
   time per call (inversion, per-support kernel, reduction) and per step,
-  and the host time of the aggregation's autograd nodes per call;
+  and the host time per call of the aggregation's custom ops and their
+  autograd nodes (names holding ``d3pcd_torch``);
 * the same busy share over a window of the voting loop on two synthetic
   shapes (icosphere and torus, 140000 points each).
 
@@ -122,9 +123,9 @@ def profile_train_steps(trainer: Trainer, batch, steps: int = 5):
     20 steps with no profiler; then a profiler window over ``steps`` train
     steps: wall and device time per step, the busy share, device time by
     kernel, the KPConv kernels' device time per call and the host time of
-    the aggregation's autograd nodes per call.  Returns the window's
-    ``(device ms per step, busy share)``, or ``None`` when the profiler
-    saw no device time."""
+    the aggregation's custom ops and autograd nodes per call.  Returns the
+    window's ``(device ms per step, busy share)``, or ``None`` when the
+    profiler saw no device time."""
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()
@@ -150,7 +151,7 @@ def profile_train_steps(trainer: Trainer, batch, steps: int = 5):
         _per_call(prof, kernel, steps)
     us = sum(u for name, u in _device_events(prof) if "kpconv_bwd" in name)
     print(f"kpconv_bwd kernels together: {us / steps / 1e3:.4f} ms per step")
-    _host_us_per_call(prof, "KPConvAggregate", steps)
+    _host_us_per_call(prof, "d3pcd_torch", steps)
     return summary
 
 

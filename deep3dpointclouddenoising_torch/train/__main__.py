@@ -11,7 +11,7 @@ checkpoint per epoch.  Run it as::
         --config_file cfgs/l1.yaml --data_root D --log_dir L \\
         [--num_steps S] [--epochs E] [--batch_size B] [--device cuda] \\
         [--auto_resume] [--load_path P [--start_epoch E0]] \\
-        [--load_weights_path W]
+        [--load_weights_path W] [--profile_dir T]
 
 ``D`` holds ``train/*.off`` and ``val/*.off``.  Checkpoints go to
 ``L/<experiment_name>/current.pt`` (every epoch) and ``ckpt_epoch_<E>.pt``
@@ -38,6 +38,15 @@ while the card computes.  The JAX package's ``steps_per_dispatch``
 the config and ignored: every step is its own dispatch.  ``remat: 1`` in
 the config recomputes the encoder's bottlenecks in the backward
 (``models/resnet.py``).
+
+Every line the run prints also goes to ``L/<experiment_name>/log.txt``, and
+each epoch appends its scalars to ``metrics.jsonl`` there
+(``utils/logger.py``; ``scripts/plot_metrics.py`` reads it), step = the
+epoch, with the JAX scripts' tags: ``train/loss``, ``train/lr`` (offset
+regression only, as ``scripts/train.py``) and ``val/loss``.  A resumed run
+appends to both.  ``--profile_dir T`` (offset regression) writes a
+``torch.profiler`` Chrome trace of the first epoch's train steps to
+``T/trace.json`` (``utils/profiling.device_trace``).
 """
 from __future__ import annotations
 
@@ -58,7 +67,9 @@ from ..data.transforms import build_train_transforms
 from ..utils.checkpoint import (load_checkpoint, load_weights,
                                 resume_checkpoint, save_checkpoint)
 from ..utils.device import resolve_device
+from ..utils.logger import get_logger, run_logs
 from ..utils.metrics import AverageMeter
+from ..utils.profiling import device_trace
 from .pcn import PCNTrainer
 from .trainer import Trainer
 
@@ -138,6 +149,10 @@ def parse_args(argv: Optional[List[str]] = None,
     p.add_argument("--log_dir", default="log")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
+    if loss_mode == "offset":
+        p.add_argument("--profile_dir",
+                       help="write a torch.profiler Chrome trace of the "
+                            "first epoch's train steps into this directory")
     return p.parse_args(argv)
 
 
@@ -161,19 +176,20 @@ def restore_run(trainer: Trainer, cfg, directory: str, steps_per_epoch: int,
        written at epochs' ends).
     """
     current = resume_checkpoint(directory)
+    logger = get_logger()
     if cfg.load_path:
         step = load_checkpoint(cfg.load_path, trainer)
-        print(f"resumed from {cfg.load_path} at step {step}", flush=True)
+        logger.info(f"resumed from {cfg.load_path} at step {step}")
         return cfg.load_path
     if load_weights_path and not (auto_resume and current):
         load_weights(load_weights_path, trainer)
-        print(f"warm-started weights from {load_weights_path}", flush=True)
+        logger.info(f"warm-started weights from {load_weights_path}")
         return load_weights_path
     if auto_resume and current:
         step = load_checkpoint(current, trainer)
         cfg.start_epoch = step // steps_per_epoch + 1
-        print(f"auto-resumed from {current} at step {step} -> start_epoch "
-              f"{cfg.start_epoch}", flush=True)
+        logger.info(f"auto-resumed from {current} at step {step} -> "
+                    f"start_epoch {cfg.start_epoch}")
         return current
     return None
 
@@ -246,11 +262,9 @@ def main(argv: Optional[List[str]] = None,
     sampler = None
     if cfg.device_sampler:
         sampler = DeviceSampler(train_ds, cfg, device)
-        print("device sampler: the training clouds are on the card, each "
-              "step's patches are cut there", flush=True)
     return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
                norm_factor, args.load_weights_path, args.auto_resume,
-               sampler)
+               sampler, getattr(args, "profile_dir", None))
 
 
 def sampled_batches(sampler: DeviceSampler, epoch: int, batch_size: int,
@@ -266,7 +280,8 @@ def sampled_batches(sampler: DeviceSampler, epoch: int, batch_size: int,
 def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
         loss_mode: str, norm_factor: Optional[float] = None,
         load_weights_path: Optional[str] = None, auto_resume: bool = False,
-        sampler: Optional[DeviceSampler] = None) -> Dict[str, Any]:
+        sampler: Optional[DeviceSampler] = None,
+        profile_dir: Optional[str] = None) -> Dict[str, Any]:
     """Epochs ``cfg.start_epoch..cfg.epochs`` of train steps over
     ``train_ds`` (its ragged last batch dropped), a validation pass over
     ``val_ds`` every ``cfg.val_freq`` epochs, and a checkpoint per epoch
@@ -275,17 +290,31 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
     ``load_weights_path``, ``auto_resume``).  ``loss_mode`` ``"pcn"``
     trains the PCN baseline (``PCNTrainer``); with ``sampler`` the train
     batches are cut on the card (:func:`sampled_batches`, normalised
-    there).  Returns a summary: every
+    there).  The run's lines go to stdout and its ``log.txt``, its
+    scalars to its ``metrics.jsonl``; with ``profile_dir`` the first
+    epoch's train steps are traced there.  Returns a summary: every
     train loss, the val losses, ms per step of each epoch, the step count,
     val batches, the last checkpoint's path, what was restored and the
     trainer."""
     log_dir = run_dir(cfg, log_dir)
+    with run_logs(log_dir) as (logger, writer):
+        return _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode,
+                    norm_factor, load_weights_path, auto_resume, sampler,
+                    profile_dir, logger, writer)
+
+
+def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
+         load_weights_path, auto_resume, sampler, profile_dir, logger,
+         writer) -> Dict[str, Any]:
     batch_size = int(cfg.batch_size)
     train_loader = BatchLoader(train_ds, batch_size, drop_last=True)
     val_loader = BatchLoader(val_ds, batch_size)
-    print(f"device {device}; train patches {len(train_ds)} "
-          f"({len(train_loader)} steps per epoch), val patches "
-          f"{len(val_ds)}", flush=True)
+    logger.info(f"device {device}; train patches {len(train_ds)} "
+                f"({len(train_loader)} steps per epoch), val patches "
+                f"{len(val_ds)}")
+    if sampler is not None:
+        logger.info("device sampler: the training clouds are on the card, "
+                    "each step's patches are cut there")
     generator = torch.Generator().manual_seed(int(cfg.rng_seed))
     trainer = PCNTrainer(cfg, len(train_loader), generator, device) \
         if loss_mode == "pcn" else Trainer(cfg, len(train_loader),
@@ -307,27 +336,33 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
                    if sampler is not None else
                    (_normed(b, norm_factor)
                     for b in train_loader.epoch_iter(epoch - 1)))
-        for it, batch in enumerate(batches):
-            loss = trainer.train_step(batch)
-            pending.append((loss, len(batch["points"])))
-            steps += 1
-            if it % int(cfg.print_freq) == 0:
-                for value, n in pending:  # waits for the card here only
-                    meter.update(value.item(), n)
-                    summary["train_losses"].append(meter.val)
-                pending.clear()
-                print(f"Train [{epoch}/{cfg.epochs}][{it}/"
-                      f"{len(train_loader)}] loss {meter.val:.6f} "
-                      f"({meter.avg:.6f})", flush=True)
-        for value, n in pending:
-            meter.update(value.item(), n)
-            summary["train_losses"].append(meter.val)
-        _sync(device)
-        ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
+        trace = profile_dir if epoch == int(cfg.start_epoch) else None
+        with device_trace(trace):
+            for it, batch in enumerate(batches):
+                loss = trainer.train_step(batch)
+                pending.append((loss, len(batch["points"])))
+                steps += 1
+                if it % int(cfg.print_freq) == 0:
+                    for value, n in pending:  # waits for the card here only
+                        meter.update(value.item(), n)
+                        summary["train_losses"].append(meter.val)
+                    pending.clear()
+                    logger.info(f"Train [{epoch}/{cfg.epochs}][{it}/"
+                                f"{len(train_loader)}] loss "
+                                f"{meter.val:.6f} ({meter.avg:.6f})")
+            for value, n in pending:
+                meter.update(value.item(), n)
+                summary["train_losses"].append(meter.val)
+            _sync(device)
+            ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
         summary["ms_per_step"].append(ms)
-        print(f"epoch {epoch}: {steps} steps, loss {meter.avg:.6f}, lr "
-              f"{trainer.lr_schedule(trainer.step):.6g}, {ms:.3f} ms per "
-              f"step (host clock, data loading included)", flush=True)
+        lr = trainer.lr_schedule(trainer.step)
+        logger.info(f"epoch {epoch}: {steps} steps, loss {meter.avg:.6f}, "
+                    f"lr {lr:.6g}, {ms:.3f} ms per step (host clock, data "
+                    f"loading included)")
+        writer.add_scalar("train/loss", meter.avg, epoch)
+        if loss_mode == "offset":  # as scripts/train.py
+            writer.add_scalar("train/lr", lr, epoch)
         if epoch % int(cfg.val_freq) == 0:
             vmeter = AverageMeter()
             vpending = [(trainer.eval_step(_normed(b, norm_factor)),
@@ -336,12 +371,12 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
                 vmeter.update(value.item(), n)
             summary["val_batches"] += len(vpending)
             summary["val_losses"].append(vmeter.avg)
-            print(f"val [{epoch}] loss {vmeter.avg:.6f}", flush=True)
+            logger.info(f"val [{epoch}] loss {vmeter.avg:.6f}")
+            writer.add_scalar("val/loss", vmeter.avg, epoch)
         checkpoint = save_epoch(log_dir, trainer, epoch, cfg)
     summary.update(steps=trainer.step, checkpoint=checkpoint,
                    trainer=trainer)
-    print(f"trained {trainer.step} steps; checkpoint {checkpoint}",
-          flush=True)
+    logger.info(f"trained {trainer.step} steps; checkpoint {checkpoint}")
     return summary
 
 

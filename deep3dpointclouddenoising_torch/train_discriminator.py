@@ -17,7 +17,10 @@ Checkpoints go to ``L/<experiment_name>/current.pt`` and
 ``ckpt_epoch_<E>.pt``, which ``train_gan --load_path_discriminator``
 reads.  ``--load_path P`` restores P's whole train state, else
 ``--auto_resume`` the run directory's newest, as the train entry point
-does (``train.__main__.restore_run``).
+does (``train.__main__.restore_run``).  The printed lines also go to
+``L/<experiment_name>/log.txt``, and each epoch appends ``train/loss`` and
+``val/accuracy`` (step = the epoch) to ``metrics.jsonl`` there, as the JAX
+script writes them.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .data.loader import BatchLoader
 from .train import __main__ as _train_cli
 from .train.gan import GANTrainer
 from .utils.device import resolve_device
+from .utils.logger import run_logs
 from .utils.metrics import AverageMeter
 
 
@@ -42,12 +46,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     cfg = _train_cli.load_run_config(args)
     train_ds = _train_cli.offset_dataset(cfg, "train", int(cfg.epochs))
     val_ds = _train_cli.offset_dataset(cfg, "val", 1)
+    run = _train_cli.run_dir(cfg, args.log_dir)
+    with run_logs(run) as (logger, writer):
+        return _pretrain(cfg, args, device, train_ds, val_ds, run, logger,
+                         writer)
+
+
+def _pretrain(cfg, args, device, train_ds, val_ds, run, logger,
+              writer) -> Dict[str, Any]:
     batch_size = int(cfg.batch_size)
     loader = BatchLoader(train_ds, batch_size, drop_last=True)
     val_loader = BatchLoader(val_ds, batch_size)
-    run = _train_cli.run_dir(cfg, args.log_dir)
-    print(f"device {device}; train patches {len(train_ds)} ({len(loader)} "
-          f"steps per epoch), val patches {len(val_ds)}", flush=True)
+    logger.info(f"device {device}; train patches {len(train_ds)} "
+                f"({len(loader)} steps per epoch), val patches "
+                f"{len(val_ds)}")
     trainer = GANTrainer(cfg, len(loader),
                          torch.Generator().manual_seed(int(cfg.rng_seed)),
                          device)
@@ -72,17 +84,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     meter.update(value.item(), n)
                     summary["train_losses"].append(meter.val)
                 pending.clear()
-                print(f"D [{epoch}/{cfg.epochs}][{it}/{len(loader)}] loss "
-                      f"{meter.val:.6f} ({meter.avg:.6f})", flush=True)
+                logger.info(f"D [{epoch}/{cfg.epochs}][{it}/{len(loader)}] "
+                            f"loss {meter.val:.6f} ({meter.avg:.6f})")
         for value, n in pending:
             meter.update(value.item(), n)
             summary["train_losses"].append(meter.val)
         _train_cli._sync(device)
         ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
         summary["ms_per_step"].append(ms)
-        print(f"epoch {epoch}: {steps} steps, loss {meter.avg:.6f}, "
-              f"{ms:.3f} ms per step (host clock, data loading included)",
-              flush=True)
+        logger.info(f"epoch {epoch}: {steps} steps, loss {meter.avg:.6f}, "
+                    f"{ms:.3f} ms per step (host clock, data loading "
+                    f"included)")
+        writer.add_scalar("train/loss", meter.avg, epoch)
         if epoch % int(cfg.val_freq) == 0:
             acc = AverageMeter()
             accs = [(trainer.pretrain_accuracy(b), len(b["points"]))
@@ -91,12 +104,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 acc.update(value.item(), n)
             summary["val_batches"] += len(accs)
             summary["val_accuracy"].append(acc.avg)
-            print(f"val [{epoch}] accuracy {acc.avg:.4f}", flush=True)
+            logger.info(f"val [{epoch}] accuracy {acc.avg:.4f}")
+            writer.add_scalar("val/accuracy", acc.avg, epoch)
         checkpoint = _train_cli.save_epoch(run, block, epoch, cfg)
     summary.update(steps=trainer.step, checkpoint=checkpoint,
                    trainer=trainer)
-    print(f"trained {trainer.step} discriminator steps; checkpoint "
-          f"{checkpoint}", flush=True)
+    logger.info(f"trained {trainer.step} discriminator steps; checkpoint "
+                f"{checkpoint}")
     return summary
 
 

@@ -25,7 +25,10 @@ discriminator's checkpoint completed (the JAX script reads the
 generator's step, which stays 0 under ``freeze_gen: 1``).  The random
 draws of each update depend on its global step alone, so a resumed run
 repeats an unbroken one bitwise.  The metrics are read back from the card
-every ``print_freq`` updates.
+every ``print_freq`` updates.  The printed lines also go to
+``L/<experiment_name>/log.txt``, and each epoch appends ``train/<metric>``
+(each metric's average, step = the epoch) to ``metrics.jsonl`` there, as the
+JAX script writes them.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from .train.gan import METRICS, GANTrainer
 from .utils.checkpoint import (load_checkpoint, load_weights,
                                resume_checkpoint)
 from .utils.device import resolve_device
+from .utils.logger import get_logger, run_logs
 from .utils.metrics import AverageMeter
 
 
@@ -54,6 +58,7 @@ def restore_gan(trainer: GANTrainer, cfg, run: str, steps_per_epoch: int,
     discriminator's step); else the weights of ``load_path_*``.  Returns
     what each block read."""
     restored: Dict[str, Optional[str]] = {k: None for k in trainer.blocks}
+    logger = get_logger()
     if auto_resume and resume_checkpoint(os.path.join(run, "generator")):
         for name, block in trainer.blocks.items():
             path = resume_checkpoint(os.path.join(run, name))
@@ -64,15 +69,15 @@ def restore_gan(trainer: GANTrainer, cfg, run: str, steps_per_epoch: int,
             load_checkpoint(path, block)
             restored[name] = path
         cfg.start_epoch = trainer.step // steps_per_epoch + 1
-        print(f"auto-resumed from {run} at step {trainer.step} -> "
-              f"start_epoch {cfg.start_epoch}", flush=True)
+        logger.info(f"auto-resumed from {run} at step {trainer.step} -> "
+                    f"start_epoch {cfg.start_epoch}")
         return restored
     for name, path in (("generator", load_path_generator),
                        ("discriminator", load_path_discriminator)):
         if path:
             load_weights(path, trainer.blocks[name])
             restored[name] = path
-            print(f"{name} weights from {path}", flush=True)
+            logger.info(f"{name} weights from {path}")
     return restored
 
 
@@ -85,10 +90,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     cfg = _train_cli.load_run_config(args)
     train_ds = _train_cli.offset_dataset(cfg, "train", int(cfg.epochs),
                                          build_train_transforms(cfg))
-    loader = BatchLoader(train_ds, int(cfg.batch_size), drop_last=True)
     run = _train_cli.run_dir(cfg, args.log_dir)
-    print(f"device {device}; train patches {len(train_ds)} "
-          f"({len(loader)} updates per epoch)", flush=True)
+    with run_logs(run) as (logger, writer):
+        return _fine_tune(cfg, args, device, train_ds, run, logger, writer)
+
+
+def _fine_tune(cfg, args, device, train_ds, run, logger,
+               writer) -> Dict[str, Any]:
+    loader = BatchLoader(train_ds, int(cfg.batch_size), drop_last=True)
+    logger.info(f"device {device}; train patches {len(train_ds)} "
+                f"({len(loader)} updates per epoch)")
     trainer = GANTrainer(cfg, len(loader),
                          torch.Generator().manual_seed(int(cfg.rng_seed)),
                          device, freeze_generator=bool(cfg.freeze_gen))
@@ -116,24 +127,26 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             updates += 1
             if it % int(cfg.print_freq) == 0:
                 flush()
-                print(f"GAN [{epoch}/{cfg.epochs}][{it}/{len(loader)}] "
-                      + " ".join(f"{k} {m.avg:.6f}"
-                                 for k, m in meters.items()), flush=True)
+                logger.info(f"GAN [{epoch}/{cfg.epochs}][{it}/{len(loader)}] "
+                            + " ".join(f"{k} {m.avg:.6f}"
+                                       for k, m in meters.items()))
         flush()
         _train_cli._sync(device)
         ms = (time.perf_counter() - t0) / max(updates, 1) * 1e3
         summary["ms_per_update"].append(ms)
-        print(f"epoch {epoch}: {updates} updates, "
-              + " ".join(f"{k} {m.avg:.6f}" for k, m in meters.items())
-              + f", {ms:.3f} ms per update (host clock, data loading "
-              "included)", flush=True)
+        logger.info(f"epoch {epoch}: {updates} updates, "
+                    + " ".join(f"{k} {m.avg:.6f}" for k, m in meters.items())
+                    + f", {ms:.3f} ms per update (host clock, data loading "
+                    "included)")
+        for k, m in meters.items():
+            writer.add_scalar(f"train/{k}", m.avg, epoch)
         for name, block in trainer.blocks.items():
             checkpoints[name] = _train_cli.save_epoch(
                 os.path.join(run, name), block, epoch, cfg)
     summary.update(steps=trainer.step, checkpoints=checkpoints,
                    trainer=trainer)
-    print(f"trained {trainer.step} GAN updates; checkpoints "
-          f"{checkpoints}", flush=True)
+    logger.info(f"trained {trainer.step} GAN updates; checkpoints "
+                f"{checkpoints}")
     return summary
 
 

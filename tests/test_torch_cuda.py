@@ -1061,3 +1061,85 @@ def test_device_sampled_train_steps_are_bitwise_reproducible(card,
         states.append((trainer.model.state_dict(),
                        trainer.optimizer.state_dict()))
     assert not grad_check.state_difference(states[0], states[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["kpconv_fwd", "kpconv_bwd"])
+def test_kpconv_ops_pass_opcheck_on_card(card, op, dtype):
+    """``torch.library.opcheck`` of both custom ops on CUDA tensors
+    (schema, fake implementation against the kernels' outputs, autograd
+    registration, AOT dispatch); the backward for each set of gradients
+    asked, d_rel in float32 only; and each call launches the kernel."""
+    arrays = [a.to(card) for a in _inputs(np.random.default_rng(8), 2, 40,
+                                          30, 9, 24)]
+    arrays[0] = arrays[0].to(dtype)
+    target = getattr(torch.ops.d3pcd_torch, op).default
+    if op == "kpconv_fwd":
+        arrays[0].requires_grad_()
+        arrays[5].requires_grad_()
+        cases = [(*arrays, 0.12, "linear")]
+    else:
+        g = torch.randn(2, 40, 24, device=card).to(dtype)
+        needs = [(True, True, False), (True, False, False),
+                 (False, True, False)]
+        if dtype == torch.float32:
+            needs.append((True, True, True))
+        cases = [(*arrays, g, 0.12, "gaussian", *n) for n in needs]
+    wrapper = tkp.kpconv_aggregate if op == "kpconv_fwd" \
+        else tkp.kpconv_aggregate_backward
+    key = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(wrapper, key)
+    for args in cases:
+        result = torch.library.opcheck(target, args)
+        assert set(result.values()) == {"SUCCESS"}, result
+    torch.cuda.synchronize()
+    assert getattr(wrapper, key) > before
+
+
+@pytest.mark.cuda
+def test_export_round_trip_on_card(card, tmp_path):
+    """l1.yaml at width 144 (B=4, N=500, seeded weights with O(1) running
+    statistics) exported on the card, saved and loaded: the graph holds
+    ten forward ops, each call launches the forward kernel ten times and
+    the backward none, and the output is within ``export_model --check``'s
+    1e-5 * max(scale, 1) of the eager forward."""
+    from deep3dpointclouddenoising_torch import infer, serving
+    cfg = load_config(L1_YAML)
+    model = OffsetRegressionModel(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.from_numpy(
+                    rng.normal(size=buf.shape).astype(np.float32) * 0.5))
+            elif name.endswith("running_var"):
+                buf.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 2.0, size=buf.shape).astype(np.float32)))
+    model = model.to(card).eval()
+    xyz = rng.normal(size=(4, 500, 3))
+    xyz = (0.03 * xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+           * rng.random((4, 500, 1))).astype(np.float32)
+    batch = {"points": xyz, "mask": np.ones((4, 500), np.float32),
+             "features": xyz}
+    path = str(tmp_path / "l1.pt2")
+    exported = serving.export_denoiser(model, batch, device=card)
+    serving.save_artifact(exported, path)
+    assert serving.artifact_meta(path)["platforms"] == ["cuda"]
+    predict = serving.load_denoiser(path)
+    nodes = [str(n.target) for n in predict.exported.graph.nodes
+             if n.op == "call_function"]
+    assert sum(t.startswith("d3pcd_torch.kpconv_fwd") for t in nodes) == 10
+    assert not any(t.startswith("d3pcd_torch.kpconv_bwd") for t in nodes)
+    predict(batch["points"], batch["mask"], batch["features"])
+    counts = (tkp.kpconv_aggregate.launches,
+              tkp.kpconv_aggregate_backward.launches)
+    got = predict(batch["points"], batch["mask"], batch["features"])
+    torch.cuda.synchronize()
+    assert (tkp.kpconv_aggregate.launches - counts[0],
+            tkp.kpconv_aggregate_backward.launches - counts[1]) == (10, 0)
+    assert got.device.type == "cuda"
+    want = infer.make_predict_fn(model)(batch)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * max(want.abs().max().item(), 1.0)

@@ -44,7 +44,8 @@ def test_port_has_every_module_of_the_slice():
                  "data.device_sampler", "losses.chamfer",
                  "train_full_cleaning", "train.gan", "train_gan",
                  "train_discriminator", "models.pcpnet", "train.pcn",
-                 "train_pcn"):
+                 "train_pcn", "serving", "export_model", "utils.logger",
+                 "utils.profiling"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
