@@ -291,6 +291,7 @@ from __future__ import annotations
 
 import copy
 import gc
+import hashlib
 import json
 import math
 import os
@@ -328,6 +329,7 @@ from deep3dpointclouddenoising_torch.losses.build import \
     get_offset_regression_loss
 from deep3dpointclouddenoising_torch.losses.masked import (
     masked_cross_entropy, masked_l1_loss)
+from deep3dpointclouddenoising_torch.models import layers as model_layers
 from deep3dpointclouddenoising_torch.models import local_aggregation
 from deep3dpointclouddenoising_torch.models.build import (
     build_discriminator, build_offset_regression, build_offset_regression_PCN,
@@ -340,6 +342,10 @@ from deep3dpointclouddenoising_torch.ops import kpconv as kpconv_ops
 from deep3dpointclouddenoising_torch.ops.kpconv import (
     invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
+from deep3dpointclouddenoising_torch.parallel.dist import (
+    initialize_distributed, local_device, process_slice,
+    shutdown_distributed, world_size)
+from deep3dpointclouddenoising_torch.parallel.dist import rank as dist_rank
 from deep3dpointclouddenoising_torch.profile_serving import \
     _device_events, profile_train_steps, window_summary
 from deep3dpointclouddenoising_torch.train import __main__ as train_cli
@@ -347,6 +353,7 @@ from deep3dpointclouddenoising_torch.train.gan import GANTrainer
 from deep3dpointclouddenoising_torch.train.pcn import PCNTrainer, rotate_back
 from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
+from deep3dpointclouddenoising_torch.utils.checkpoint import load_model_state
 from deep3dpointclouddenoising_torch.utils.profiling import TRACE_NAME
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -521,6 +528,20 @@ TRACE_STEPS = 3
 PARTS = {"aggregations": (3, "13"), "15k_seg": (2, "11, 12"),
          "bf16_gan_pcn": (2, "9b(b-d), 14(b-e), 15")}
 PART_LIMIT_S = 900
+# phase 17 (data parallel): PAR_WORLD ranks on the card over gloo, then one
+# over NCCL, each started by torchrun and run for PAR_EPOCHS epochs of
+# PAR_STEPS steps; (a) and (c) hold the first train loss within
+# PAR_FIRST_LOSS_RTOL of one process's, (b) the SGD step's gradients within
+# PAR_SGD_ATOL (tests/test_trainer.py:106-144); a torchrun still running
+# after PAR_LIMIT_S is killed and fails the run
+PAR_WORLD = 2
+PAR_STEPS = 3
+PAR_EPOCHS = 2
+PAR_DEVICE = "cuda"
+PAR_BATCH_SEED = 17
+PAR_FIRST_LOSS_RTOL = 1e-4
+PAR_SGD_ATOL = 2e-5
+PAR_LIMIT_S = 420
 FRESH_LOAD = r"""
 import json, sys, time
 import numpy as np
@@ -1250,16 +1271,22 @@ def phase_model_grad(cfg, device, batch=None):
           "up to %.3e of a tensor's max-abs (%s)" % max(noise))
 
 
-def phase_training(cfg, device, workdir):
-    """This slice's path: the training entry point at full width over
-    two-shape train and val splits; returns the kernels' launches in it
-    and the profiler window's (device ms per step, busy share)."""
-    data_root = os.path.join(workdir, "train_data")
+def write_train_tree(data_root: str) -> str:
+    """Phase 8's shape tree: a sphere and a torus in each of the train and
+    val splits; returns ``data_root``."""
     for split in ("train", "val"):
         os.makedirs(os.path.join(data_root, split))
         save_off(os.path.join(data_root, split, "sphere.off"),
                  make_icosphere(4))
         save_off(os.path.join(data_root, split, "torus.off"), make_torus())
+    return data_root
+
+
+def phase_training(cfg, device, workdir):
+    """This slice's path: the training entry point at full width over
+    two-shape train and val splits; returns the kernels' launches in it
+    and the profiler window's (device ms per step, busy share)."""
+    data_root = write_train_tree(os.path.join(workdir, "train_data"))
     steps_per_epoch, epochs = 10, 2
     argv = ["--config_file", CONFIG, "--data_root", data_root,
             "--log_dir", os.path.join(workdir, "log"),
@@ -4319,6 +4346,304 @@ def _export_paths(cfg, workdir, deploy_root, l1_ckpt, cleaning_ckpt,
         fresh_max_abs=err, vote_max_abs=worst, cleaning_max_abs=c_err,
         cleaning_export_s=clean["export_s"], trace_mb=logs["trace_mb"])
 
+def par_argv(cfg, data_root: str, log_dir: str, *extra):
+    """Phase 17's train command: l1.yaml at width 144, the global batch of
+    its config (16), PAR_EPOCHS epochs of PAR_STEPS steps on phase 8's
+    tree, a validation pass each epoch."""
+    return ["--config_file", CONFIG, "--data_root", data_root, "--log_dir",
+            log_dir, "--num_steps", str(PAR_STEPS * int(cfg.batch_size)),
+            "--epochs", str(PAR_EPOCHS), "--val_freq", "1", *extra]
+
+
+def state_hashes(state) -> dict:
+    """{name: sha256 of the tensor's bytes}: equal only if bitwise equal."""
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def sgd_gradient(device, batch, two_pass: bool = False):
+    """One SGD step (momentum 0, no weight decay) of the l1.yaml Trainer
+    from its seed's init on ``batch`` (this rank's rows inside a process
+    group): the gradient it applied, ``(p0 - p1) / lr``, and ``lr``
+    (tests/test_trainer.py:106-144).  ``two_pass`` runs one process's
+    BatchNorms in their cross-rank form (two passes; its collectives are
+    identities outside a group) in place of ``F.batch_norm``."""
+    cfg = load_config(CONFIG)
+    cfg.optimizer, cfg.momentum, cfg.weight_decay = "sgd", 0.0, 0.0
+    kept = model_layers.is_distributed
+    if two_pass:
+        model_layers.is_distributed = lambda: True
+    try:
+        tt = Trainer(cfg, 1,
+                     torch.Generator().manual_seed(int(cfg.rng_seed)),
+                     device)
+        p0 = {n: p.detach().clone() for n, p in tt.model.named_parameters()}
+        tt.train_step(batch)
+    finally:
+        model_layers.is_distributed = kept
+    lr = tt.lr_schedule(0)
+    return {n: (p0[n] - p.detach()) / lr
+            for n, p in tt.model.named_parameters()}, lr
+
+
+def allreduce_ms(nbytes: int, device, iters: int = 5) -> float:
+    """Host ms per SUM all-reduce of ``nbytes`` of float32 on ``device``
+    over the process group (synchronised after ``iters`` calls)."""
+    x = torch.ones(max(nbytes // 4, 1), device=device)
+    for _ in range(2):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def parallel_rank(spec_path: str) -> int:
+    """One rank of phase 17, started by torchrun: the train CLI with
+    ``--multihost`` (the kernels' launches counted around it), then a
+    profiler window of train steps on this rank's rows of a real global
+    batch, the all-reduce's time at the gradients' bytes and at one float,
+    and, with ``spec["sgd"]``, one SGD step from the seed's init; writes
+    its record to ``<out>/rank<r>.json`` (and rank 0 the SGD gradient to
+    ``<out>/sgd.pt``)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    initialize_distributed(spec["device"], spec["backend"])
+    try:
+        r, world = dist_rank(), world_size()
+        device = local_device(spec["device"])
+        torch.cuda.set_device(device)
+        reset_launches()
+        summary = train_cli.main(spec["argv"])
+        fwd, bwd, _ = launch_counts()
+        trainer = summary["trainer"]
+        out = {"rank": r, "world": world, "device": str(device),
+               "backend": torch.distributed.get_backend(),
+               "launches": [fwd, bwd], "steps": summary["steps"],
+               "val_batches": summary["val_batches"],
+               "train_losses": summary["train_losses"],
+               "val_losses": summary["val_losses"],
+               "ms_per_step": summary["ms_per_step"],
+               "hashes": state_hashes(trainer.model.state_dict())}
+        if out["backend"] == "nccl":
+            v = torch.cuda.nccl.version()
+            out["nccl"] = ".".join(map(str, v)) if isinstance(v, tuple) \
+                else str(v)
+        cfg = load_config(CONFIG)
+        whole = patch_batch(cfg, PAR_BATCH_SEED)
+        rows = process_slice(len(whole["points"]))
+        batch = {k: torch.from_numpy(v[rows]).to(device)
+                 for k, v in whole.items()}
+        out["window"] = profile_window(f"rank {r} train step",
+                                       lambda: trainer.train_step(batch), 3)
+        out["grad_bytes"] = sum(p.grad.numel() * p.grad.element_size()
+                                for p in trainer.model.parameters()
+                                if p.grad is not None)
+        out["allreduce_ms"] = allreduce_ms(out["grad_bytes"], device)
+        out["allreduce_scalar_ms"] = allreduce_ms(4, device)
+        if spec["sgd"]:
+            grads, out["sgd_lr"] = sgd_gradient(device, batch)
+            out["sgd_hashes"] = state_hashes(grads)
+            if r == 0:
+                torch.save({k: v.cpu() for k, v in grads.items()},
+                           os.path.join(spec["out"], "sgd.pt"))
+        with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def run_torchrun(nproc: int, spec: dict, name: str) -> list:
+    """``torchrun --standalone --nproc_per_node=nproc chip_smoke.py
+    --parallel-rank``, in a session of its own, killed with whatever it
+    started if it runs past PAR_LIMIT_S; prints its output and returns the
+    ranks' records."""
+    os.makedirs(spec["out"], exist_ok=True)
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    log = os.path.join(spec["out"], "log.txt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+           "--parallel-rank", path]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, start_new_session=True,
+                                env=dict(os.environ, OMP_NUM_THREADS="2"))
+        try:
+            rc = proc.wait(timeout=PAR_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    with open(log) as f:
+        text = f.read()
+    print(f"-- torchrun, {name}, {nproc} rank(s):\n{text}", end=""
+          if text.endswith("\n") else "\n")
+    if rc != 0:
+        raise AssertionError(f"torchrun ({name}) " + (
+            f"ran past {PAR_LIMIT_S} s" if rc is None else f"exited {rc}"))
+    out = []
+    for r in range(nproc):
+        with open(os.path.join(spec["out"], f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_parallel_run(name: str, ranks: list, one: dict, one_launches,
+                       checkpoints, lr: float) -> dict:
+    """Phase 17's checks of a data-parallel run of the train command
+    against the same command in one process: every rank took the steps
+    and launched 10 forward and 10 backward kernels a step on its rows;
+    the ranks' end states are bitwise equal; the first train loss (one
+    init, one global batch: the ranks' shares summed) within
+    PAR_FIRST_LOSS_RTOL of the one-process loss, every loss finite; every
+    parameter of the coordinator's checkpoint within Adam's reach of the
+    one-process run's, 2 * lr a step (Adam moves each element by about
+    lr a step whatever its gradient, so rounding-level gradients of
+    opposite signs part by 2 * lr).  Returns the run's numbers."""
+    steps, val = one["steps"], one["val_batches"]
+    if tuple(one_launches) != (10 * (steps + val), 10 * steps):
+        raise AssertionError(f"{name}: the one-process run launched "
+                             f"{one_launches}")
+    for r in ranks:
+        if (r["steps"], r["val_batches"]) != (steps, val):
+            raise AssertionError(f"{name}: rank {r['rank']} took "
+                                 f"{r['steps']} steps, {r['val_batches']} "
+                                 f"val batches; one process {steps}, {val}")
+        if r["launches"] != [10 * (steps + val), 10 * steps]:
+            raise AssertionError(
+                f"{name}: rank {r['rank']} launched {r['launches']} "
+                f"forward and backward kernels for {steps} steps and "
+                f"{val} val batches")
+        if r["hashes"] != ranks[0]["hashes"] \
+                or r["train_losses"] != ranks[0]["train_losses"]:
+            raise AssertionError(f"{name}: rank {r['rank']} ended apart "
+                                 "from rank 0")
+    losses = ranks[0]["train_losses"] + ranks[0]["val_losses"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: losses {losses}")
+    first, want = ranks[0]["train_losses"][0], one["train_losses"][0]
+    if abs(first - want) > PAR_FIRST_LOSS_RTOL * abs(want):
+        raise AssertionError(f"{name}: first train loss {first!r} against "
+                             f"one process {want!r}")
+    got, ref = (load_model_state(c) for c in checkpoints)
+    worst = max(float((got[k] - ref[k]).abs().max()) for k in ref
+                if ref[k].is_floating_point() and "running_" not in k)
+    if worst > 2.0 * lr * steps:
+        raise AssertionError(f"{name}: a parameter {worst:.3g} from the "
+                             f"one-process run's (limit {2 * lr * steps})")
+    print(f"{name}: {len(ranks)} rank(s), {steps} steps, {val} val batches "
+          f"each; launches per rank (forward, backward): "
+          f"{[r['launches'] for r in ranks]}; ranks bitwise equal; train "
+          f"losses {ranks[0]['train_losses']} against one process "
+          f"{one['train_losses']}; val {ranks[0]['val_losses']} against "
+          f"{one['val_losses']}; parameters at most {worst / lr:.3f} lr "
+          f"from the one-process run's")
+    for r in ranks:
+        w = r["window"]
+        print(f"  rank {r['rank']} ({r['backend']} on {r['device']}"
+              + (f", NCCL {r['nccl']}" if "nccl" in r else "") + "): ms per "
+              f"step by epoch (host clock, data loading included) "
+              + ", ".join(f"{ms:.3f}" for ms in r["ms_per_step"])
+              + f"; a step of its rows of a real batch: wall "
+              f"{w['wall_ms']:.3f} ms, device "
+              + (f"{w['device_ms']:.3f} ms, busy {w['busy']:.3f}, "
+                 if "device_ms" in w else "not measured, ")
+              + f"{w['kernels_per_step']:.1f} kernels; gradients "
+              f"{r['grad_bytes']:,} bytes, all-reduce {r['allreduce_ms']:.3f}"
+              f" ms (one float: {r['allreduce_scalar_ms']:.3f} ms)")
+    return {"ranks": [{k: r[k] for k in (
+        "rank", "backend", "launches", "ms_per_step", "window", "grad_bytes",
+        "allreduce_ms", "allreduce_scalar_ms") if k in r} for r in ranks],
+        "max_param_diff_lr": worst / lr, "first_loss": first,
+        "one_process_first_loss": want}
+
+
+def phase_parallel(cfg, device, workdir, data_root):
+    """This slice's path, on phase 8's tree: (a) the train command on
+    PAR_WORLD ranks sharing the card over gloo (torchrun, ``--multihost
+    --dist_backend gloo --device cuda:0``), then in one process; (b) one
+    SGD step of the Trainer on the ranks' rows of a real global batch
+    against one process on the whole batch: the applied gradients within
+    PAR_SGD_ATOL, the ranks' bitwise equal, the LR scaled by the world
+    size.  (b)'s one process runs its BatchNorms in the ranks' two-pass
+    form: on the CPU, ``F.batch_norm``'s train-mode gradients missed
+    float64 by up to 6% of a gradient on this model at width 8, where the
+    two-pass form was within 4e-7; the distance to ``F.batch_norm``'s step
+    is printed beside.  (c) the train command on one rank over NCCL (torchrun,
+    ``--multihost``) against the one-process run.  Returns the phase's
+    numbers and each run's kernel launches."""
+    gc.collect()  # the card's cached blocks back for the ranks
+    torch.cuda.empty_cache()
+    gloo = run_torchrun(PAR_WORLD, {
+        "argv": par_argv(cfg, data_root, os.path.join(workdir, "log_gloo"),
+                         "--device", f"{PAR_DEVICE}:0", "--multihost",
+                         "--dist_backend", "gloo"),
+        "device": f"{PAR_DEVICE}:0", "backend": "gloo", "sgd": True,
+        "out": os.path.join(workdir, "gloo")}, "(a) gloo")
+    reset_launches()
+    one = train_cli.main(par_argv(cfg, data_root,
+                                  os.path.join(workdir, "log_one"),
+                                  "--device", PAR_DEVICE))
+    one_launches = launch_counts()[:2]
+    run = cfg.experiment_name
+    lr = float(cfg.base_learning_rate)
+    ckpt_one = os.path.join(workdir, "log_one", run, "current.pt")
+    out = {"gloo": check_parallel_run(
+        "(a) gloo", gloo, one, one_launches,
+        (os.path.join(workdir, "log_gloo", run, "current.pt"), ckpt_one), lr)}
+    # (b): against one process in the ranks' BatchNorm arithmetic, and
+    # (printed) in F.batch_norm's
+    batch = patch_batch(cfg, PAR_BATCH_SEED)
+    grads, sgd_lr = sgd_gradient(device, batch, two_pass=True)
+    plain, _ = sgd_gradient(device, batch)
+    ranks_grads = torch.load(os.path.join(workdir, "gloo", "sgd.pt"))
+    if any(r["sgd_hashes"] != gloo[0]["sgd_hashes"] for r in gloo):
+        raise AssertionError("(b): the ranks applied different gradients")
+    if not math.isclose(gloo[0]["sgd_lr"], PAR_WORLD * sgd_lr,
+                        rel_tol=1e-6):
+        raise AssertionError(f"(b): the ranks' SGD LR {gloo[0]['sgd_lr']}, "
+                             f"one process {sgd_lr}")
+    diff = {n: float((ranks_grads[n] - g.cpu()).abs().max())
+            for n, g in grads.items()}
+    worst = max(diff, key=diff.get)
+    scale = max(float(g.abs().max()) for g in grads.values())
+    plain_diff = max(float((ranks_grads[n] - g.cpu()).abs().max())
+                     for n, g in plain.items())
+    if diff[worst] > PAR_SGD_ATOL:
+        raise AssertionError(f"(b): {worst}'s gradient {diff[worst]:.3g} "
+                             f"from one process's (atol {PAR_SGD_ATOL})")
+    print(f"(b) SGD: the {PAR_WORLD} ranks' applied gradients within "
+          f"{diff[worst]:.3g} of one process's on the whole batch (atol "
+          f"{PAR_SGD_ATOL}; largest gradient {scale:.3g}; worst {worst}); "
+          f"with F.batch_norm's BatchNorms one process's are "
+          f"{plain_diff:.3g} from the ranks'; ranks bitwise equal; LR "
+          f"{gloo[0]['sgd_lr']:.6g} = {PAR_WORLD} x {sgd_lr:.6g}")
+    out["sgd"] = {"max_abs_diff": diff[worst], "max_abs_grad": scale,
+                  "max_abs_diff_batch_norm": plain_diff}
+    nccl = run_torchrun(1, {
+        "argv": par_argv(cfg, data_root, os.path.join(workdir, "log_nccl"),
+                         "--device", PAR_DEVICE, "--multihost"),
+        "device": PAR_DEVICE, "backend": None, "sgd": False,
+        "out": os.path.join(workdir, "nccl")}, "(c) nccl")
+    if nccl[0]["backend"] != "nccl":
+        raise AssertionError(f"(c) ran over {nccl[0]['backend']}")
+    out["nccl"] = check_parallel_run(
+        "(c) nccl", nccl, one, one_launches,
+        (os.path.join(workdir, "log_nccl", run, "current.pt"), ckpt_one), lr)
+    out["nccl"]["version"] = nccl[0]["nccl"]
+    launches = {"data_parallel_gloo_rank0": gloo[0]["launches"],
+                "data_parallel_gloo_rank1": gloo[1]["launches"],
+                "data_parallel_nccl_rank0": nccl[0]["launches"],
+                "data_parallel_one_process": list(one_launches)}
+    return out, launches
+
+
 
 def run_part(name: str, ctx: dict, device, smi: str) -> dict:
     """The phases of part ``name`` of PARTS in this process, on a copy of
@@ -4425,15 +4750,19 @@ def stop_parts(parts: dict) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     part = len(argv) == 3 and argv[0] == "--part" and argv[1] in PARTS
-    if not part and argv not in (
+    rank_job = len(argv) == 2 and argv[0] == "--parallel-rank"
+    if not (part or rank_job) and argv not in (
             [], ["--only-kernels"], ["--only-aggregations"], ["--only-gan"],
-            ["--only-pcn"], ["--only-export"]):
+            ["--only-pcn"], ["--only-export"], ["--only-parallel"]):
         print("usage: chip_smoke.py [--only-kernels | --only-aggregations "
-              "| --only-gan | --only-pcn | --only-export]", file=sys.stderr)
+              "| --only-gan | --only-pcn | --only-export | --only-parallel]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if rank_job:  # a rank of phase 17, started by torchrun
+        return parallel_rank(argv[1])
     with phase("device"):
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4494,6 +4823,16 @@ def main(argv=None) -> int:
             summary, path_pcn = phase_pcn(device, workdir, tree)
         print(smi)
         print(json.dumps({"pcn": summary, "launches": path_pcn}))
+        return 0
+    if argv == ["--only-parallel"]:
+        # phase 17 alone, on a tree like phase 8's
+        with tempfile.TemporaryDirectory() as workdir, \
+                phase("data parallel"):
+            par, par_launches = phase_parallel(
+                cfg, device, workdir,
+                write_train_tree(os.path.join(workdir, "train_data")))
+        print(smi)
+        print(json.dumps({"parallel": par, "launches": par_launches}))
         return 0
     if argv == ["--only-export"]:
         # phase 16 alone, after phase 8's training and a short cleaning
@@ -4569,6 +4908,11 @@ def main(argv=None) -> int:
                                  "current.pt"), os.path.join(
                         deploy_dir, "log_cleaning", CLEANING_CONFIG,
                         "current.pt"), os.path.join(train_dir, "train_data"))
+            with tempfile.TemporaryDirectory() as workdir, \
+                    phase("data parallel"):  # on phase 8's tree
+                par, par_launches = phase_parallel(
+                    cfg, device, workdir,
+                    os.path.join(train_dir, "train_data"))
             res = finish_parts(parts, started)
         finally:
             stop_parts(parts)
@@ -4577,14 +4921,13 @@ def main(argv=None) -> int:
     path_bf16, path_gan = res["path_bf16"], res["path_gan"]
     pcn_summary, path_pcn = res["pcn_summary"], res["path_pcn"]
     drel_record.update(profile=res["gan_profile"])
-    # launches: this slice's paths (the forward: serving through the
-    # loaded artifact; the backward: phase 8's training, which writes the
-    # run logs);
-    # every path's in the detail
+    # launches: this slice's path (phase 17(a)'s rank 0; each rank
+    # launches as many); every path's in the detail
     ds_fwd, ds_bwd, _ = path_pcn["device_sampled_training"]
     record.update(
-        launches=export_fwd,
+        launches=par_launches["data_parallel_gloo_rank0"][0],
         launches_by_path={
+            **{k: v[0] for k, v in par_launches.items()},
             "export_serving": export_fwd,
             "device_sampled_training": ds_fwd, "pcn_training": 0,
             "pcn_serving": 0,
@@ -4599,11 +4942,12 @@ def main(argv=None) -> int:
             "outlier_seg_training": path_seg["training"][0],
             "outlier_seg_eval": path_seg["eval"]},
         shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"],
-        pcn=pcn_summary, export=export_summary,
+        pcn=pcn_summary, export=export_summary, data_parallel=par,
         device_us_by_cuda_events=device_us.by_cuda_events)
     bwd_record.update(
-        launches=train_bwd,
+        launches=par_launches["data_parallel_gloo_rank0"][1],
         launches_by_path={
+            **{k: v[1] for k, v in par_launches.items()},
             "export_serving": 0,
             "device_sampled_training": ds_bwd, "pcn_training": 0,
             "pcn_serving": 0,

@@ -8,7 +8,9 @@ over padded (B, P, 3) clouds with float {0,1} masks:
 * ``norm_type='L1'``: the sum of absolute coordinate differences to that
   same (squared-distance) nearest point;
 * each direction is a masked mean over valid points; the two directions
-  add; the batch is reduced by ``batch_reduction``.
+  add; the batch is reduced by ``batch_reduction``;
+* inside a process group the training losses are this rank's share of
+  the global batch's loss (``parallel/dist.py``).
 
 The nearest neighbour is searched without gradients and only the matched
 pair is recomputed with them: the gradient of ``min_j d(x, y_j)`` is that
@@ -32,6 +34,9 @@ import torch
 
 from ..ops.neighbors import (auto_chunk, auto_compact, compact_supports,
                             gather_rows, pairwise_sqdist)
+from ..parallel.dist import (all_reduce_sum, global_sum, is_distributed,
+                             replicated_share)
+from .masked import masked_l1_loss
 
 _BIG = 1e10
 
@@ -118,27 +123,27 @@ def nearest_distances(x: torch.Tensor, y: torch.Tensor,
     return _nn_one_way(x, y, y_mask.float(), "L2", chunk)
 
 
-def _l1_term(pred, target, mask):
-    per_point = torch.mean(torch.abs(pred - target), dim=-1)
-    return torch.sum(per_point * mask) / torch.clamp(torch.sum(mask),
-                                                     min=1.0)
-
-
 def masked_chamfer_loss(pred: torch.Tensor, target: torch.Tensor,
                         mask: torch.Tensor, points: torch.Tensor,
                         *, norm_type: str = "L2") -> torch.Tensor:
     """Chamfer distance between the clean patch (points + target) and the
-    denoised one (points + pred), averaged over the batch."""
+    denoised one (points + pred), averaged over the batch; inside a
+    process group, this rank's share: its items' sum over the number of
+    items on every rank."""
     mask = mask.float()
-    return chamfer_distance(points + target, points + pred, mask, mask,
-                            norm_type=norm_type, batch_reduction="mean")
+    per_item = chamfer_distance(points + target, points + pred, mask, mask,
+                                norm_type=norm_type, batch_reduction=None)
+    if not is_distributed():
+        return torch.mean(per_item)
+    return torch.sum(per_item) / global_sum(
+        per_item.new_tensor(float(per_item.shape[0])))
 
 
 def masked_chamfer_l1_loss(pred, target, mask, points,
                            *, norm_type: str = "L2") -> torch.Tensor:
     """0.5 * (masked L1 + Chamfer distance)."""
     mask = mask.float()
-    l1 = _l1_term(pred, target, mask)
+    l1 = masked_l1_loss(pred, target, mask)
     cd = masked_chamfer_loss(pred, target, mask, points,
                              norm_type=norm_type)
     return 0.5 * (l1 + cd)
@@ -149,12 +154,15 @@ def masked_adaptive_l1_chamfer_loss(pred, target, mask, points,
                                     ) -> torch.Tensor:
     """``l1 + exp(-l1) * cd`` (converging to the Chamfer distance) or
     ``cd + exp(-cd) * l1`` (converging to L1), with the L1-norm Chamfer
-    distance so that the two terms are comparable."""
+    distance so that the two terms are comparable.  Not linear in the
+    batch: inside a process group both terms are summed over the ranks
+    first, and each rank returns its share of the global loss."""
+    if converging_to not in ("chamfer", "L1"):
+        raise ValueError(f"Limit of loss {converging_to} not implemented")
     mask = mask.float()
-    l1 = _l1_term(pred, target, mask)
-    cd = masked_chamfer_loss(pred, target, mask, points, norm_type="L1")
+    l1 = all_reduce_sum(masked_l1_loss(pred, target, mask))
+    cd = all_reduce_sum(masked_chamfer_loss(pred, target, mask, points,
+                                            norm_type="L1"))
     if converging_to == "chamfer":
-        return l1 + torch.exp(-l1) * cd
-    if converging_to == "L1":
-        return cd + torch.exp(-cd) * l1
-    raise ValueError(f"Limit of loss {converging_to} not implemented")
+        return replicated_share(l1 + torch.exp(-l1) * cd)
+    return replicated_share(cd + torch.exp(-cd) * l1)

@@ -4,20 +4,26 @@ Counterpart of ``deep3dpointclouddenoising_tpu/losses/masked.py:12-63``:
 functions over (B, N, ...) tensors with float {0,1} masks.  The binary
 losses take probabilities and clip them to ``[eps, 1 - eps]`` before the
 log, as the JAX package does (``F.binary_cross_entropy`` clamps the log at
--100 instead); the segmentation loss takes logits.  The shape
-classification losses of that module come with their task (ROADMAP.md).
+-100 instead); the segmentation loss takes logits.  Inside a process group
+each loss is this rank's share of the global batch's loss
+(``parallel/dist.py``).  The shape classification losses of that module
+come with their task (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.dist import global_sum
+
 
 def _masked_mean(per_point: torch.Tensor, mask: torch.Tensor
                  ) -> torch.Tensor:
-    """sum(x * mask) / sum(mask) over all of (B, N)."""
+    """sum(x * mask) / sum(mask) over all of (B, N); inside a process
+    group, this rank's share: its own sum(x * mask) over the sum of every
+    rank's masks, so the shares sum to the mean over the global batch."""
     mask = mask.to(per_point.dtype)
-    return torch.sum(per_point * mask) / torch.clamp(torch.sum(mask),
-                                                     min=1.0)
+    return torch.sum(per_point * mask) / torch.clamp(
+        global_sum(torch.sum(mask)), min=1.0)
 
 
 def masked_l1_loss(pred: torch.Tensor, target: torch.Tensor,

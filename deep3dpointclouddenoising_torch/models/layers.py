@@ -27,6 +27,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..parallel.dist import global_mean, is_distributed
+
+
 def compute_dtype(cfg) -> Optional[torch.dtype]:
     """``cfg.compute_dtype`` as the dtype of the matmuls and the KPConv
     aggregation: ``torch.bfloat16`` for ``bfloat16``, ``None`` (float32)
@@ -112,7 +115,14 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
     does.  ``F.batch_norm`` stores the unbiased one, ``n / (n - 1)`` times
     the biased, so its running variance is corrected in place from the
     value before the step: one pass over the input, not two.  A bfloat16
-    input is normalised in float32 (the output is float32)."""
+    input is normalised in float32 (the output is float32).
+
+    Inside a process group (``parallel/dist.py``) the train-mode mean and
+    biased variance span every rank's slots, as JAX's statistics span the
+    global batch under its batch-sharded jit: two passes (the global mean,
+    then the global mean of the centred squares), each one all-reduce whose
+    backward all-reduces the gradients.  The running statistics are updated
+    with those global values, so they stay equal on every rank."""
 
     def __init__(self, channels: int, momentum: float = 0.1):
         super().__init__(channels, eps=1e-5, momentum=momentum)
@@ -123,7 +133,9 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
         # promotes it
         x = x.reshape(-1, shape[-1]).to(
             torch.promote_types(x.dtype, self.weight.dtype))
-        if self.training:
+        if self.training and is_distributed():
+            out = self._cross_rank(x)
+        elif self.training:
             n = x.shape[0]
             old_var = self.running_var.clone()
             out = F.batch_norm(x, self.running_mean, self.running_var,
@@ -139,6 +151,20 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
             out = F.batch_norm(x, self.running_mean, self.running_var,
                                self.weight, self.bias, False, 0.0, self.eps)
         return out.reshape(shape)
+
+    def _cross_rank(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over every rank's (n, C) slots."""
+        count = x.new_tensor(float(x.shape[0]))
+        mean = global_mean(torch.sum(x, dim=0), count)
+        centred = x - mean
+        var = global_mean(torch.sum(centred * centred, dim=0), count)
+        out = centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class ConvBN(nn.Module):

@@ -1,0 +1,261 @@
+"""Data parallelism across processes: one process per card, started by
+``torchrun``, the batch split over the processes and the parameters
+replicated.
+
+Counterpart of ``deep3dpointclouddenoising_tpu/parallel/mesh.py`` (the 1-D
+``data`` mesh) and ``parallel/multihost.py``.  JAX runs one jitted step
+over a mesh whose batch axis is sharded, so its BatchNorm statistics and
+its masked means span the global batch.  Here every process (rank) holds
+its ``process_slice`` of each global batch and the reductions that span
+the batch go through the collectives below, so that a step of W ranks
+equals the one-process step on the global batch:
+
+* :func:`all_reduce_sum` is a SUM all-reduce whose backward is a SUM
+  all-reduce of the gradients: the adjoint of a value that every rank
+  reads;
+* :func:`global_mean` is the mean over every rank's numerators and
+  denominators (BatchNorm's statistics);
+* :func:`global_sum` sums a value over the ranks outside autograd (a loss's
+  denominator, a loss to report).
+
+A loss is then each rank's *share*: its own numerator over the global
+denominator, so that the shares sum to the global loss, and the gradients
+that ``DistributedDataParallel`` SUMS over the ranks are the gradient of
+the global loss (``train/trainer.py``).
+
+Without a process group every function here is the identity (or rank 0 of
+one), so the one-process paths are untouched.  Inside a group they always
+communicate, also at world size 1, so a one-rank NCCL run exercises NCCL.
+Host-side waits (:func:`host_barrier`, :func:`coordinator_value`) go
+through gloo, on the default group when it is gloo and on a gloo group of
+their own under NCCL, so they wait on the host with a timeout and touch no
+card.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+from typing import Callable, Optional, TypeVar, Union
+
+import torch
+import torch.distributed as dist
+
+T = TypeVar("T")
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
+# the gloo group of host_barrier and coordinator_value under a NCCL
+# default group (made on first use: every rank reaches it in one order)
+_host = {"group": None}
+
+
+def is_distributed() -> bool:
+    """Whether this process is in a process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_distributed() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_distributed() else 1
+
+
+def is_coordinator() -> bool:
+    """Rank 0: the one process that writes logs, metrics and
+    checkpoints."""
+    return rank() == 0
+
+
+def local_rank() -> int:
+    """This process's index among its host's (torchrun's ``LOCAL_RANK``);
+    0 outside a torchrun job."""
+    return int(os.environ.get("LOCAL_RANK", 0)) if is_distributed() else 0
+
+
+def local_device(device: Union[str, torch.device]) -> torch.device:
+    """The device of this rank: ``cuda`` with no index is
+    ``cuda:$LOCAL_RANK`` inside a group (one card per process); a device
+    with an index (``cuda:0``, which several ranks may share over gloo)
+    or ``cpu`` is kept."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and is_distributed():
+        return torch.device("cuda", local_rank())
+    return dev
+
+
+def initialize_distributed(device: Union[str, torch.device] = "cuda",
+                           backend: Optional[str] = None) -> int:
+    """Join torchrun's job and return this process's rank.
+
+    Reads torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``); without it, a no-op that returns 0,
+    as ``initialize_multihost`` is in a one-process job.  A group that is
+    already initialized (a test's ``file://`` group) is kept.  The backend
+    is ``nccl`` for a CUDA device and ``gloo`` for the CPU unless
+    ``backend`` names one; NCCL without a card raises."""
+    if is_distributed():
+        return rank()
+    if any(k not in os.environ for k in _TORCHRUN_ENV):
+        return 0
+    dev = torch.device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("the nccl backend needs a CUDA device; none is "
+                           "available (--dist_backend gloo --device cpu "
+                           "runs on the CPU)")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "--device cpu to run on the CPU")
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group(backend, init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return rank()
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (and the host group)."""
+    if is_distributed():
+        dist.destroy_process_group()
+    _host["group"] = None
+
+
+@contextlib.contextmanager
+def distributed_run(device: Union[str, torch.device] = "cuda",
+                    backend: Optional[str] = None):
+    """:func:`initialize_distributed` for the block, and the group left
+    after it if the block joined it (a group its caller made stays)."""
+    joined = not is_distributed()
+    initialize_distributed(device, backend)
+    try:
+        yield
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def process_slice(n_total: int, rank_: Optional[int] = None,
+                  world: Optional[int] = None) -> slice:
+    """This rank's contiguous rows of a global batch of ``n_total``
+    (disjoint, covering, the same length on every rank); ``rank_`` and
+    ``world`` default to the process group's.  ``n_total`` must divide
+    evenly, as in ``parallel/multihost.py``."""
+    world = world_size() if world is None else world
+    rank_ = rank() if rank_ is None else rank_
+    if n_total % world:
+        raise ValueError(f"global batch {n_total} not divisible by "
+                         f"{world} processes")
+    per = n_total // world
+    return slice(rank_ * per, (rank_ + 1) * per)
+
+
+def _host_group():
+    """The group host-side waits use: the default one under gloo, else a
+    gloo group of their own."""
+    if dist.get_backend() == "gloo":
+        return None
+    if _host["group"] is None:
+        _host["group"] = dist.new_group(backend="gloo")
+    return _host["group"]
+
+
+def host_barrier(name: str, timeout_s: float = 600.0) -> None:
+    """Block until every rank reaches the barrier ``name``, on the host
+    (gloo's ``monitored_barrier``, which names the ranks that did not come
+    within ``timeout_s``); a no-op outside a group.  The fence for phases
+    whose time differs by rank: a dataset's cache build, a checkpoint's
+    write, the end of a run."""
+    if not is_distributed():
+        return
+    try:
+        dist.monitored_barrier(group=_host_group(),
+                               timeout=datetime.timedelta(seconds=timeout_s))
+    except RuntimeError as e:
+        raise RuntimeError(f"host barrier {name!r}: {e}") from e
+
+
+def coordinator_value(value: T) -> T:
+    """The coordinator's ``value`` on every rank (a picklable object, sent
+    on the host); ``value`` itself outside a group."""
+    if not is_distributed():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0, group=_host_group())
+    return box[0]
+
+
+def coordinator_first(build: Callable[[], T], name: str = "build") -> T:
+    """``build()`` on the coordinator first and then, after a host
+    barrier, on the other ranks: for work that fills a cache on disk
+    (the datasets' processed shapes and their generator states), which
+    two ranks must not write at once and the later ones then read."""
+    if not is_distributed():
+        return build()
+    if is_coordinator():
+        out = build()
+        host_barrier(name)
+        return out
+    host_barrier(name)
+    return build()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """SUM all-reduce; its backward all-reduces the incoming gradients
+    (every rank reads the sum, so the sum's gradient is the sum of the
+    ranks' gradients)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        return grad
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks, with the all-reduce's adjoint as its
+    gradient; ``x`` itself outside a group."""
+    if not is_distributed():
+        return x
+    return _AllReduceSum.apply(x)
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks, outside autograd (a denominator, a
+    loss to report); ``x`` itself outside a group."""
+    if not is_distributed():
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out)
+    return out
+
+
+def global_mean(numerator: torch.Tensor, denominator: torch.Tensor
+                ) -> torch.Tensor:
+    """The sum of every rank's ``numerator`` over the sum of every rank's
+    ``denominator`` (a scalar), in one all-reduce; the gradient flows to
+    the numerators only (the denominator is a count).  Outside a group,
+    ``numerator / denominator``."""
+    if not is_distributed():
+        return numerator / denominator
+    packed = all_reduce_sum(torch.cat([
+        numerator.reshape(-1),
+        denominator.detach().reshape(1).to(numerator.dtype)]))
+    return packed[:-1].reshape(numerator.shape) / packed[-1]
+
+
+def replicated_share(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a value every rank holds whole (a loss made of
+    global terms): ``x / W`` inside a group, so the shares sum to ``x``;
+    ``x`` itself outside one."""
+    return x / world_size() if is_distributed() else x

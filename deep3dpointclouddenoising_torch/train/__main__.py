@@ -1,17 +1,38 @@
-"""Offset-regression training on one card, and the epoch loop (:func:`fit`)
-that full-cleaning and outlier-segmentation training
-(``train_full_cleaning``, ``train_outlier_seg``) share.
+"""Offset-regression training on one card or data-parallel over several,
+and the epoch loop (:func:`fit`) that full-cleaning and
+outlier-segmentation training (``train_full_cleaning``,
+``train_outlier_seg``) share.
 
-Counterpart of ``scripts/train.py`` for one device: the same config file
-and overrides, epochs of train steps over the ``train`` split with a
-validation pass over the ``val`` split every ``val_freq`` epochs, and a
-checkpoint per epoch.  Run it as::
+Counterpart of ``scripts/train.py``: the same config file and overrides,
+epochs of train steps over the ``train`` split with a validation pass over
+the ``val`` split every ``val_freq`` epochs, and a checkpoint per epoch.
+Run it as::
 
     python -m deep3dpointclouddenoising_torch.train \\
         --config_file cfgs/l1.yaml --data_root D --log_dir L \\
         [--num_steps S] [--epochs E] [--batch_size B] [--device cuda] \\
         [--auto_resume] [--load_path P [--start_epoch E0]] \\
         [--load_weights_path W] [--profile_dir T]
+
+and data-parallel, one process per card, as::
+
+    torchrun --nproc_per_node=<cards> \\
+        -m deep3dpointclouddenoising_torch.train --multihost \\
+        [--dist_backend nccl|gloo] ...the same flags...
+
+``--multihost`` joins torchrun's process group (``parallel/dist.py``; NCCL
+for ``--device cuda``, each rank on the card ``cuda:$LOCAL_RANK``; gloo for
+``--device cpu``, or wherever ``--dist_backend gloo`` names it, which lets
+several ranks share one card, ``--device cuda:0``).  ``--batch_size`` stays
+the global batch: every rank builds the same seeded patch table and
+assembles only its ``process_slice`` of each batch (the val loader drops
+its ragged last batch), BatchNorm statistics and loss denominators span
+every rank, and a step of W ranks equals the one-process step on the
+global batch.  The coordinator (rank 0) builds the datasets' caches first,
+writes ``log.txt``, ``metrics.jsonl``, the trace and the checkpoints; the
+other ranks wait for it at host barriers, log to stdout under
+``[rank r]`` and restore what it chose.  ``device_sampler: 1`` is refused
+with more than one rank, as ``scripts/train.py`` refuses it.
 
 ``D`` holds ``train/*.off`` and ``val/*.off``.  Checkpoints go to
 ``L/<experiment_name>/current.pt`` (every epoch) and ``ckpt_epoch_<E>.pt``
@@ -51,6 +72,7 @@ appends to both.  ``--profile_dir T`` (offset regression) writes a
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -64,6 +86,10 @@ from ..data.device_sampler import DeviceSampler, sample_generator, \
 from ..data.loader import BatchLoader
 from ..data.offset_dataset import OffsetDataset
 from ..data.transforms import build_train_transforms
+from ..parallel.dist import (coordinator_first, coordinator_value,
+                             distributed_run, host_barrier,
+                             is_coordinator, is_distributed, local_device,
+                             process_slice, rank, world_size)
 from ..utils.checkpoint import (load_checkpoint, load_weights,
                                 resume_checkpoint, save_checkpoint)
 from ..utils.device import resolve_device
@@ -80,13 +106,16 @@ _OVERRIDES = ("batch_size", "num_points", "width", "num_steps", "epochs",
 
 _CLIS = {
     "offset": ("python -m deep3dpointclouddenoising_torch.train",
-               "Offset-regression training on one card."),
+               "Offset-regression training on one card, or data-parallel "
+               "over torchrun's processes (--multihost)."),
     "full_cleaning": (
         "python -m deep3dpointclouddenoising_torch.train_full_cleaning",
-        "Full-cleaning training (offsets and outlierness) on one card."),
+        "Full-cleaning training (offsets and outlierness) on one card, or "
+        "data-parallel over torchrun's processes (--multihost)."),
     "segmentation": (
         "python -m deep3dpointclouddenoising_torch.train_outlier_seg",
-        "Outlier-segmentation training on labelled scans on one card."),
+        "Outlier-segmentation training on labelled scans on one card, or "
+        "data-parallel over torchrun's processes (--multihost)."),
     "gan": ("python -m deep3dpointclouddenoising_torch.train_gan",
             "Adversarial fine-tuning of the offset model on one card."),
     "discriminator": (
@@ -96,6 +125,10 @@ _CLIS = {
     "pcn": ("python -m deep3dpointclouddenoising_torch.train_pcn",
             "PointCleanNet-baseline (ResPCPNet) training on one card."),
 }
+
+
+# the trainers that run data-parallel under --multihost
+DATA_PARALLEL = ("offset", "full_cleaning", "segmentation")
 
 
 def parse_args(argv: Optional[List[str]] = None,
@@ -149,6 +182,13 @@ def parse_args(argv: Optional[List[str]] = None,
     p.add_argument("--log_dir", default="log")
     p.add_argument("--rng_seed", type=int)
     p.add_argument("--device", default="cuda")
+    if loss_mode in DATA_PARALLEL:
+        p.add_argument("--multihost", action="store_true",
+                       help="data-parallel: join torchrun's process group "
+                            "(one process per card)")
+        p.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                       help="the process group's backend (default: nccl "
+                            "for cuda, gloo for cpu)")
     if loss_mode == "offset":
         p.add_argument("--profile_dir",
                        help="write a torch.profiler Chrome trace of the "
@@ -174,8 +214,11 @@ def restore_run(trainer: Trainer, cfg, directory: str, steps_per_epoch: int,
        that, its newest ``ckpt_epoch_<E>.pt``: its whole train state, and
        ``cfg.start_epoch = step // steps_per_epoch + 1`` (checkpoints are
        written at epochs' ends).
+
+    In a process group every rank restores the file the coordinator
+    found.
     """
-    current = resume_checkpoint(directory)
+    current = coordinator_value(resume_checkpoint(directory))
     logger = get_logger()
     if cfg.load_path:
         step = load_checkpoint(cfg.load_path, trainer)
@@ -198,14 +241,17 @@ def save_epoch(directory: str, trainer, epoch: int, cfg) -> str:
     """``trainer``'s checkpoint (its ``model``, ``optimizer`` and
     ``step``) at the end of ``epoch``: ``current.pt`` every epoch, and
     ``ckpt_epoch_<E>.pt`` every ``cfg.save_freq`` epochs and at the last;
-    returns the last file written."""
-    path = save_checkpoint(os.path.join(directory, "current.pt"),
-                           trainer.model, trainer.optimizer, trainer.step)
+    returns the last file written.  In a process group the coordinator
+    writes and the other ranks wait for it at a host barrier."""
+    paths = [os.path.join(directory, "current.pt")]
     if epoch % int(cfg.save_freq) == 0 or epoch == int(cfg.epochs):
-        path = save_checkpoint(
-            os.path.join(directory, f"ckpt_epoch_{epoch}.pt"),
-            trainer.model, trainer.optimizer, trainer.step)
-    return path
+        paths.append(os.path.join(directory, f"ckpt_epoch_{epoch}.pt"))
+    if is_coordinator():
+        for path in paths:
+            save_checkpoint(path, trainer.model, trainer.optimizer,
+                            trainer.step)
+    host_barrier("checkpoint")
+    return paths[-1]
 
 
 def load_run_config(args: argparse.Namespace):
@@ -247,24 +293,41 @@ def offset_dataset(cfg, split: str, num_epochs: int,
         diverse_levels=list(cfg.diverse_levels) or None)
 
 
+@contextlib.contextmanager
+def run_device(args: argparse.Namespace):
+    """The run's device for the block: with ``--multihost``, inside
+    torchrun's process group (``parallel.dist.distributed_run``), where
+    ``cuda`` is this rank's card; raises where the device is a card and
+    there is none."""
+    multihost = getattr(args, "multihost", False)
+    with distributed_run(args.device, args.dist_backend) if multihost \
+            else contextlib.nullcontext():
+        yield resolve_device(local_device(args.device))
+
+
 def main(argv: Optional[List[str]] = None,
          loss_mode: str = "offset") -> Dict[str, Any]:
     """Train the model of ``loss_mode`` (``"offset"`` or
     ``"full_cleaning"``) on a shape tree; returns :func:`fit`'s
     summary."""
     args = parse_args(argv, loss_mode)
-    device = resolve_device(args.device)
-    cfg = load_run_config(args)
-    train_ds = offset_dataset(cfg, "train", int(cfg.epochs),
-                              build_train_transforms(cfg))
-    val_ds = offset_dataset(cfg, "val", 1)
-    norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
-    sampler = None
-    if cfg.device_sampler:
-        sampler = DeviceSampler(train_ds, cfg, device)
-    return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
-               norm_factor, args.load_weights_path, args.auto_resume,
-               sampler, getattr(args, "profile_dir", None))
+    with run_device(args) as device:
+        cfg = load_run_config(args)
+        if cfg.device_sampler and world_size() > 1:
+            raise NotImplementedError(
+                "device_sampler keeps the training clouds on one card; a "
+                "data-parallel run uses the host batch pipeline")
+        train_ds, val_ds = coordinator_first(lambda: (
+            offset_dataset(cfg, "train", int(cfg.epochs),
+                           build_train_transforms(cfg)),
+            offset_dataset(cfg, "val", 1)), "datasets")
+        norm_factor = float(cfg.in_radius) / 100.0 if cfg.norm else None
+        sampler = None
+        if cfg.device_sampler:
+            sampler = DeviceSampler(train_ds, cfg, device)
+        return fit(cfg, args.log_dir, device, train_ds, val_ds, loss_mode,
+                   norm_factor, args.load_weights_path, args.auto_resume,
+                   sampler, getattr(args, "profile_dir", None))
 
 
 def sampled_batches(sampler: DeviceSampler, epoch: int, batch_size: int,
@@ -292,10 +355,12 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
     batches are cut on the card (:func:`sampled_batches`, normalised
     there).  The run's lines go to stdout and its ``log.txt``, its
     scalars to its ``metrics.jsonl``; with ``profile_dir`` the first
-    epoch's train steps are traced there.  Returns a summary: every
-    train loss, the val losses, ms per step of each epoch, the step count,
-    val batches, the last checkpoint's path, what was restored and the
-    trainer."""
+    epoch's train steps are traced there.  In a process group each rank
+    trains on its rows of every global batch, the coordinator alone writes
+    the files, and the ranks align at host barriers after the restore and
+    at the end.  Returns a summary: every train loss, the val losses, ms
+    per step of each epoch, the step count, val batches, the last
+    checkpoint's path, what was restored and the trainer."""
     log_dir = run_dir(cfg, log_dir)
     with run_logs(log_dir) as (logger, writer):
         return _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode,
@@ -307,11 +372,20 @@ def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
          load_weights_path, auto_resume, sampler, profile_dir, logger,
          writer) -> Dict[str, Any]:
     batch_size = int(cfg.batch_size)
-    train_loader = BatchLoader(train_ds, batch_size, drop_last=True)
-    val_loader = BatchLoader(val_ds, batch_size)
+    rows = process_slice(batch_size)  # raises unless the ranks split it
+    world = world_size()
+    train_loader = BatchLoader(train_ds, batch_size, drop_last=True,
+                               rank=rank(), world=world)
+    val_loader = BatchLoader(val_ds, batch_size, drop_last=world > 1,
+                             rank=rank(), world=world)
     logger.info(f"device {device}; train patches {len(train_ds)} "
                 f"({len(train_loader)} steps per epoch), val patches "
                 f"{len(val_ds)}")
+    if is_distributed():
+        logger.info(f"data parallel: rank {rank()} of {world} "
+                    f"({torch.distributed.get_backend()}), rows "
+                    f"{rows.start}-{rows.stop - 1} of each global batch "
+                    f"of {batch_size}")
     if sampler is not None:
         logger.info("device sampler: the training clouds are on the card, "
                     "each step's patches are cut there")
@@ -322,10 +396,16 @@ def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
                                            loss_mode=loss_mode)
     restored = restore_run(trainer, cfg, log_dir, len(train_loader),
                            load_weights_path, auto_resume)
+    host_barrier("startup")
     summary: Dict[str, Any] = {"train_losses": [], "val_losses": [],
                                "ms_per_step": [], "val_batches": 0,
                                "restored": restored}
     checkpoint = None
+
+    def scalar(tag: str, value: float, step: int) -> None:
+        if writer is not None:  # the coordinator's
+            writer.add_scalar(tag, value, step)
+
     for epoch in range(int(cfg.start_epoch), int(cfg.epochs) + 1):
         meter = AverageMeter()
         pending: List = []  # (loss on the device, batch size)
@@ -360,9 +440,9 @@ def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
         logger.info(f"epoch {epoch}: {steps} steps, loss {meter.avg:.6f}, "
                     f"lr {lr:.6g}, {ms:.3f} ms per step (host clock, data "
                     f"loading included)")
-        writer.add_scalar("train/loss", meter.avg, epoch)
+        scalar("train/loss", meter.avg, epoch)
         if loss_mode == "offset":  # as scripts/train.py
-            writer.add_scalar("train/lr", lr, epoch)
+            scalar("train/lr", lr, epoch)
         if epoch % int(cfg.val_freq) == 0:
             vmeter = AverageMeter()
             vpending = [(trainer.eval_step(_normed(b, norm_factor)),
@@ -372,11 +452,12 @@ def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
             summary["val_batches"] += len(vpending)
             summary["val_losses"].append(vmeter.avg)
             logger.info(f"val [{epoch}] loss {vmeter.avg:.6f}")
-            writer.add_scalar("val/loss", vmeter.avg, epoch)
+            scalar("val/loss", vmeter.avg, epoch)
         checkpoint = save_epoch(log_dir, trainer, epoch, cfg)
     summary.update(steps=trainer.step, checkpoint=checkpoint,
                    trainer=trainer)
     logger.info(f"trained {trainer.step} steps; checkpoint {checkpoint}")
+    host_barrier("shutdown")
     return summary
 
 

@@ -1,10 +1,14 @@
-"""The optimizer chain and the one-card Trainer.
+"""The optimizer chain and the Trainer, on one card or data-parallel.
 
 Counterpart of ``deep3dpointclouddenoising_tpu/train/trainer.py``:
 ``make_optimizer`` (:35-70) and the ``Trainer``'s init, train, eval and
-predict steps (:73-367), for one card.  The JAX package's device mesh, its
-point-sharded path and its scan-chunked dispatch have no counterpart here;
-data parallelism is queued in ROADMAP.md.
+predict steps (:73-367).  JAX's 1-D ``data`` mesh is a process group here
+(``parallel/dist.py``, one process per card under ``torchrun``): inside
+one the Trainer wraps its model in ``DistributedDataParallel``, each rank
+steps on its rows of the global batch, and a step of W ranks equals the
+one-process step on the global batch, as JAX's sharded jit equals its
+one-device jit.  The point-sharded path and the scan-chunked dispatch have
+no counterpart here.
 
 The optimizer applies optax's order: clip the gradients to their global
 norm, add ``weight_decay * param`` (sgd, adam), then Adam or SGD momentum
@@ -17,6 +21,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
 from ..losses.build import (get_complete_denoising_loss,
@@ -24,8 +30,19 @@ from ..losses.build import (get_complete_denoising_loss,
 from ..losses.masked import masked_cross_entropy
 from ..models import (build_complete_denoising, build_offset_regression,
                       build_scene_segmentation)
+from ..parallel.dist import global_sum, is_distributed, world_size
 from ..utils.device import resolve_device
 from .lr_schedule import Schedule, get_lr_schedule
+
+
+def _sum_hook(process_group, bucket):
+    """DDP's gradient all-reduce without its division by the world size:
+    each rank's loss is already its share of the global loss (its own
+    numerator over the global denominator, ``losses/``), so the SUM of the
+    ranks' gradients is the global loss's gradient."""
+    return dist.all_reduce(bucket.buffer(), group=process_group,
+                           async_op=True).get_future().then(
+        lambda fut: fut.value()[0])
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
@@ -115,7 +132,8 @@ Batch = Dict[str, np.ndarray]
 
 
 class Trainer:
-    """A model, its loss and its optimizer on one device.
+    """A model, its loss and its optimizer on one device, or on each rank
+    of a process group.
 
     ``loss_mode`` selects the task and the loss's call:
 
@@ -131,6 +149,17 @@ class Trainer:
     and, but for segmentation, ``offsets`` (B, N, 3), as the datasets'
     ``get`` and ``collate`` make them.  The model's initial weights come
     from ``generator``.
+
+    Inside a process group ``batch`` is this rank's rows of the global
+    batch; the model trains through ``DistributedDataParallel``
+    (``broadcast_buffers=False``: the cross-rank BatchNorm keeps the
+    running statistics equal) with :func:`_sum_hook`, so every rank ends
+    ``backward`` with the global batch's gradient, which the clip then
+    sees; the LR scaling of SGD counts the world size, as JAX's
+    (``train/trainer.py:123-126``).  ``model`` stays the module itself, so
+    checkpoints keep their names across world sizes.  The losses that
+    :meth:`train_step` and :meth:`eval_step` return are the global
+    batch's, on every rank.
     """
 
     def __init__(self, cfg: Config, n_iter_per_epoch: int,
@@ -153,9 +182,15 @@ class Trainer:
         else:
             raise ValueError(f"loss_mode {loss_mode!r} is not ported")
         self.model = model.to(self.device)
+        self._train_model = self.model
+        if is_distributed():
+            self._train_model = DistributedDataParallel(
+                self.model, device_ids=None if self.device.type == "cpu"
+                else [self.device], broadcast_buffers=False)
+            self._train_model.register_comm_hook(None, _sum_hook)
         self.loss_fn = loss_fn or default_loss
         self.optimizer, self.lr_schedule = make_optimizer(
-            cfg, self.model.parameters(), n_iter_per_epoch)
+            cfg, self.model.parameters(), n_iter_per_epoch, world_size())
 
     @property
     def step(self) -> int:
@@ -169,10 +204,10 @@ class Trainer:
                                                   non_blocking=True)
                 for k in keys]
 
-    def _loss(self, batch: Batch) -> torch.Tensor:
+    def _loss(self, batch: Batch, model: torch.nn.Module) -> torch.Tensor:
         points, mask, features = self._inputs(batch, "points", "mask",
                                               "features")
-        pred = self.model(points, mask, features)
+        pred = model(points, mask, features)
         if self.loss_mode == "segmentation":
             labels, = self._inputs(batch, "labels")
             return self.loss_fn(pred, labels, mask)
@@ -184,19 +219,19 @@ class Trainer:
 
     def train_step(self, batch: Batch) -> torch.Tensor:
         """One update; returns the loss on the device without waiting for
-        it."""
-        self.model.train()
-        loss = self._loss(batch)
+        it (but for the all-reduce of a process group)."""
+        self._train_model.train()
+        loss = self._loss(batch, self._train_model)
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step()
-        return loss.detach()
+        return global_sum(loss.detach())
 
     def eval_step(self, batch: Batch) -> torch.Tensor:
         """The loss in eval mode (running BatchNorm statistics)."""
         self.model.eval()
         with torch.no_grad():
-            return self._loss(batch)
+            return global_sum(self._loss(batch, self.model))
 
     def predict(self, batch: Batch) -> torch.Tensor:
         self.model.eval()

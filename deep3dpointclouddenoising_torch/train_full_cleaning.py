@@ -1,5 +1,6 @@
-"""Full-cleaning training on one card: joint offset regression and outlier
-detection.
+"""Full-cleaning training on one card, or data-parallel under ``torchrun``
+(``--multihost``, as the train entry point): joint offset regression and
+outlier detection.
 
 Counterpart of ``scripts/train_full_cleaning.py``: the four-output model
 (three tanh offsets, one sigmoid outlierness), trained with

@@ -1,4 +1,6 @@
-"""Outlier-segmentation training on labelled scans, on one card.
+"""Outlier-segmentation training on labelled scans, on one card or
+data-parallel under ``torchrun`` (``--multihost``, as the train entry
+point).
 
 Counterpart of ``scripts/train_outlier_seg.py``: the scene-segmentation
 model (two classes, inlier and outlier) trained under the masked
@@ -24,8 +26,8 @@ from typing import Any, Dict, List, Optional
 
 from .data.outlier_dataset import OutlierSegmentationDataset
 from .data.transforms import build_train_transforms
+from .parallel.dist import coordinator_first
 from .train import __main__ as _train_cli
-from .utils.device import resolve_device
 
 
 def dataset_kwargs(cfg, dataset_type: Optional[str]) -> Dict[str, Any]:
@@ -42,22 +44,23 @@ def dataset_kwargs(cfg, dataset_type: Optional[str]) -> Dict[str, Any]:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Train; returns the train entry point's summary."""
     args = _train_cli.parse_args(argv, "segmentation")
-    device = resolve_device(args.device)
-    cfg = _train_cli.load_run_config(args)
-    cfg.num_classes = 2
-    common = dataset_kwargs(cfg, args.dataset_type)
-    train_ds = OutlierSegmentationDataset(
-        cfg.data_root, "train", num_steps=cfg.num_steps,
-        num_epochs=int(cfg.epochs), transforms=build_train_transforms(cfg),
-        **common)
-    val_ds = OutlierSegmentationDataset(
-        cfg.data_root, "val", num_steps=cfg.num_steps, num_epochs=1,
-        **common)
-    cfg.input_features_dim = train_ds.input_features_dim
-    return _train_cli.fit(cfg, args.log_dir, device, train_ds, val_ds,
-                          "segmentation",
-                          load_weights_path=args.load_weights_path,
-                          auto_resume=args.auto_resume)
+    with _train_cli.run_device(args) as device:
+        cfg = _train_cli.load_run_config(args)
+        cfg.num_classes = 2
+        common = dataset_kwargs(cfg, args.dataset_type)
+        train_ds, val_ds = coordinator_first(lambda: (
+            OutlierSegmentationDataset(
+                cfg.data_root, "train", num_steps=cfg.num_steps,
+                num_epochs=int(cfg.epochs),
+                transforms=build_train_transforms(cfg), **common),
+            OutlierSegmentationDataset(
+                cfg.data_root, "val", num_steps=cfg.num_steps,
+                num_epochs=1, **common)), "datasets")
+        cfg.input_features_dim = train_ds.input_features_dim
+        return _train_cli.fit(cfg, args.log_dir, device, train_ds, val_ds,
+                              "segmentation",
+                              load_weights_path=args.load_weights_path,
+                              auto_resume=args.auto_resume)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,9 @@
 Counterpart of ``deep3dpointclouddenoising_tpu/utils/logger.py``, with the
 same file names and the same JSONL schema (``{"tag", "value", "step"}`` a
 line), so ``scripts/plot_metrics.py`` reads the port's logs as they are.
+In a data-parallel run only the coordinator writes them
+(``scripts/train.py:335,353``); the other ranks log to stdout alone,
+each line under ``[rank r]``.
 """
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ import json
 import logging
 import os
 import sys
+
+from ..parallel.dist import is_coordinator, rank
 
 LOGGER_NAME = "d3pcd_torch"
 
@@ -41,15 +46,21 @@ def setup_logger(output: str) -> logging.Logger:
 
     Not cached: each call replaces the logger's handlers, so the runs of
     one process each write their own ``log.txt``, and stdout is whatever
-    ``sys.stdout`` is at each message.
+    ``sys.stdout`` is at each message.  On a rank other than the
+    coordinator of a process group, stdout alone, each message after
+    ``[rank r]``.
     """
     logger = get_logger()
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
     close_logger(logger)
     handler = _StdoutHandler()
-    handler.setFormatter(logging.Formatter("%(message)s"))
+    coordinator = is_coordinator()
+    handler.setFormatter(logging.Formatter(
+        "%(message)s" if coordinator else f"[rank {rank()}] %(message)s"))
     logger.addHandler(handler)
+    if not coordinator:
+        return logger
     os.makedirs(output, exist_ok=True)
     handler = logging.FileHandler(os.path.join(output, "log.txt"))
     handler.setFormatter(logging.Formatter(
@@ -101,10 +112,12 @@ class MetricsWriter:
 @contextlib.contextmanager
 def run_logs(run_dir: str, metrics: bool = True):
     """``(logger, writer)`` of one run: :func:`setup_logger` into
-    ``run_dir`` and, with ``metrics``, a :class:`MetricsWriter` there (else
-    ``None``); both closed when the block ends."""
+    ``run_dir`` and, with ``metrics`` on the coordinator, a
+    :class:`MetricsWriter` there (else ``None``); both closed when the
+    block ends."""
     logger = setup_logger(run_dir)
-    writer = MetricsWriter(run_dir) if metrics else None
+    writer = MetricsWriter(run_dir) if metrics and is_coordinator() \
+        else None
     try:
         yield logger, writer
     finally:

@@ -3,7 +3,8 @@
 Counterpart of ``deep3dpointclouddenoising_tpu/utils/profiling.py``:
 :func:`device_trace` records ``torch.profiler`` (CPU and, where a card is
 present, CUDA activity) around a block and writes a Chrome trace
-(``chrome://tracing``, Perfetto) into a directory; :class:`StepTimer`
+(``chrome://tracing``, Perfetto) into a directory, on the coordinator
+of a data-parallel run alone; :class:`StepTimer`
 splits each step's host clock into host (batch ready) and device (step
 done, after ``torch.cuda.synchronize``) segments.
 """
@@ -17,14 +18,17 @@ from typing import Dict, Optional
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..parallel.dist import is_coordinator
+
 TRACE_NAME = "trace.json"
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str]):
-    """Trace the block into ``<log_dir>/trace.json`` (no-op if None).
-    Yields the ``torch.profiler.profile`` (or None)."""
-    if not log_dir:
+    """Trace the block into ``<log_dir>/trace.json`` (no-op if None, and
+    on a rank other than a process group's coordinator).  Yields the
+    ``torch.profiler.profile`` (or None)."""
+    if not log_dir or not is_coordinator():
         yield None
         return
     os.makedirs(log_dir, exist_ok=True)

@@ -45,7 +45,7 @@ def test_port_has_every_module_of_the_slice():
                  "train_full_cleaning", "train.gan", "train_gan",
                  "train_discriminator", "models.pcpnet", "train.pcn",
                  "train_pcn", "serving", "export_model", "utils.logger",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel", "parallel.dist"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
