@@ -6,7 +6,7 @@ Run it from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It imports the port, torch, numpy and scipy only, and goes through
-seventeen phases (phase 9b after 9), each printed with its wall time:
+eighteen phases (phase 9b after 9), each printed with its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``deep3dpointclouddenoising_torch/csrc``, one
@@ -139,7 +139,7 @@ seventeen phases (phase 9b after 9), each printed with its wall time:
    one real batch: the eval forward,
    the train forward and every train-mode gradient under the masked L1
    loss on the card held to the same model's float32 computation on the
-   CPU, within ``grad_check``'s per-tensor limits from that computation's
+   CPU (its BatchNorms by ``F.batch_norm``, as on the card), within ``grad_check``'s per-tensor limits from that computation's
    own distance to float64 (the forward by max-abs and L2, the gradients
    by relative L2; where that one noise sample leaves a tensor over its
    limit, the larger of it and a second, the CPU's with the inputs one
@@ -226,6 +226,30 @@ seventeen phases (phase 9b after 9), each printed with its wall time:
    ``metrics.jsonl`` ``train/loss``, ``train/lr`` and ``val/loss`` at
    steps 1..TRACE_EPOCHS, and its Chrome trace names
    ``kpconv_fwd_kernel`` and ``kpconv_bwd_kernel``.
+17. data parallel, in the fourth part, on a copy of phase 8's tree: the train
+   command with ``--multihost`` on PAR_WORLD gloo ranks sharing the card
+   and on one NCCL rank (torchrun; each rank is ``chip_smoke.py
+   --parallel-rank``) against the same command in one process, and one
+   SGD step's gradients across ranks (``phase_parallel``).
+18. spatial denoising and the data-parallel GAN (this slice's paths):
+   (a) before the parts start, on an idle card: SPATIAL_SHAPE (140,000
+   points, gaussian sigma 0.5%, padded to 141,312 slots) denoised by
+   ``infer --spatial`` in one forward in this process from phase 8's
+   checkpoint (10 forward launches; wall s, device ms, peak GiB, points/s
+   beside phase 5's), and both kernels against plain (the backward
+   against float64) at its level-0 stem call; in the fourth part after
+   17, one torchrun job
+   of PAR_WORLD gloo ranks sharing the card (each ``chip_smoke.py
+   --spatial-rank``): (b) the same cloud by ``infer --spatial
+   --multihost``, within MODEL_TOL of (a), its all-gathers' bytes and ms;
+   (c) point-sharded training on SPATIAL_TRAIN_POINTS points, B=1,
+   SPATIAL_TRAIN_STEPS Adam steps, against one process: the first loss
+   within PAR_FIRST_LOSS_RTOL, the ranks bitwise equal; (d)
+   ``train_discriminator`` and ``train_gan --multihost``, one epoch of
+   SPATIAL_GAN_STEPS steps each, also on one NCCL rank, against one
+   process: ranks bitwise equal, the first losses within
+   PAR_FIRST_LOSS_RTOL, 40 forward, 30 backward and 3 ``kpconv_bwd_drel``
+   launches per update on each rank.
 
 9b. bf16 (this slice's path), after phase 9 and on its shape tree:
    ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
@@ -255,13 +279,14 @@ seventeen phases (phase 9b after 9), each printed with its wall time:
    same checkpoint; then device ms per train step (profiler) in bf16 and
    in float32 from the same weights.
 
-Phases 1-9, 9b(a) and 14(a) run first, one after another.  Then four
-processes run the rest at once: this one runs 10 and then 16, and three
-started with ``--part`` run 13, then 11 and 12, then 9b(b-d), 14(b-e) and
-15.  Each of the three works on a copy of
-phase 9's meshes and uses phase 9's generator.  Their output is printed
-when they end, and they are killed if this process fails.  So the kernels'
-times of the result line (phases 3, 6, 9b(a), 14(a)) are taken on a card
+Phases 1-9, 9b(a), 14(a) and 18(a) run first, one after another.  Then
+five processes run the rest at once: this one runs 10 and then 16, and
+four started with ``--part`` run 13, then 11 and 12, then 9b(b-d),
+14(b-e) and 15, then 17 and 18(b-d).  Each of the first three works on a
+copy of phase 9's meshes and uses phase 9's generator; the fourth works
+on a copy of phase 8's tree.  Their output is printed when they end, and
+they are killed if this process fails.  So the kernels' times of the
+result line (phases 3, 6, 9b(a), 14(a), 18(a)) are taken on a card
 that nothing else uses.  The wall and device times of the later phases are
 taken beside the other processes; compare those only with the same phase
 run alone (``--only-*``).
@@ -279,7 +304,9 @@ alone (on a shape tree of its own) and prints the phase's numbers.
 
 ``--only-export`` runs phases 1, 2, 8 and 16 (phase 16 on a shape tree of
 its own and a cleaning checkpoint trained as phase 10 trains it) and prints
-the phase's numbers.
+the phase's numbers; ``--only-parallel`` runs phases 1, 2 and 17;
+``--only-spatial`` runs phases 1, 2, 8 and 18 and prints the phase's
+numbers.
 
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
 15k stem call on random neighbourhoods) and prints the kernels' JSON
@@ -289,6 +316,7 @@ call.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import hashlib
@@ -305,6 +333,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from deep3dpointclouddenoising_torch import compute_cd, \
@@ -315,7 +344,9 @@ from deep3dpointclouddenoising_torch.config import load_config
 from deep3dpointclouddenoising_torch.data.device_sampler import (
     DeviceSampler, sample_generator, torch_draws)
 from deep3dpointclouddenoising_torch.data.loader import BatchLoader
-from deep3dpointclouddenoising_torch.data.meshio import read_ply, save_off
+from deep3dpointclouddenoising_torch.data.meshio import (read_ply,
+                                                         sample_surface,
+                                                         save_off)
 from deep3dpointclouddenoising_torch.data.offset_dataset import OffsetDataset
 from deep3dpointclouddenoising_torch.data.outlier_dataset import \
     OutlierSegmentationDataset
@@ -343,8 +374,10 @@ from deep3dpointclouddenoising_torch.ops.kpconv import (
     invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
 from deep3dpointclouddenoising_torch.parallel.dist import (
-    initialize_distributed, local_device, process_slice,
-    shutdown_distributed, world_size)
+    all_gather_points, initialize_distributed, local_device, point_rows,
+    process_slice, shutdown_distributed, world_size)
+from deep3dpointclouddenoising_torch.parallel.spatial import \
+    build_spatial_model
 from deep3dpointclouddenoising_torch.parallel.dist import rank as dist_rank
 from deep3dpointclouddenoising_torch.profile_serving import \
     _device_events, profile_train_steps, window_summary
@@ -519,14 +552,16 @@ EXPORT_LEVEL = 0.005
 # (d)'s traced training: epochs and steps per epoch (the first traced)
 TRACE_EPOCHS = 2
 TRACE_STEPS = 3
-# the default run's phases after 9 and 9b(a) go in four processes at once:
-# this one (10, then 16), and three started with ``--part`` (name: torch
-# CPU threads, phases), each on a copy of phase 9's shape tree without its
-# caches; the kernels' times of the result line are taken before they
-# start, on a card nothing else uses; a part still running PART_LIMIT_S
-# after it started is killed and fails the run
+# the default run's phases after 9, 9b(a), 14(a) and 18(a) go in five
+# processes at once: this one (10, then 16), and four started with
+# ``--part`` (name: torch CPU threads, phases), each on a copy of phase 9's
+# shape tree without its caches ("parallel" on a copy of phase 8's tree);
+# the kernels' times of the result line are taken before they start, on a
+# card nothing else uses; a part still running PART_LIMIT_S after it
+# started is killed and fails the run
 PARTS = {"aggregations": (3, "13"), "15k_seg": (2, "11, 12"),
-         "bf16_gan_pcn": (2, "9b(b-d), 14(b-e), 15")}
+         "bf16_gan_pcn": (2, "9b(b-d), 14(b-e), 15"),
+         "parallel": (1, "17, 18(b-d)")}
 PART_LIMIT_S = 900
 # phase 17 (data parallel): PAR_WORLD ranks on the card over gloo, then one
 # over NCCL, each started by torchrun and run for PAR_EPOCHS epochs of
@@ -542,6 +577,22 @@ PAR_BATCH_SEED = 17
 PAR_FIRST_LOSS_RTOL = 1e-4
 PAR_SGD_ATOL = 2e-5
 PAR_LIMIT_S = 420
+# phase 18 (spatial): SPATIAL_SHAPE at SPATIAL_POINTS points (gaussian sigma
+# SPATIAL_LEVEL), padded to SPATIAL_PAD slots, denoised in one spatial
+# forward at l1.yaml width 144 from phase 8's checkpoint, in one process
+# and on PAR_WORLD gloo ranks (within MODEL_TOL of each other); spatial
+# training on SPATIAL_TRAIN_POINTS points, B=1, SPATIAL_TRAIN_STEPS Adam
+# steps; train_discriminator and train_gan with --multihost, one epoch of
+# SPATIAL_GAN_STEPS steps each; the first losses within PAR_FIRST_LOSS_RTOL
+# of one process's
+SPATIAL_SHAPE = "cylinder_t"
+SPATIAL_POINTS = 140000
+SPATIAL_PAD = 141312
+SPATIAL_LEVEL = 0.005
+SPATIAL_TRAIN_POINTS = 16384
+SPATIAL_TRAIN_STEPS = 2
+SPATIAL_GAN_STEPS = 2
+SPATIAL_SEED = 18
 FRESH_LOAD = r"""
 import json, sys, time
 import numpy as np
@@ -938,7 +989,8 @@ def phase_model(cfg, device, batch=None):
 
 def phase_serving(cfg, device, workdir):
     """The main path: the inference entry point over a two-shape
-    qualitative_test split; returns the kernel's launches in it."""
+    qualitative_test split; returns the kernel's launches in it and the
+    voting's points/s."""
     data_root = os.path.join(workdir, "data")
     os.makedirs(os.path.join(data_root, "qualitative_test"))
     save_off(os.path.join(data_root, "qualitative_test", "sphere.off"),
@@ -972,7 +1024,7 @@ def phase_serving(cfg, device, workdir):
           f"voting {seconds:.3f} s = {n_points / seconds:.1f} points/s, "
           f"{len(dataset) * int(cfg.num_points) / seconds:.1f} patch "
           f"points/s")
-    return launches
+    return launches, n_points / seconds
 
 
 def kpconv_bwd_bound(B, M, N, K, C, P, live, feat_bytes=4):
@@ -2750,8 +2802,11 @@ def agg_paths(model, pyramid, batch, train: bool, paths=AGG_PATHS):
     and ``cpu`` (float32), ``float64`` (on the card), ``cpu_float64`` and
     ``cpu_nudged`` (float32 on the CPU with every input feature one
     float32 ulp up: how far rounding-sized changes move the result).  In
-    train mode the masked L1 loss's gradients of every parameter too.
-    Returns ``{path: (output, [gradients])}``."""
+    train mode the masked L1 loss's gradients of every parameter too, and
+    the CPU's paths run their BatchNorms by ``F.batch_norm`` as the card's
+    do (:func:`batch_norm_kernel_on_cpu`), so that each CPU path's distance
+    from float64 is a sample of the card's arithmetic's noise.  Returns
+    ``{path: (output, [gradients])}``."""
     cpu = torch.device("cpu")
     out = {}
     for path in paths:
@@ -2767,7 +2822,8 @@ def agg_paths(model, pyramid, batch, train: bool, paths=AGG_PATHS):
                 b = dict(b, features=torch.nextafter(
                     b["features"], torch.tensor(math.inf)))
         m.train(train)
-        with torch.set_grad_enabled(train):
+        with torch.set_grad_enabled(train), batch_norm_kernel_on_cpu(
+                train and path.startswith("cpu")):
             y = m.head(pyr, m.ResNetEncoder_0(pyr, b["features"]))
             grads = []
             if train:
@@ -4362,6 +4418,48 @@ def state_hashes(state) -> dict:
             for k, v in state.items()}
 
 
+@contextlib.contextmanager
+def two_pass_batch_norm(on: bool = True):
+    """With ``on``, one process's train-mode BatchNorms on CUDA tensors take
+    the two-pass form that CPU tensors take (the cross-rank form, its
+    collectives identities outside a group) in place of
+    ``F.batch_norm``, so a card path computes the CPU's arithmetic."""
+    kept = model_layers.is_distributed
+    if on:
+        model_layers.is_distributed = lambda: True
+    try:
+        yield
+    finally:
+        model_layers.is_distributed = kept
+
+
+@contextlib.contextmanager
+def batch_norm_kernel_on_cpu(on: bool = True):
+    """With ``on``, one process's train-mode BatchNorms on CPU tensors run
+    ``F.batch_norm``, as they do on CUDA tensors, in place of the two
+    passes that ``models/layers.py`` takes there, so a CPU path computes
+    the card's arithmetic (the running statistics are not kept as
+    ``models/layers.py`` keeps them: nothing here reads them)."""
+    kept = model_layers.ChannelsLastBatchNorm.forward
+
+    def forward(self, x):
+        if not (self.training and x.device.type == "cpu"):
+            return kept(self, x)
+        shape = x.shape
+        x = x.reshape(-1, shape[-1]).to(
+            torch.promote_types(x.dtype, self.weight.dtype))
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, True, self.momentum,
+                            self.eps).reshape(shape)
+
+    if on:
+        model_layers.ChannelsLastBatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        model_layers.ChannelsLastBatchNorm.forward = kept
+
+
 def sgd_gradient(device, batch, two_pass: bool = False):
     """One SGD step (momentum 0, no weight decay) of the l1.yaml Trainer
     from its seed's init on ``batch`` (this rank's rows inside a process
@@ -4371,17 +4469,12 @@ def sgd_gradient(device, batch, two_pass: bool = False):
     identities outside a group) in place of ``F.batch_norm``."""
     cfg = load_config(CONFIG)
     cfg.optimizer, cfg.momentum, cfg.weight_decay = "sgd", 0.0, 0.0
-    kept = model_layers.is_distributed
-    if two_pass:
-        model_layers.is_distributed = lambda: True
-    try:
+    with two_pass_batch_norm(two_pass):
         tt = Trainer(cfg, 1,
                      torch.Generator().manual_seed(int(cfg.rng_seed)),
                      device)
         p0 = {n: p.detach().clone() for n, p in tt.model.named_parameters()}
         tt.train_step(batch)
-    finally:
-        model_layers.is_distributed = kept
     lr = tt.lr_schedule(0)
     return {n: (p0[n] - p.detach()) / lr
             for n, p in tt.model.named_parameters()}, lr
@@ -4457,11 +4550,13 @@ def parallel_rank(spec_path: str) -> int:
     return 0
 
 
-def run_torchrun(nproc: int, spec: dict, name: str) -> list:
+def run_torchrun(nproc: int, spec: dict, name: str,
+                 flag: str = "--parallel-rank") -> list:
     """``torchrun --standalone --nproc_per_node=nproc chip_smoke.py
-    --parallel-rank``, in a session of its own, killed with whatever it
-    started if it runs past PAR_LIMIT_S; prints its output and returns the
-    ranks' records."""
+    <flag>`` (``--parallel-rank`` for phase 17, ``--spatial-rank`` for
+    phase 18), in a session of its own, killed with whatever it started if
+    it runs past PAR_LIMIT_S; prints its output and returns the ranks'
+    records."""
     os.makedirs(spec["out"], exist_ok=True)
     path = os.path.join(spec["out"], "spec.json")
     with open(path, "w") as f:
@@ -4469,7 +4564,7 @@ def run_torchrun(nproc: int, spec: dict, name: str) -> list:
     log = os.path.join(spec["out"], "log.txt")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", os.path.abspath(__file__),
-           "--parallel-rank", path]
+           flag, path]
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
                                 cwd=ROOT, start_new_session=True,
@@ -4645,6 +4740,465 @@ def phase_parallel(cfg, device, workdir, data_root):
 
 
 
+def spatial_tree(root: str) -> str:
+    """Phase 18's ``qualitative_test`` split: SPATIAL_SHAPE alone."""
+    os.makedirs(os.path.join(root, "qualitative_test"))
+    save_off(os.path.join(root, "qualitative_test", SPATIAL_SHAPE + ".off"),
+             make_synthetic_dataset.shapes_for("qualitative_test")[
+                 SPATIAL_SHAPE])
+    return root
+
+
+def spatial_infer_argv(data_root: str, out_dir: str, checkpoint: str,
+                       *extra):
+    """``infer --spatial`` of SPATIAL_SHAPE at gaussian SPATIAL_LEVEL with
+    ``checkpoint`` (l1.yaml), no routing."""
+    return ["--config_file", CONFIG, "--data_root", data_root, "--out_dir",
+            out_dir, "--checkpoint", checkpoint, "--checkpoint_low", "none",
+            "--noise_type", "gaussian", "--noise_level", str(SPATIAL_LEVEL),
+            "--spatial", *extra]
+
+
+def spatial_level0_kernels(cfg, device, dataset):
+    """Both kernels against plain at the spatial forward's level-0 call of
+    the stem: the whole cloud's SPATIAL_PAD queries against all of its
+    supports (one rank's query block in one process), on the real
+    neighbourhood of the spatial pyramid, with random features, kernel
+    weights and upstream gradient at the stem's width.  The forward at
+    KERNEL_TOL; the training path's backward against the plain backward
+    in float64 (``check_grad_float64``) and bitwise reproducible.  Returns
+    each kernel's record at that shape: wrapper ms (CUDA events), plain
+    ms, bound over the live edges, largest error."""
+    n = len(dataset.shapes[0].points)
+    scfg = infer.spatial_config(cfg, SPATIAL_PAD)
+    model = build_spatial_model(scfg).to(device)
+    pts = torch.zeros(1, SPATIAL_PAD, 3, device=device)
+    pts[0, :n] = torch.from_numpy(dataset.shapes[0].points).to(device)
+    mask = torch.zeros(1, SPATIAL_PAD, device=device)
+    mask[0, :n] = 1.0
+    with torch.no_grad():
+        level = model.make_pyramid(pts, mask).levels[0]
+    nbr = level.self_nbr
+    fmask = local_aggregation._feature_mask(nbr, level.mask).contiguous()
+    pg = model.ResNetEncoder_0.LocalAggregation_0.PseudoGrid_0
+    B, M, K = nbr.idx.shape
+    N, (P, C) = SPATIAL_PAD, pg.kernel_weights.shape
+    rng = np.random.default_rng(SPATIAL_SEED)
+    feat, g, kw = (torch.from_numpy(a.astype(np.float32)).to(device)
+                   for a in (rng.normal(size=(B, N, C)),
+                             rng.normal(size=(B, M, C)),
+                             rng.normal(size=(P, C)) * math.sqrt(2.0 / C)))
+    args = (feat, nbr.idx, nbr.rel_xyz, fmask, pg.kpoints, kw)
+    extent, infl = pg.extent, pg.influence
+    with torch.no_grad():
+        got = kpconv_aggregate(*args, extent, infl)
+        torch.cuda.synchronize()
+        want = kpconv_aggregate_plain(*args, extent, infl)
+        fwd_err, _ = check_close(got, want, what="spatial level-0 kpconv",
+                                 **KERNEL_TOL)
+    del got, want
+    got = kpconv_aggregate_backward(*args, g, extent, infl)
+    torch.cuda.synchronize()
+    want = kpconv_aggregate_backward_plain(*args, g, extent, infl)
+    want64 = kpconv_aggregate_backward_plain(
+        *[a.double() if a.is_floating_point() else a for a in args],
+        g.double(), extent, infl)
+    pairs = [check_grad_float64(a, b, c, f"spatial level-0 backward {what}")
+             for a, b, c, what in zip(got[:2], want[:2], want64[:2],
+                                      ("d_feat", "d_kw"))]
+    del got, want, want64
+    check_reproducible(args, g, extent, infl, "spatial level 0")
+
+    def fwd():
+        with torch.no_grad():
+            return kpconv_aggregate(*args, extent, infl)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return kpconv_aggregate_plain(*args, extent, infl)
+
+    def bwd():
+        return kpconv_aggregate_backward(*args, g, extent, infl)
+
+    def plain_bwd():
+        return kpconv_aggregate_backward_plain(*args, g, extent, infl)
+
+    live, mean_deg, max_deg = in_degrees(fmask, nbr.idx, N)
+    out = {}
+    for key, err, fn, plain, bound in (
+            ("fwd", fwd_err, fwd, plain_fwd,
+             kpconv_bound(B, M, N, K, C, P, live)),
+            ("bwd", max(p[0] for p in pairs), bwd, plain_bwd,
+             kpconv_bwd_bound(B, M, N, K, C, P, live))):
+        t_bytes, t_ops = bound
+        out[key] = {
+            "ms": cuda_ms(fn, 5, 1), "plain_ms": cuda_ms(plain, 2, 1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": err, "shape": {"B": B, "M": M, "N": N, "K": K,
+                                          "C": C, "P": P},
+            "live_edges": live, "in_degree_mean": mean_deg,
+            "in_degree_max": max_deg,
+            "timed_at": "the stem's level-0 call of one spatial forward of "
+                        f"{SPATIAL_SHAPE} ({n} points in {SPATIAL_PAD} "
+                        "slots), a real neighbourhood, random features; ms "
+                        "by CUDA events around back-to-back wrapper calls; "
+                        "bound over the live edges"}
+        if key == "bwd":
+            out[key]["float64_distance_plain_float32"] = max(
+                p[1] for p in pairs)
+    print(f"18(a) level-0 stem call B {B} M {M} N {N} K {K} C {C} P {P}: "
+          f"live edges {live}, in-degree mean {mean_deg:.1f} max {max_deg}; "
+          f"forward {out['fwd']['ms']:.3f} ms (plain "
+          f"{out['fwd']['plain_ms']:.3f}, bound {out['fwd']['bound_ms']:.4f}"
+          f" {out['fwd']['bound_by']}), max abs {fwd_err:.3e}; backward "
+          f"{out['bwd']['ms']:.3f} ms (plain {out['bwd']['plain_ms']:.3f}, "
+          f"bound {out['bwd']['bound_ms']:.4f} {out['bwd']['bound_by']}), "
+          f"from float64: d_feat {pairs[0][0]:.3e} (plain float32 "
+          f"{pairs[0][1]:.3e}), d_kw {pairs[1][0]:.3e} (plain float32 "
+          f"{pairs[1][1]:.3e})", flush=True)
+    return out
+
+
+def phase_spatial_serving(cfg, device, workdir, checkpoint,
+                          voting_pps=None, data_root=None):
+    """18(a): SPATIAL_SHAPE (SPATIAL_POINTS points, padded to SPATIAL_PAD)
+    denoised by ``infer --spatial`` in this process from ``checkpoint``:
+    10 forward launches and no backward one for the cloud, every offset
+    finite; wall s, peak GiB, points/s beside ``voting_pps`` (phase 5's),
+    then a second ``denoise_clouds_spatial`` of the cloud under the
+    profiler (device ms, busy share), then both kernels at its level-0
+    shape.  ``data_root``: a ``qualitative_test`` split of SPATIAL_SHAPE
+    alone whose processed cloud may be cached (phase 9's), else one is
+    written.  Returns the phase's numbers, the offsets, the split's root
+    and the kernels' records."""
+    if data_root is None:
+        data_root = spatial_tree(os.path.join(workdir, "spatial_data"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    summary = infer.run(CONFIG, data_root, os.path.join(workdir,
+                                                        "spatial_out"),
+                        checkpoint, device=device, noise_type="gaussian",
+                        noise_level=SPATIAL_LEVEL, checkpoint_low="none",
+                        spatial=True)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    dataset, res = summary["dataset"], summary["results"][0]
+    n = len(dataset.shapes[0].points)
+    if (n, -(-n // 2048) * 2048) != (SPATIAL_POINTS, SPATIAL_PAD):
+        raise AssertionError(f"18(a): {n} points")
+    if launches != (10, 0, 0):
+        raise AssertionError(f"18(a): launches {launches} for one cloud")
+    if res["offsets"].shape != (n, 3) \
+            or not np.isfinite(res["offsets"]).all():
+        raise AssertionError("18(a): bad offsets")
+    seconds = summary["seconds"]
+    tcfg = load_config(CONFIG)
+    state = infer.load_model(tcfg, device, checkpoint).state_dict()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = infer.denoise_clouds_spatial(state, tcfg, dataset, device)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    if not np.array_equal(again[0]["offsets"], res["offsets"]):
+        raise AssertionError("18(a): a second spatial forward gave other "
+                             "offsets")
+    window = window_summary("18(a) spatial forward", prof, wall2, 1)
+    out = {"points": n, "slots": SPATIAL_PAD, "seconds": seconds,
+           "points_per_s": n / seconds, "peak_gib": peak,
+           "forward_launches": launches[0], "profiled_wall_s": wall2,
+           "voting_points_per_s_phase5": voting_pps}
+    if window is not None:
+        out["device_ms"], out["busy"] = window
+    print(f"18(a) {SPATIAL_SHAPE}: {n} points in {SPATIAL_PAD} slots, one "
+          f"spatial forward in one process: {seconds:.3f} s wall = "
+          f"{n / seconds:.1f} points/s (phase 5's voting: "
+          + (f"{voting_pps:.1f}" if voting_pps else "not run")
+          + f" points/s), device "
+          + (f"{out['device_ms']:.3f} ms (busy {out['busy']:.3f})"
+             if window is not None else "not measured")
+          + f", {launches[0]} forward launches, peak {peak:.3f} GiB",
+          flush=True)
+    kernels = spatial_level0_kernels(tcfg, device, dataset)
+    gc.collect()  # the cached blocks back for the processes after it
+    torch.cuda.empty_cache()
+    return out, res["offsets"], data_root, kernels
+
+
+def spatial_train_batch(n: int = SPATIAL_TRAIN_POINTS,
+                        seed: int = SPATIAL_SEED):
+    """One whole cloud of ``n`` points for 18(c): SPATIAL_SHAPE's surface
+    sampled from ``seed``, gaussian noise of SPATIAL_LEVEL of its
+    bounding-box diagonal, the target offsets back to the surface."""
+    mesh = make_synthetic_dataset.shapes_for("qualitative_test")[
+        SPATIAL_SHAPE]
+    rng = np.random.default_rng(seed)
+    clean, _ = sample_surface(mesh, n, rng)
+    diag = np.linalg.norm(clean.max(0) - clean.min(0))
+    noisy = clean + rng.normal(size=clean.shape) * SPATIAL_LEVEL * diag
+    pts = noisy[None].astype(np.float32)
+    return {"points": pts, "mask": np.ones((1, n), np.float32),
+            "features": pts.copy(),
+            "offsets": (clean - noisy)[None].astype(np.float32)}
+
+
+def spatial_training(device, spatial: bool) -> dict:
+    """SPATIAL_TRAIN_STEPS Adam steps of the l1.yaml Trainer (width 144,
+    the spatial schedule of SPATIAL_TRAIN_POINTS slots, B=1) from its
+    seed's init on :func:`spatial_train_batch`, point-sharded over the
+    process group with ``spatial``: losses, launches, the end state's
+    hashes."""
+    cfg = infer.spatial_config(load_config(CONFIG), SPATIAL_TRAIN_POINTS)
+    cfg.batch_size = 1
+    tt = Trainer(cfg, 10, torch.Generator().manual_seed(int(cfg.rng_seed)),
+                 device, spatial=spatial)
+    batch = spatial_train_batch()
+    reset_launches()
+    losses = [tt.train_step(batch).item() for _ in range(SPATIAL_TRAIN_STEPS)]
+    return {"losses": losses, "launches": list(launch_counts()),
+            "hashes": state_hashes(tt.model.state_dict())}
+
+
+def gan_dp_argv(config: str, tree: str, log_dir: str, *extra):
+    """One epoch of SPATIAL_GAN_STEPS steps of ``config`` at width 144 on
+    ``tree``, clouds of DEPLOY_TRAIN_POINTS points, one validation pass."""
+    path = os.path.join(ROOT, "cfgs", config + ".yaml")
+    return ["--config_file", path, "--data_root", tree, "--log_dir",
+            log_dir, "--num_steps",
+            str(SPATIAL_GAN_STEPS * int(load_config(path).batch_size)),
+            "--epochs", "1", "--val_freq", "1", "--num_points_per_shape",
+            str(DEPLOY_TRAIN_POINTS), *extra]
+
+
+def gan_dp_runs(tree: str, log_dir: str, generator: str,
+                discriminator=None, *extra) -> dict:
+    """18(d): ``train_discriminator`` and then ``train_gan`` from
+    ``generator`` and ``discriminator`` (default: the pre-training's own
+    checkpoint); each one's steps, launches, first losses and end state's
+    hashes."""
+    reset_launches()
+    disc = train_discriminator.main(gan_dp_argv(
+        DISC_CONFIG, tree, os.path.join(log_dir, "disc"), *extra))
+    d_launches = launch_counts()
+    reset_launches()
+    gan = train_gan.main(gan_dp_argv(
+        GAN_CONFIG, tree, os.path.join(log_dir, "gan"),
+        "--load_path_generator", generator, "--load_path_discriminator",
+        discriminator or disc["checkpoint"], *extra))
+    g_launches = launch_counts()
+    return {"disc": {"steps": disc["steps"], "val_batches": disc[
+        "val_batches"], "losses": disc["train_losses"],
+        "launches": list(d_launches), "checkpoint": disc["checkpoint"],
+        "hashes": state_hashes(disc["trainer"].discriminator.state_dict())},
+        "gan": {"steps": gan["steps"], "metrics": gan["metrics"],
+                "launches": list(g_launches),
+                "hashes": {name: state_hashes(b.model.state_dict())
+                           for name, b in gan["trainer"].blocks.items()}}}
+
+
+def allgather_ms(n: int, channels: int, device, iters: int = 5) -> float:
+    """Host ms per ``all_gather_points`` of this rank's rows of an
+    (1, n, channels) float32 level over the process group (synchronised
+    after ``iters`` calls)."""
+    x = torch.ones(1, len(range(n)[point_rows(n)]), channels, device=device)
+    for _ in range(2):
+        all_gather_points(x, n)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        all_gather_points(x, n)
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def spatial_rank(spec_path: str) -> int:
+    """One rank of phase 18, started by torchrun: with ``spec["infer"]``
+    that command (``infer --spatial --multihost``, its launches and its
+    all-gathers counted, the offsets saved), then the all-gather's time at
+    the stem's level-0 rows; with ``spec["train"]`` point-sharded
+    training; with ``spec["gan"]`` :func:`gan_dp_runs` with
+    ``--multihost``.  Writes its record to ``<out>/rank<r>.json``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    initialize_distributed(spec["device"], spec["backend"])
+    try:
+        r = dist_rank()
+        device = local_device(spec["device"])
+        torch.cuda.set_device(device)
+        out = {"rank": r, "world": world_size(), "device": str(device),
+               "backend": torch.distributed.get_backend()}
+        if spec.get("infer"):
+            reset_launches()
+            all_gather_points.calls = all_gather_points.bytes = 0
+            summary = infer.main(spec["infer"])
+            torch.cuda.synchronize(device)
+            out["infer"] = {"seconds": summary["seconds"],
+                            "launches": list(launch_counts()),
+                            "gathers": all_gather_points.calls,
+                            "gather_bytes": all_gather_points.bytes}
+            np.save(os.path.join(spec["out"], f"offsets{r}.npy"),
+                    summary["results"][0]["offsets"])
+            out["infer"]["gather_ms_level0_stem"] = allgather_ms(
+                SPATIAL_PAD, int(load_config(CONFIG).width) // 2, device)
+        if spec.get("train"):
+            out["train"] = spatial_training(device, True)
+        if spec.get("gan"):
+            backend = ["--dist_backend", spec["backend"]] \
+                if spec["backend"] else []
+            out["gan"] = gan_dp_runs(
+                spec["tree"], os.path.join(spec["out"], "log"),
+                spec["generator"], spec.get("discriminator"), "--device",
+                spec["device"], "--multihost", *backend)
+        with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def check_gan_dp(name: str, ranks: list, one: dict) -> dict:
+    """18(d)'s checks of a data-parallel run against one process: the
+    ranks' end states and losses bitwise equal; the steps taken; per rank
+    10 forward and 10 backward launches per pre-training step (10 forward
+    per validation batch) and GAN_UPDATE_LAUNCHES per update (3
+    ``kpconv_bwd_drel``); the first pre-training loss and the first
+    update's err_d and err_g within PAR_FIRST_LOSS_RTOL of one process's
+    (the GAN runs from one discriminator checkpoint).  Returns the run's
+    numbers."""
+    for r in ranks:
+        d, g = r["gan"]["disc"], r["gan"]["gan"]
+        for block, key in (("disc", "hashes"), ("disc", "losses"),
+                           ("gan", "hashes"), ("gan", "metrics")):
+            if r["gan"][block][key] != ranks[0]["gan"][block][key]:
+                raise AssertionError(f"{name}: rank {r['rank']}'s {block} "
+                                     f"{key} differ from rank 0's")
+        steps, val = d["steps"], d["val_batches"]
+        if steps != SPATIAL_GAN_STEPS or g["steps"] != SPATIAL_GAN_STEPS:
+            raise AssertionError(f"{name}: {steps} and {g['steps']} steps")
+        if d["launches"] != [10 * (steps + val), 10 * steps, 0]:
+            raise AssertionError(f"{name}: pre-training launched "
+                                 f"{d['launches']} ({val} val batches)")
+        if g["launches"] != [n * SPATIAL_GAN_STEPS
+                             for n in GAN_UPDATE_LAUNCHES]:
+            raise AssertionError(f"{name}: the GAN launched "
+                                 f"{g['launches']}")
+    d, g = ranks[0]["gan"]["disc"], ranks[0]["gan"]["gan"]
+    firsts = {"disc_loss": (d["losses"][0], one["disc"]["losses"][0])}
+    for k in ("err_d", "err_g"):
+        firsts[k] = (g["metrics"][k][0], one["gan"]["metrics"][k][0])
+    for k, (got, want) in firsts.items():
+        if not math.isfinite(got) \
+                or abs(got - want) > PAR_FIRST_LOSS_RTOL * abs(want):
+            raise AssertionError(f"{name}: first {k} {got!r} against one "
+                                 f"process {want!r}")
+    print(f"{name}: {len(ranks)} rank(s) bitwise equal; pre-training "
+          f"{d['steps']} steps, launches per rank {d['launches']}; GAN "
+          f"{g['steps']} updates, launches per rank (forward, backward, "
+          f"d_rel) {g['launches']}; first losses against one process "
+          + ", ".join(f"{k} {a:.6f} / {b:.6f}" for k, (a, b) in
+                      firsts.items()), flush=True)
+    return {"disc_launches": d["launches"], "gan_launches": g["launches"],
+            "first_losses": firsts}
+
+
+def phase_spatial_parallel(device, workdir, checkpoint, data_root, tree,
+                           offsets_one) -> tuple:
+    """18(b-d), after 18(a) (``offsets_one``, on ``data_root``): one
+    torchrun job of PAR_WORLD gloo ranks sharing the card runs (b)
+    ``infer --spatial --multihost`` of the same cloud, within MODEL_TOL of
+    (a), 10 forward launches per rank, its all-gathers' bytes and ms;
+    (c) point-sharded training on SPATIAL_TRAIN_POINTS points against
+    :func:`spatial_training` in this process, the first loss within
+    PAR_FIRST_LOSS_RTOL, the ranks bitwise equal, 10 forward and 10
+    backward launches per step per rank; (d) :func:`gan_dp_runs` on
+    ``tree`` (phase 8's) with ``checkpoint`` as the generator; then (d) on
+    one NCCL rank, and (d) in this process, both from the gloo job's
+    discriminator checkpoint: :func:`check_gan_dp`.  Returns the phase's
+    numbers and its launches by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    gloo = run_torchrun(PAR_WORLD, {
+        "device": f"{PAR_DEVICE}:0", "backend": "gloo",
+        "out": os.path.join(workdir, "spatial_gloo"),
+        "infer": spatial_infer_argv(
+            data_root, os.path.join(workdir, "spatial_out_gloo"), checkpoint,
+            "--multihost", "--dist_backend", "gloo", "--device",
+            f"{PAR_DEVICE}:0"),
+        "train": True, "gan": True, "tree": tree, "generator": checkpoint},
+        "18(b-d) gloo", "--spatial-rank")
+    two = np.load(os.path.join(workdir, "spatial_gloo", "offsets0.npy"))
+    other = np.load(os.path.join(workdir, "spatial_gloo", "offsets1.npy"))
+    if not np.array_equal(two, other):
+        raise AssertionError("18(b): the ranks' offsets differ")
+    err, _ = check_close(torch.from_numpy(two), torch.from_numpy(offsets_one),
+                         what="18(b) 2 ranks against one process",
+                         **MODEL_TOL)
+    for r in gloo:
+        if r["infer"]["launches"] != [10, 0, 0]:
+            raise AssertionError(f"18(b): rank {r['rank']} launched "
+                                 f"{r['infer']['launches']}")
+    inf = gloo[0]["infer"]
+    print(f"18(b) {PAR_WORLD} gloo ranks on one card: {SPATIAL_POINTS} "
+          f"points in {inf['seconds']:.3f} s wall = "
+          f"{SPATIAL_POINTS / inf['seconds']:.1f} points/s; offsets within "
+          f"{err:.3e} of one process's (max abs); per rank "
+          f"{inf['gathers']} all-gathers, {inf['gather_bytes']:,} bytes; "
+          f"one all-gather of the stem's level-0 rows "
+          f"{inf['gather_ms_level0_stem']:.3f} ms", flush=True)
+    one_train = spatial_training(device, False)
+    for r in gloo:
+        t = r["train"]
+        if t["hashes"] != gloo[0]["train"]["hashes"] \
+                or t["losses"] != gloo[0]["train"]["losses"]:
+            raise AssertionError(f"18(c): rank {r['rank']} ended apart")
+        if t["launches"] != [10 * SPATIAL_TRAIN_STEPS,
+                             10 * SPATIAL_TRAIN_STEPS, 0]:
+            raise AssertionError(f"18(c): rank {r['rank']} launched "
+                                 f"{t['launches']}")
+    first, want = gloo[0]["train"]["losses"][0], one_train["losses"][0]
+    losses = gloo[0]["train"]["losses"] + one_train["losses"]
+    if not np.isfinite(losses).all() \
+            or abs(first - want) > PAR_FIRST_LOSS_RTOL * abs(want):
+        raise AssertionError(f"18(c): first loss {first!r} against one "
+                             f"process {want!r}")
+    print(f"18(c) point-sharded training, {SPATIAL_TRAIN_POINTS} points, "
+          f"B=1, {SPATIAL_TRAIN_STEPS} Adam steps: {PAR_WORLD} ranks "
+          f"bitwise equal, losses {gloo[0]['train']['losses']} against one "
+          f"process {one_train['losses']}; launches per rank "
+          f"{gloo[0]['train']['launches']}", flush=True)
+    disc_ckpt = gloo[0]["gan"]["disc"]["checkpoint"]
+    nccl = run_torchrun(1, {
+        "device": PAR_DEVICE, "backend": None,
+        "out": os.path.join(workdir, "spatial_nccl"), "gan": True,
+        "tree": tree, "generator": checkpoint, "discriminator": disc_ckpt},
+        "18(d) nccl", "--spatial-rank")
+    if nccl[0]["backend"] != "nccl":
+        raise AssertionError(f"18(d) ran over {nccl[0]['backend']}")
+    one_gan = gan_dp_runs(tree, os.path.join(workdir, "gan_one"), checkpoint,
+                          disc_ckpt, "--device", PAR_DEVICE)
+    out = {"serving_2_ranks": {
+        "seconds": inf["seconds"],
+        "points_per_s": SPATIAL_POINTS / inf["seconds"],
+        "max_abs_from_one_process": err, "gathers": inf["gathers"],
+        "gather_bytes": inf["gather_bytes"],
+        "gather_ms_level0_stem": inf["gather_ms_level0_stem"]},
+        "training": {"losses": gloo[0]["train"]["losses"],
+                     "one_process_losses": one_train["losses"]},
+        "gan_gloo": check_gan_dp("18(d) gloo", gloo, one_gan),
+        "gan_nccl": check_gan_dp("18(d) nccl", nccl, one_gan)}
+    launches = {
+        "spatial_serving_gloo_rank0": gloo[0]["infer"]["launches"],
+        "spatial_training_gloo_rank0": gloo[0]["train"]["launches"],
+        "disc_dp_gloo_rank0": gloo[0]["gan"]["disc"]["launches"],
+        "gan_dp_gloo_rank0": gloo[0]["gan"]["gan"]["launches"],
+        "disc_dp_nccl_rank0": nccl[0]["gan"]["disc"]["launches"],
+        "gan_dp_nccl_rank0": nccl[0]["gan"]["gan"]["launches"]}
+    return out, launches
+
+
 def run_part(name: str, ctx: dict, device, smi: str) -> dict:
     """The phases of part ``name`` of PARTS in this process, on a copy of
     ``ctx["tree"]`` (its meshes: the part processes its own clouds);
@@ -4662,6 +5216,21 @@ def run_part(name: str, ctx: dict, device, smi: str) -> dict:
                            write=SEG_SCANS, cut=SEG_HELD_OUT,
                            corner=SEG_CORNER)
                 phase_aggregations(device, workdir, tree, scans, smi)
+        elif name == "parallel":
+            # phase 8's tree without its caches: phase 16(d) trains on
+            # the original meanwhile
+            train_data = os.path.join(workdir, "train_data")
+            shutil.copytree(ctx["train_data"], train_data,
+                            ignore=shutil.ignore_patterns("processed_torch"))
+            with phase("data parallel"):
+                out["par"], out["par_launches"] = phase_parallel(
+                    load_config(CONFIG), device, workdir, train_data)
+            with phase("spatial parallel"):
+                out["spatial_par"], out["spatial_launches"] = \
+                    phase_spatial_parallel(
+                        device, workdir, ctx["l1_ckpt"],
+                        ctx["spatial_root"], train_data,
+                        np.load(ctx["spatial_offsets"]))
         elif name == "15k_seg":
             for key, title, fn in (("15k", "15k family", phase_15k),
                                    ("seg", "outlier segmentation",
@@ -4750,19 +5319,22 @@ def stop_parts(parts: dict) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     part = len(argv) == 3 and argv[0] == "--part" and argv[1] in PARTS
-    rank_job = len(argv) == 2 and argv[0] == "--parallel-rank"
+    rank_job = len(argv) == 2 and argv[0] in ("--parallel-rank",
+                                                "--spatial-rank")
     if not (part or rank_job) and argv not in (
             [], ["--only-kernels"], ["--only-aggregations"], ["--only-gan"],
-            ["--only-pcn"], ["--only-export"], ["--only-parallel"]):
+            ["--only-pcn"], ["--only-export"], ["--only-parallel"],
+            ["--only-spatial"]):
         print("usage: chip_smoke.py [--only-kernels | --only-aggregations "
-              "| --only-gan | --only-pcn | --only-export | --only-parallel]",
-              file=sys.stderr)
+              "| --only-gan | --only-pcn | --only-export | --only-parallel "
+              "| --only-spatial]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if rank_job:  # a rank of phase 17, started by torchrun
-        return parallel_rank(argv[1])
+    if rank_job:  # a rank of phase 17 or 18, started by torchrun
+        return (parallel_rank if argv[0] == "--parallel-rank"
+                else spatial_rank)(argv[1])
     with phase("device"):
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4834,6 +5406,22 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"parallel": par, "launches": par_launches}))
         return 0
+    if argv == ["--only-spatial"]:
+        # phase 18 alone, after phase 8's training (its checkpoint and tree)
+        with tempfile.TemporaryDirectory() as workdir, phase("spatial"):
+            with phase("training"):
+                phase_training(cfg, device, workdir)
+            ckpt = os.path.join(workdir, "log", cfg.experiment_name,
+                                "current.pt")
+            serving, offsets, root, kernels = phase_spatial_serving(
+                cfg, device, workdir, ckpt)
+            par, launches = phase_spatial_parallel(
+                device, workdir, ckpt, root,
+                os.path.join(workdir, "train_data"), offsets)
+        print(smi)
+        print(json.dumps({"spatial": dict(par, serving=serving),
+                          "kernels_level0": kernels, "launches": launches}))
+        return 0
     if argv == ["--only-export"]:
         # phase 16 alone, after phase 8's training and a short cleaning
         # training on a tree of its own
@@ -4869,7 +5457,8 @@ def main(argv=None) -> int:
     with phase("whole model"):
         phase_model(cfg, device)
     with tempfile.TemporaryDirectory() as workdir, phase("serving"):
-        serving_launches = phase_serving(cfg, device, workdir)
+        serving_launches, serving_pps = phase_serving(cfg, device,
+                                                      workdir)
     with phase("backward kernel vs plain"):
         bwd_record = phase_backward(cfg, device)
     with phase("whole-model gradients"):
@@ -4892,11 +5481,27 @@ def main(argv=None) -> int:
                 bf16_stem_15k(device, deploy_dir, tree))
         with phase("d_rel kernel vs plain"):  # 14(a)
             drel_record = phase_drel(device, tree, gen_ckpt)
+        l1_ckpt = os.path.join(train_dir, "log", cfg.experiment_name,
+                               "current.pt")
+        with phase("spatial serving"):  # 18(a), on an idle card
+            # phase 9's split of SPATIAL_SHAPE, its noisy cloud cached
+            assert DEPLOY_SHAPES == (SPATIAL_SHAPE,)
+            spatial_serving, spatial_offsets, spatial_root, \
+                spatial_kernels = phase_spatial_serving(
+                    cfg, device, deploy_dir, l1_ckpt, serving_pps,
+                    os.path.join(deploy_dir, "deploy"))
         partdir = os.path.join(deploy_dir, "parts")
         os.makedirs(partdir)
+        offsets_path = os.path.join(partdir, "spatial_offsets.npy")
+        np.save(offsets_path, spatial_offsets)
         started = time.perf_counter()
         parts = start_parts({"tree": tree, "gen_ckpt": gen_ckpt,
-                             "phase8_window": phase8_window}, partdir)
+                             "phase8_window": phase8_window,
+                             "train_data": os.path.join(train_dir,
+                                                        "train_data"),
+                             "l1_ckpt": l1_ckpt,
+                             "spatial_root": spatial_root,
+                             "spatial_offsets": offsets_path}, partdir)
         try:
             with phase("cleaning"):  # on phase 9's shape tree
                 cleaning = phase_cleaning(cfg, deploy_dir)
@@ -4908,11 +5513,6 @@ def main(argv=None) -> int:
                                  "current.pt"), os.path.join(
                         deploy_dir, "log_cleaning", CLEANING_CONFIG,
                         "current.pt"), os.path.join(train_dir, "train_data"))
-            with tempfile.TemporaryDirectory() as workdir, \
-                    phase("data parallel"):  # on phase 8's tree
-                par, par_launches = phase_parallel(
-                    cfg, device, workdir,
-                    os.path.join(train_dir, "train_data"))
             res = finish_parts(parts, started)
         finally:
             stop_parts(parts)
@@ -4920,13 +5520,20 @@ def main(argv=None) -> int:
     records_seg, path_seg = res["records_seg"], res["path_seg"]
     path_bf16, path_gan = res["path_bf16"], res["path_gan"]
     pcn_summary, path_pcn = res["pcn_summary"], res["path_pcn"]
+    par, par_launches = res["par"], res["par_launches"]
+    spatial_par, spatial_launches = res["spatial_par"], \
+        res["spatial_launches"]
     drel_record.update(profile=res["gan_profile"])
-    # launches: this slice's path (phase 17(a)'s rank 0; each rank
-    # launches as many); every path's in the detail
+    # launches: this slice's paths (18(a)'s spatial serving, 18(c)'s
+    # point-sharded training on rank 0, 18(d)'s data-parallel GAN on gloo
+    # rank 0; each rank launches as many); every path's in the detail
     ds_fwd, ds_bwd, _ = path_pcn["device_sampled_training"]
+    spatial_par["serving"] = spatial_serving
     record.update(
-        launches=par_launches["data_parallel_gloo_rank0"][0],
+        launches=spatial_serving["forward_launches"],
         launches_by_path={
+            "spatial_serving": spatial_serving["forward_launches"],
+            **{k: v[0] for k, v in spatial_launches.items()},
             **{k: v[0] for k, v in par_launches.items()},
             "export_serving": export_fwd,
             "device_sampled_training": ds_fwd, "pcn_training": 0,
@@ -4942,11 +5549,15 @@ def main(argv=None) -> int:
             "outlier_seg_training": path_seg["training"][0],
             "outlier_seg_eval": path_seg["eval"]},
         shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"],
+        spatial_level0=spatial_kernels["fwd"],
         pcn=pcn_summary, export=export_summary, data_parallel=par,
+        spatial=spatial_par,
         device_us_by_cuda_events=device_us.by_cuda_events)
     bwd_record.update(
-        launches=par_launches["data_parallel_gloo_rank0"][1],
+        launches=spatial_launches["spatial_training_gloo_rank0"][1],
         launches_by_path={
+            "spatial_serving": 0,
+            **{k: v[1] for k, v in spatial_launches.items()},
             **{k: v[1] for k, v in par_launches.items()},
             "export_serving": 0,
             "device_sampled_training": ds_bwd, "pcn_training": 0,
@@ -4959,7 +5570,8 @@ def main(argv=None) -> int:
             "15k_training": path_15k["training"][1], "15k_serving": 0,
             "outlier_seg_training": path_seg["training"][1],
             "outlier_seg_eval": 0},
-        shapes_15k=records_15k["bwd"], shapes_seg=records_seg["bwd"])
+        shapes_15k=records_15k["bwd"], shapes_seg=records_seg["bwd"],
+        spatial_level0=spatial_kernels["bwd"])
     # the bf16 forms: their slice's path (bf16 training with its resume,
     # and bf16 serving)
     bf16_records[0].update(
@@ -4971,8 +5583,9 @@ def main(argv=None) -> int:
         launches_by_path={"bf16_training": path_bf16["training"][1],
                           "bf16_serving": 0})
     drel_record.update(
-        launches=path_gan["gan_training"][2],
-        launches_by_path={"gan_training": path_gan["gan_training"][2],
+        launches=spatial_launches["gan_dp_gloo_rank0"][2],
+        launches_by_path={**{k: v[2] for k, v in spatial_launches.items()},
+                          "gan_training": path_gan["gan_training"][2],
                           "disc_pretraining": 0, "gan_serving": 0})
     print(smi)
     print(json.dumps({"kernels": [record, bwd_record] + bf16_records

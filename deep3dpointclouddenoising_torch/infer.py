@@ -67,12 +67,30 @@ cuts the patches on the card from the uploaded clouds
 (``data.device_sampler``, pads cycling real neighbours) and writes the
 predictions into one offsets tensor there, copied back once.  No routing.
 
+Whole-cloud denoising (``--spatial``, :func:`denoise_clouds_spatial`, the
+JAX package's ``denoise_clouds_spatial`` and ``scripts/infer.py``
+``--spatial``): each cloud, zero-padded to a multiple of 2048 points, goes
+through ONE U-Net forward of the point-sharded spatial model
+(``parallel/spatial.py``), at the trained patch scale's geometry with the
+subsample capacities grown with the cloud (n/4, n/16, n/32, n/128).  Each
+point gets one prediction from the whole shape's context in place of an
+average over patches.  Offset regression only, and neither routing nor
+``--device_voting``.  It runs in one process, or split over torchrun's
+ranks with ``--multihost [--dist_backend nccl|gloo]``; then the
+coordinator alone writes the PLY trees and prints the result line::
+
+    torchrun --nproc_per_node=2 -m deep3dpointclouddenoising_torch.infer \
+        --spatial --multihost --config_file C --data_root D --out_dir O \
+        --checkpoint P [--dist_backend gloo --device cuda:0]
+
 The repository holds no trained checkpoint: without ``--checkpoint`` the
 model's weights are initialised from ``--seed`` (and nothing is routed).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import os
 import time
 from collections import deque
@@ -89,6 +107,9 @@ from .data.offset_dataset import OffsetDataset, fourier_input_mapping
 from .evaluate import estimate_noise_sigma
 from .models import (build_complete_denoising, build_offset_regression,
                      build_offset_regression_PCN)
+from .parallel.dist import (coordinator_first, distributed_run,
+                            is_coordinator, local_device)
+from .parallel.spatial import build_spatial_forward, gather_points
 from .train.pcn import rotate_back
 from .utils.checkpoint import load_model_state
 from .utils.device import resolve_device
@@ -392,6 +413,52 @@ def denoise_clouds_device(predict_fn, dataset: OffsetDataset,
         predict_fn, dataset, batch_size, num_votes, device))
 
 
+def spatial_config(cfg: Config, n_pad: int) -> Config:
+    """``cfg`` for a whole cloud of ``n_pad`` slots: ``num_points`` the
+    padded size and the subsample capacities n/4, n/16, n/32, n/128 (the
+    reference's schedule); the geometry (radius, grid step, neighbour
+    counts) stays at the trained patch scale."""
+    out = copy.deepcopy(cfg)
+    out.num_points = n_pad
+    out.npoints = [max(n_pad // d, 1) for d in (4, 16, 32, 128)]
+    return out
+
+
+def denoise_clouds_spatial(state_dict: Dict[str, torch.Tensor], cfg: Config,
+                           dataset: OffsetDataset, device=None,
+                           size_bucket: int = 2048
+                           ) -> List[Dict[str, np.ndarray]]:
+    """Whole-cloud denoising in ONE point-sharded forward per cloud
+    (JAX ``denoise_clouds_spatial``, ``infer.py:773-829``).
+
+    Each cloud is zero-padded (mask 0) to a multiple of ``size_bucket``
+    and goes through the offset model of :func:`spatial_config` with the
+    weights ``state_dict`` (any patch-trained checkpoint's); inside a
+    process group each rank computes its point rows and every rank gets
+    the whole prediction.  A ``cfg.norm`` checkpoint sees the cloud over
+    ``f = in_radius / 100`` and its offsets times ``f``.  One model per
+    padded size, kept for the clouds after.  Returns :func:`denoise_clouds`'s
+    per-cloud results."""
+    f = float(cfg.in_radius) / 100.0 if cfg.norm else None
+    forwards: Dict[int, Callable] = {}
+    offsets = []
+    for shape in dataset.shapes:
+        n = len(shape.points)
+        n_pad = -(-n // size_bucket) * size_bucket
+        if n_pad not in forwards:
+            model, forwards[n_pad] = build_spatial_forward(
+                spatial_config(cfg, n_pad), "offset_regression", device)
+            model.load_state_dict(state_dict)
+        pts = np.zeros((1, n_pad, 3), np.float32)
+        pts[0, :n] = shape.points / f if f else shape.points
+        mask = np.zeros((1, n_pad), np.float32)
+        mask[0, :n] = 1.0
+        rows = forwards[n_pad](pts, mask, pts.copy())
+        pred = gather_points(rows, n_pad)[0, :n].cpu().numpy()
+        offsets.append(pred * f if f else pred)
+    return _results(dataset, offsets)
+
+
 def _cleaned(dataset: OffsetDataset, raw: List[np.ndarray],
              norm_factor: Optional[float]) -> List[Dict[str, np.ndarray]]:
     """Per cloud, from the vote-averaged (P, 4) predictions: the offsets
@@ -598,7 +665,7 @@ def run(config_file: str, data_root: str, out_dir: str,
         noise_level: Optional[float] = None,
         checkpoint_low: Optional[str] = "auto", route_sigma: float = 0.002,
         device_voting: bool = False, full_cleaning: bool = False,
-        pcn: bool = False) -> Dict:
+        pcn: bool = False, spatial: bool = False) -> Dict:
     """The command line's work: denoise every ``qualitative_test`` shape
     under ``data_root`` and write the PLY trees.
 
@@ -609,20 +676,41 @@ def run(config_file: str, data_root: str, out_dir: str,
     :func:`clean_clouds_device`), outputs left unscaled by the predictor.
     ``pcn``: the PointCleanNet baseline (:func:`denoise_clouds_pcn`, or
     :func:`denoise_clouds_pcn_device`), no routing.
+    ``spatial``: :func:`denoise_clouds_spatial`, offset regression only,
+    no routing; inside a process group the coordinator alone writes.
     Returns a summary: the dataset, the per-cloud results, the seconds the
     voting took, the low checkpoint, and per cloud the estimated sigma and
     whether it routed low (empty without routing)."""
     device = resolve_device(device)
+    if spatial and (device_voting or full_cleaning or pcn):
+        raise ValueError("--spatial denoises by offset regression in one "
+                         "forward per cloud: not with --device_voting, "
+                         "--full_cleaning or --pcn")
     cfg = load_config(config_file)
     if noise_type is not None:
         cfg.noise_type = noise_type
     if noise_level is not None:
         cfg.noise_level = noise_level
-    dataset = make_dataset(cfg, data_root,
-                           architecture="PCN" if pcn else "U-Net")
+    dataset = coordinator_first(lambda: make_dataset(
+        cfg, data_root, architecture="PCN" if pcn else "U-Net"), "dataset")
     print(f"weights: {checkpoint}" if checkpoint else
           f"weights: no checkpoint, initialised from --seed {seed}")
     batch_size = int(cfg.batch_size)
+    if spatial:
+        if checkpoint_low == "auto":
+            checkpoint_low = _auto_low_checkpoint(checkpoint) \
+                if checkpoint else None
+        if checkpoint_low not in (None, "none", ""):
+            raise ValueError("--checkpoint_low routes the voting paths "
+                             "only, not --spatial")
+        state = load_model(cfg, device, checkpoint, seed).state_dict()
+        t0 = time.perf_counter()
+        results = denoise_clouds_spatial(state, cfg, dataset, device)
+        seconds = time.perf_counter() - t0
+        if is_coordinator():
+            write_results(out_dir, dataset, results)
+        return {"dataset": dataset, "results": results, "seconds": seconds,
+                "checkpoint_low": None, "sigmas": [], "route_low": []}
     if pcn:
         model = load_model(cfg, device, checkpoint, seed, pcn=True)
         t0 = time.perf_counter()
@@ -719,21 +807,47 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                         "point, the ResPCPNet predicting its centre's "
                         "offset (with --device_voting the patches are cut "
                         "on the device)")
+    p.add_argument("--spatial", action="store_true",
+                   help="denoise each whole cloud in one forward with its "
+                        "point axis split over the ranks (one rank "
+                        "without --multihost) in place of patch voting; "
+                        "offset regression only")
+    p.add_argument("--multihost", action="store_true",
+                   help="with --spatial: join torchrun's process group "
+                        "(one process per card) and split each cloud's "
+                        "points over its ranks")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                   help="the process group's backend (default: nccl for "
+                        "cuda, gloo for cpu)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    summary = run(
-        args.config_file, args.data_root, args.out_dir, args.checkpoint,
-        args.num_votes, args.seed, args.device, args.noise_type,
-        args.noise_level, args.checkpoint_low, args.route_sigma,
-        args.device_voting, args.full_cleaning, args.pcn)
+    if args.spatial and (args.device_voting or args.full_cleaning
+                         or args.pcn):
+        p.error("--spatial is offset regression in one forward per cloud: "
+                "not with --device_voting, --full_cleaning or --pcn")
+    if args.multihost and not args.spatial:
+        p.error("--multihost splits a cloud's points over the ranks: "
+                "with --spatial only")
+    with distributed_run(args.device, args.dist_backend) \
+            if args.multihost else contextlib.nullcontext():
+        summary = run(
+            args.config_file, args.data_root, args.out_dir,
+            args.checkpoint, args.num_votes, args.seed,
+            local_device(args.device), args.noise_type, args.noise_level,
+            args.checkpoint_low, args.route_sigma, args.device_voting,
+            args.full_cleaning, args.pcn, args.spatial)
+        coordinator = is_coordinator()
+    if not coordinator:
+        return summary
     dataset, seconds = summary["dataset"], summary["seconds"]
     n_points = sum(len(s.points) for s in dataset.shapes)
+    how = "one spatial forward per cloud" if args.spatial else (
+        f"{len(dataset)} patches, {args.num_votes} vote rounds, "
+        f"{'device' if args.device_voting else 'host'} voting")
     print(f"denoised {len(summary['results'])} clouds ({n_points} points, "
-          f"{len(dataset)} patches, {args.num_votes} vote rounds, "
-          f"{'device' if args.device_voting else 'host'} voting) in "
-          f"{seconds:.3f} s = {n_points / seconds:.1f} points/s; wrote "
-          f"{args.out_dir}")
+          f"{how}) in {seconds:.3f} s = {n_points / seconds:.1f} points/s; "
+          f"wrote {args.out_dir}")
     if args.full_cleaning:
         removed = sum(int((~r["keep"]).sum()) for r in summary["results"])
         print(f"full cleaning removed {removed} of {n_points} points as "

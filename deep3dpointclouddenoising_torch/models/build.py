@@ -7,6 +7,12 @@ Counterpart of ``OffsetRegressionModel``, ``CompleteDenoisingModel``,
 encoder -> U-Net head, on padded ``(xyz, mask, features)`` batches.  The
 module names follow the Flax tree, so a Flax tree of any of them converts
 by ``convert.params_from_flax``.
+
+A model whose ``spatial`` is set (``parallel.spatial.build_spatial_model``)
+builds the point-sharded pyramid (each rank's query rows of every level,
+``parallel.dist.point_rows``), takes this rank's rows of the input
+features and returns this rank's rows of its output; its parameters and
+buffers are those of the plain model.
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..parallel.dist import point_rows
+from ..parallel.spatial import point_sharded_pyramid
 from .heads import DiscriminatorHead, MultiDimHead, SceneSegHead
 from .pyramid import Pyramid, build_pyramid
 from .resnet import ResNetEncoder
@@ -33,6 +41,7 @@ class PyramidModel(nn.Module):
     upsampling indices (not for a head without a decoder)."""
 
     build_up = True
+    spatial = False
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None):
@@ -50,7 +59,8 @@ class PyramidModel(nn.Module):
     def make_pyramid(self, xyz: torch.Tensor, mask: torch.Tensor
                      ) -> Pyramid:
         cfg = self.cfg
-        return build_pyramid(
+        build = point_sharded_pyramid if self.spatial else build_pyramid
+        return build(
             xyz, mask, radius=float(cfg.radius),
             sample_dl=float(cfg.sampleDl), nsamples=list(cfg.nsamples),
             npoints=list(cfg.npoints), build_self=int(cfg.depth) > 1,
@@ -63,6 +73,8 @@ class PyramidModel(nn.Module):
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
                 features: torch.Tensor) -> torch.Tensor:
         pyramid = self.make_pyramid(xyz, mask)
+        if self.spatial:
+            features = features[:, point_rows(features.shape[1])]
         return self.head(pyramid, self.ResNetEncoder_0(pyramid, features))
 
 

@@ -15,15 +15,20 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..ops.neighbors import gather_rows
+from ..parallel.dist import all_gather_points
 from .layers import (ChannelsLastBatchNorm, ConvBN, Dropout, compute_dtype,
                      dense, he_normal_, linear, masked_global_avg_pool)
 from .pyramid import Pyramid
 
 
-def nearest_upsample(coarse_features: torch.Tensor, up_idx: torch.Tensor
-                     ) -> torch.Tensor:
+def nearest_upsample(coarse_features: torch.Tensor, up_idx: torch.Tensor,
+                     coarse_size: Optional[int] = None) -> torch.Tensor:
     """(B, N_coarse, C), (B, N_fine) -> (B, N_fine, C): each fine point takes
-    its nearest coarse point's feature."""
+    its nearest coarse point's feature.  With ``coarse_size`` (the spatial
+    model) the coarse rows are this rank's, and every rank's are
+    all-gathered first."""
+    if coarse_size is not None:
+        coarse_features = all_gather_points(coarse_features, coarse_size)
     return gather_rows(coarse_features, up_idx)
 
 
@@ -48,7 +53,8 @@ class UNetDecoder(nn.Module):
         x = feats[-1]
         for step in range(4):
             lvl = 4 - step  # upsample level -> level-1
-            x = nearest_upsample(x, pyramid.transitions[lvl - 1].up_idx)
+            tr = pyramid.transitions[lvl - 1]
+            x = nearest_upsample(x, tr.up_idx, tr.coarse_size)
             x = torch.cat([x, feats[lvl - 1]], dim=-1)
             x = getattr(self, f"ConvBN_{step}")(x)
         return x  # (B, N, w/2) at input resolution

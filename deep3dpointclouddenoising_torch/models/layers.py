@@ -104,6 +104,11 @@ def dense(in_features: int, out_features: int, bias: bool = True,
     return layer
 
 
+def _local_mean(numerator: torch.Tensor, denominator: torch.Tensor
+                ) -> torch.Tensor:
+    return numerator / denominator
+
+
 class ChannelsLastBatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor, eps 1e-5, with
     Flax's statistics.
@@ -119,10 +124,18 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
 
     Inside a process group (``parallel/dist.py``) the train-mode mean and
     biased variance span every rank's slots, as JAX's statistics span the
-    global batch under its batch-sharded jit: two passes (the global mean,
+    global batch under its batch-sharded jit (or, in the point-sharded
+    spatial model, every point of the cloud): two passes (the global mean,
     then the global mean of the centred squares), each one all-reduce whose
     backward all-reduces the gradients.  The running statistics are updated
-    with those global values, so they stay equal on every rank."""
+    with those global values, so they stay equal on every rank.
+
+    One process on CPU tensors takes the same two passes without the
+    collectives, as Flax computes them: torch's CPU kernel rounds
+    otherwise, and at l1.yaml width 8 that moved one pre-activation
+    (-2.35e-6 in float64) to the other side of a ReLU
+    (``tests/test_torch_batchnorm.py``).  On CUDA tensors one process keeps ``F.batch_norm`` (one
+    kernel a call; it agrees with the two passes there)."""
 
     def __init__(self, channels: int, momentum: float = 0.1):
         super().__init__(channels, eps=1e-5, momentum=momentum)
@@ -134,7 +147,9 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
         x = x.reshape(-1, shape[-1]).to(
             torch.promote_types(x.dtype, self.weight.dtype))
         if self.training and is_distributed():
-            out = self._cross_rank(x)
+            out = self._two_pass(x, global_mean)
+        elif self.training and x.device.type == "cpu":
+            out = self._two_pass(x, _local_mean)
         elif self.training:
             n = x.shape[0]
             old_var = self.running_var.clone()
@@ -152,12 +167,14 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
                                self.weight, self.bias, False, 0.0, self.eps)
         return out.reshape(shape)
 
-    def _cross_rank(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over every rank's (n, C) slots."""
+    def _two_pass(self, x: torch.Tensor, mean_of) -> torch.Tensor:
+        """Train mode over the (n, C) slots by two passes, each sum over
+        its count through ``mean_of`` (:func:`global_mean` over every
+        rank's slots, or this process's alone)."""
         count = x.new_tensor(float(x.shape[0]))
-        mean = global_mean(torch.sum(x, dim=0), count)
+        mean = mean_of(torch.sum(x, dim=0), count)
         centred = x - mean
-        var = global_mean(torch.sum(centred * centred, dim=0), count)
+        var = mean_of(torch.sum(centred * centred, dim=0), count)
         out = centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
         with torch.no_grad():
             m = self.momentum

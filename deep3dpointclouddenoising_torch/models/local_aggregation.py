@@ -15,6 +15,14 @@ plain torch ops (no Pallas kernel in the JAX package either); under
 bfloat16 only their ``ConvBN``s compute in bfloat16, where JAX passes them
 ``compute_dtype``.
 
+In the point-sharded spatial model (``parallel/spatial.py``) a
+neighbourhood's queries are one rank's rows of a level and its indices
+name rows of the whole support level (``Neighborhood.support_size``):
+PseudoGrid then all-gathers the support features first
+(:func:`..parallel.spatial.kpconv_aggregate_sharded`, the JAX package's
+``shard_map`` route), and the other operators are refused, as the JAX
+package's ``shard_map`` route serves PseudoGrid alone.
+
 A max over the neighbours is ``amax``: padding slots cycle real
 neighbours, so it meets exact ties, and ``amax`` splits the gradient among
 them evenly, as ``jnp.max`` does (``torch.max(dim=)`` gives it all to one
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from ..config import Config
 from ..ops import group_features
 from ..ops.kpconv import kpconv_aggregate
+from ..parallel.spatial import kpconv_aggregate_sharded
 from .kernel_points import create_kernel_points
 from .layers import BNReLU, ConvBN, compute_dtype, dense
 from .pyramid import Neighborhood
@@ -125,10 +134,14 @@ class PseudoGrid(nn.Module):
                 query_mask: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is not None:
             support_features = support_features.to(self.compute_dtype)
-        out = kpconv_aggregate(
-            support_features.contiguous(), nbr.idx, nbr.rel_xyz,
-            _feature_mask(nbr, query_mask).contiguous(), self.kpoints,
-            self.kernel_weights, self.extent, self.influence)
+        args = (nbr.idx, nbr.rel_xyz,
+                _feature_mask(nbr, query_mask).contiguous(), self.kpoints,
+                self.kernel_weights, self.extent, self.influence)
+        if nbr.support_size is None:
+            out = kpconv_aggregate(support_features.contiguous(), *args)
+        else:
+            out = kpconv_aggregate_sharded(support_features,
+                                           nbr.support_size, *args)
         return getattr(self, self.post)(out)
 
 
@@ -303,4 +316,9 @@ class LocalAggregation(nn.Module):
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
+        if nbr.support_size is not None and self.op != "PseudoGrid_0":
+            raise NotImplementedError(
+                f"the point-sharded spatial model aggregates by PseudoGrid "
+                f"only; {self.op[:-2]} reads neighbour rows of other ranks "
+                "(the JAX package's shard_map route is PseudoGrid's alone)")
         return getattr(self, self.op)(support_features, nbr, query_mask)

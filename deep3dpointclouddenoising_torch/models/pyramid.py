@@ -10,10 +10,19 @@ voxel sizes double per level:
 * transition i-1 -> i: grid voxel ``dl0 * 2**i``, pool query radius
   ``r0 * 2**(i-1)`` with capacity ``nsamples[i-1]``;
 * decoder upsample i -> i-1: masked 1-NN.
+
+With ``rows`` (the point-sharded spatial forward, ``parallel/spatial.py``)
+every level's positions and mask are still built whole (the grid
+subsampling is deterministic, so every rank builds the same), but the
+pyramid keeps only this rank's query rows of each level, of each
+neighbourhood and of each upsample table, whose indices stay global
+indices into the whole support level; ``Neighborhood.support_size`` and
+``Transition.coarse_size`` then give the whole support's count, which the
+layers all-gather before they read support rows.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +40,9 @@ class Neighborhood(NamedTuple):
     mask: torch.Tensor      # (B, M, K) float {0,1}
     rel_xyz: torch.Tensor   # (B, M, K, 3) support - query positions
     radius: float           # query radius
+    # the whole support level's count when the queries are one rank's rows
+    # (the point-sharded spatial pyramid), else None
+    support_size: Optional[int] = None
 
 
 class Level(NamedTuple):
@@ -43,6 +55,9 @@ class Transition(NamedTuple):
     pool_nbr: Neighborhood  # query = coarse level, support = fine level
     up_idx: torch.Tensor    # (B, N_{i-1}) nearest coarse index per fine point
     up_mask: torch.Tensor   # (B, N_{i-1})
+    # the whole coarse level's count when the fine queries are one rank's
+    # rows (the point-sharded spatial pyramid), else None
+    coarse_size: Optional[int] = None
 
 
 class Pyramid(NamedTuple):
@@ -52,12 +67,14 @@ class Pyramid(NamedTuple):
 
 def _neighborhood(query_xyz, support_xyz, query_mask, support_mask,
                   radius: float, nsample: int,
-                  chunk_size: Optional[int]) -> Neighborhood:
+                  chunk_size: Optional[int],
+                  support_size: Optional[int] = None) -> Neighborhood:
     idx, msk = masked_ordered_ball_query(
         query_xyz, support_xyz, query_mask, support_mask,
         radius=radius, nsample=nsample, chunk_size=chunk_size)
     rel = group_xyz(support_xyz, query_xyz, idx).contiguous()
-    return Neighborhood(idx=idx, mask=msk, rel_xyz=rel, radius=radius)
+    return Neighborhood(idx=idx, mask=msk, rel_xyz=rel, radius=radius,
+                        support_size=support_size)
 
 
 def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
@@ -65,7 +82,8 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
                   nsamples: List[int], npoints: List[int],
                   build_self: bool = True,
                   build_up: bool = True,
-                  chunk_size: Optional[int] = None) -> Pyramid:
+                  chunk_size: Optional[int] = None,
+                  rows: Optional[Callable[[int], slice]] = None) -> Pyramid:
     """Build the geometry pyramid for one batch of padded clouds.
 
     Indices, masks and subsampled positions carry no gradient (the JAX
@@ -85,36 +103,56 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
       chunk_size: query chunk of every neighbour query (default: each
         query's own, sized by the support count); the result does not
         depend on it.
+      rows: this rank's query rows of a level of n points (the spatial
+        pyramid); each level, neighbourhood and upsample table then holds
+        those rows only, against the whole support level.
     """
     mask = mask.float()
+
+    def mine(x: torch.Tensor):
+        """(x's query rows, the support count to record)."""
+        if rows is None:
+            return x, None
+        return x[:, rows(x.shape[1])], x.shape[1]
+
+    q_xyz, size = mine(xyz)
+    q_mask, _ = mine(mask)
     levels: List[Level] = [
-        Level(xyz=xyz, mask=mask,
-              self_nbr=_neighborhood(xyz, xyz, mask, mask, radius,
-                                     nsamples[0], chunk_size))
+        Level(xyz=q_xyz, mask=q_mask,
+              self_nbr=_neighborhood(q_xyz, xyz, q_mask, mask, radius,
+                                     nsamples[0], chunk_size, size))
     ]
     transitions: List[Transition] = []
     cur_xyz, cur_mask = xyz, mask
+    cur_q_xyz, cur_q_mask = q_xyz, q_mask
     for i in range(1, len(npoints) + 1):
         dl = sample_dl * (2.0 ** i)
         pool_radius = radius * (2.0 ** (i - 1))
         sub_xyz, sub_mask = masked_grid_subsampling(
             cur_xyz, cur_mask, npoint=npoints[i - 1], sample_dl=dl)
-        pool_nbr = _neighborhood(sub_xyz, cur_xyz, sub_mask, cur_mask,
-                                 pool_radius, nsamples[i - 1], chunk_size)
+        sub_q_xyz, sub_size = mine(sub_xyz)
+        sub_q_mask, _ = mine(sub_mask)
+        pool_nbr = _neighborhood(sub_q_xyz, cur_xyz, sub_q_mask, cur_mask,
+                                 pool_radius, nsamples[i - 1], chunk_size,
+                                 size)
         if build_up:
             up_idx, up_mask = masked_nearest_query(
-                cur_xyz, sub_xyz, cur_mask, sub_mask, chunk_size=chunk_size)
+                cur_q_xyz, sub_xyz, cur_q_mask, sub_mask,
+                chunk_size=chunk_size)
         else:
-            up_idx = torch.zeros(cur_xyz.shape[:2], dtype=torch.int32,
+            up_idx = torch.zeros(cur_q_xyz.shape[:2], dtype=torch.int32,
                                  device=xyz.device)
-            up_mask = cur_mask
+            up_mask = cur_q_mask
         self_nbr = None
         if build_self:
-            self_nbr = _neighborhood(sub_xyz, sub_xyz, sub_mask, sub_mask,
-                                     radius * (2.0 ** i), nsamples[i],
-                                     chunk_size)
-        levels.append(Level(xyz=sub_xyz, mask=sub_mask, self_nbr=self_nbr))
+            self_nbr = _neighborhood(sub_q_xyz, sub_xyz, sub_q_mask,
+                                     sub_mask, radius * (2.0 ** i),
+                                     nsamples[i], chunk_size, sub_size)
+        levels.append(Level(xyz=sub_q_xyz, mask=sub_q_mask,
+                            self_nbr=self_nbr))
         transitions.append(Transition(pool_nbr=pool_nbr, up_idx=up_idx,
-                                      up_mask=up_mask))
+                                      up_mask=up_mask,
+                                      coarse_size=sub_size))
         cur_xyz, cur_mask = sub_xyz, sub_mask
+        cur_q_xyz, cur_q_mask, size = sub_q_xyz, sub_q_mask, sub_size
     return Pyramid(levels=tuple(levels), transitions=tuple(transitions))

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops import group_features
+from ..parallel.dist import all_gather_points
 from .layers import ConvBN, compute_dtype
 from .local_aggregation import LocalAggregation
 from .pyramid import Neighborhood, Pyramid
@@ -33,7 +34,10 @@ def masked_max_pool(features: torch.Tensor, nbr: Neighborhood
                     ) -> torch.Tensor:
     """Strided max-pool: fine features gathered at the coarse queries'
     neighbours, max over the neighbourhood (padding slots cycle real
-    neighbours, so no mask is needed)."""
+    neighbours, so no mask is needed).  In the spatial model the fine
+    rows of every rank are all-gathered first."""
+    if nbr.support_size is not None:
+        features = all_gather_points(features, nbr.support_size)
     return group_features(features, nbr.idx).amax(dim=2)
 
 

@@ -16,7 +16,11 @@ equals the one-process step on the global batch:
 * :func:`global_mean` is the mean over every rank's numerators and
   denominators (BatchNorm's statistics);
 * :func:`global_sum` sums a value over the ranks outside autograd (a loss's
-  denominator, a loss to report).
+  denominator, a loss to report);
+* :func:`all_gather_points` joins every rank's rows of a point axis into
+  the whole axis, and its backward gives each rank the sum over the ranks
+  of the gradient to its own rows (the point-sharded spatial forward,
+  ``parallel/spatial.py``); :func:`point_rows` names each rank's rows.
 
 A loss is then each rank's *share*: its own numerator over the global
 denominator, so that the shares sum to the global loss, and the gradients
@@ -259,3 +263,77 @@ def replicated_share(x: torch.Tensor) -> torch.Tensor:
     global terms): ``x / W`` inside a group, so the shares sum to ``x``;
     ``x`` itself outside one."""
     return x / world_size() if is_distributed() else x
+
+
+def point_rows(n: int, rank_: Optional[int] = None,
+               world: Optional[int] = None) -> slice:
+    """This rank's contiguous rows of a point axis of ``n`` points: blocks
+    of ``ceil(n / W)`` in rank order, the last ones shorter or empty where
+    W does not divide ``n`` (GSPMD's split of a padded axis); ``rank_`` and
+    ``world`` default to the process group's."""
+    world = world_size() if world is None else world
+    rank_ = rank() if rank_ is None else rank_
+    per = -(-n // world)
+    return slice(min(rank_ * per, n), min((rank_ + 1) * per, n))
+
+
+class _AllGatherPoints(torch.autograd.Function):
+    """Every rank's rows of axis 1 joined in rank order; the backward sums
+    the ranks' gradients to this rank's rows, in rank order."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, n: int) -> torch.Tensor:
+        world, r = world_size(), rank()
+        per = -(-n // world)
+        rows = [point_rows(n, q, world) for q in range(world)]
+        if x.shape[1] != rows[r].stop - rows[r].start:
+            raise ValueError(f"all_gather_points: rank {r} holds "
+                             f"{x.shape[1]} rows of {n}, not "
+                             f"{rows[r].stop - rows[r].start}")
+        ctx.n, ctx.rows = n, rows
+        padded = x.new_zeros((x.shape[0], per) + tuple(x.shape[2:]))
+        padded[:, :x.shape[1]] = x
+        parts = [torch.empty_like(padded) for _ in range(world)]
+        dist.all_gather(parts, padded)
+        _record_gather(padded)
+        return torch.cat([p[:, :sl.stop - sl.start]
+                          for p, sl in zip(parts, rows)], dim=1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous()
+        parts = [torch.empty_like(grad) for _ in range(world_size())]
+        dist.all_gather(parts, grad)
+        mine = ctx.rows[rank()]
+        out = parts[0][:, mine].clone()
+        for p in parts[1:]:
+            out += p[:, mine]
+        return out, None
+
+
+def _record_gather(padded: torch.Tensor) -> None:
+    all_gather_points.calls += 1
+    all_gather_points.bytes += padded.numel() * padded.element_size() \
+        * world_size()
+
+
+def all_gather_points(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n_r, ...) rows of this rank (:func:`point_rows` of ``n``) ->
+    (B, n, ...) the whole point axis, every rank's rows in rank order:
+    one ``all_gather`` of the rows padded to ``ceil(n / W)``, trimmed
+    after.  Its gradient is, on each rank, the sum over the ranks of the
+    gradient to this rank's rows, added in rank order (a reduce-scatter
+    written as an ``all_gather``, which gloo also has), so every rank's
+    result is the same bits.  ``x`` itself outside a group.
+    ``all_gather_points.calls`` and ``.bytes`` count the forward gathers
+    and the bytes they bring in (every rank's padded rows)."""
+    if not is_distributed():
+        if x.shape[1] != n:
+            raise ValueError(f"all_gather_points: {x.shape[1]} rows of {n} "
+                             "outside a process group")
+        return x
+    return _AllGatherPoints.apply(x, n)
+
+
+all_gather_points.calls = 0
+all_gather_points.bytes = 0

@@ -117,18 +117,21 @@ _CLIS = {
         "Outlier-segmentation training on labelled scans on one card, or "
         "data-parallel over torchrun's processes (--multihost)."),
     "gan": ("python -m deep3dpointclouddenoising_torch.train_gan",
-            "Adversarial fine-tuning of the offset model on one card."),
+            "Adversarial fine-tuning of the offset model on one card, or "
+            "data-parallel over torchrun's processes (--multihost)."),
     "discriminator": (
         "python -m deep3dpointclouddenoising_torch.train_discriminator",
         "Discriminator pre-training (clean against raw noisy) on one "
-        "card."),
+        "card, or data-parallel over torchrun's processes "
+        "(--multihost)."),
     "pcn": ("python -m deep3dpointclouddenoising_torch.train_pcn",
             "PointCleanNet-baseline (ResPCPNet) training on one card."),
 }
 
 
 # the trainers that run data-parallel under --multihost
-DATA_PARALLEL = ("offset", "full_cleaning", "segmentation")
+DATA_PARALLEL = ("offset", "full_cleaning", "segmentation", "gan",
+                 "discriminator")
 
 
 def parse_args(argv: Optional[List[str]] = None,
@@ -368,6 +371,15 @@ def fit(cfg, log_dir: str, device: torch.device, train_ds, val_ds,
                     profile_dir, logger, writer)
 
 
+def log_data_parallel(logger, rows: slice, batch_size: int) -> None:
+    """In a process group, the line naming this rank and its rows."""
+    if is_distributed():
+        logger.info(f"data parallel: rank {rank()} of {world_size()} "
+                    f"({torch.distributed.get_backend()}), rows "
+                    f"{rows.start}-{rows.stop - 1} of each global batch "
+                    f"of {batch_size}")
+
+
 def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
          load_weights_path, auto_resume, sampler, profile_dir, logger,
          writer) -> Dict[str, Any]:
@@ -381,11 +393,7 @@ def _fit(cfg, log_dir, device, train_ds, val_ds, loss_mode, norm_factor,
     logger.info(f"device {device}; train patches {len(train_ds)} "
                 f"({len(train_loader)} steps per epoch), val patches "
                 f"{len(val_ds)}")
-    if is_distributed():
-        logger.info(f"data parallel: rank {rank()} of {world} "
-                    f"({torch.distributed.get_backend()}), rows "
-                    f"{rows.start}-{rows.stop - 1} of each global batch "
-                    f"of {batch_size}")
+    log_data_parallel(logger, rows, batch_size)
     if sampler is not None:
         logger.info("device sampler: the training clouds are on the card, "
                     "each step's patches are cut there")

@@ -1,10 +1,17 @@
-"""Adversarial fine-tuning and discriminator pre-training on one card.
+"""Adversarial fine-tuning and discriminator pre-training, on one card or
+data-parallel.
 
 Counterpart of ``deep3dpointclouddenoising_tpu/train/gan.py``'s
 ``GANTrainer``: ``init_states`` (:118-136), the joint update ``_update``
 (:161-220), ``_pretrain_step`` (:258-278) and ``_pretrain_accuracy``
-(:295-305).  Its scan-chunked dispatch and device mesh are TPU mechanisms
-and have no counterpart here.
+(:295-305).  JAX's ``data`` mesh (:44-103, ``shard_batch`` :105) is a
+process group here, as for ``train.trainer.Trainer``: inside one each rank
+holds its ``process_slice`` of the global batch, both models train under
+``DistributedDataParallel`` with the summing hook, their BatchNorms take
+statistics over every rank's rows, every binary cross-entropy and the task
+loss are this rank's share of the global batch's (``losses/masked.py``),
+and the metrics are the global batch's.  The scan-chunked dispatch has no
+counterpart here.
 
 * D-step: the discriminator sees ``concat(clean, fake)``, ``clean =
   points + offsets`` and ``fake = points + G(points)`` (the generator in
@@ -25,7 +32,9 @@ The random draws of update ``s`` (the label flips, and the D-step's or a
 pre-training step's dropout masks) come from generators seeded by
 ``(cfg.rng_seed, s)`` (:func:`step_generator`), with ``s`` the
 discriminator's update count, so a resumed run draws what an unbroken run
-draws.  The tests feed both packages JAX's draws instead.
+draws.  They are drawn for the global batch and each rank takes its rows,
+so W ranks draw what one process on the global batch draws.  The tests
+feed both packages JAX's draws instead.
 """
 from __future__ import annotations
 
@@ -35,13 +44,16 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
 from ..losses.build import get_offset_regression_loss
 from ..losses.masked import masked_binary_cross_entropy
 from ..models import build_discriminator, build_offset_regression
+from ..parallel.dist import (global_sum, is_distributed, process_slice,
+                             world_size)
 from ..utils.device import resolve_device
-from .trainer import ChainedOptimizer, make_optimizer
+from .trainer import ChainedOptimizer, _sum_hook, make_optimizer
 
 REAL_LABEL = 1.0
 FAKE_LABEL = 1.0 - REAL_LABEL
@@ -92,6 +104,19 @@ def out_of_autograd(model: nn.Module) -> Iterator[None]:
             p.requires_grad_(flag)
 
 
+def data_parallel(model: nn.Module, device: torch.device) -> nn.Module:
+    """``model`` under ``DistributedDataParallel`` with :func:`_sum_hook`
+    inside a process group (``broadcast_buffers=False``: the cross-rank
+    BatchNorm keeps the statistics equal), else ``model``."""
+    if not is_distributed():
+        return model
+    wrapped = DistributedDataParallel(
+        model, device_ids=None if device.type == "cpu" else [device],
+        broadcast_buffers=False)
+    wrapped.register_comm_hook(None, _sum_hook)
+    return wrapped
+
+
 class Block:
     """A model with its optimizer, the unit that a checkpoint holds
     (``utils.checkpoint`` reads ``model``, ``optimizer`` and ``step``)."""
@@ -114,7 +139,12 @@ class GANTrainer:
     config's offset loss), ``loss(pred, offsets, mask, points)``.  The
     adversarial weight is ``cfg.gan_alpha``.  ``batch`` is a dict of numpy
     arrays (or tensors) with ``points``, ``mask``, ``features`` and
-    ``offsets``, as the offset dataset's ``collate`` makes them.
+    ``offsets``, as the offset dataset's ``collate`` makes them; inside a
+    process group, this rank's rows of the global batch.  The models
+    train through :func:`data_parallel`; ``generator`` and
+    ``discriminator`` stay the modules themselves, so checkpoints keep
+    their names across world sizes.  The SGD LR counts the world size, as
+    JAX's (:68-69).
     """
 
     def __init__(self, cfg: Config, n_iter_per_epoch: int,
@@ -131,10 +161,13 @@ class GANTrainer:
         self.freeze_generator = freeze_generator
         self.alpha = float(getattr(cfg, "gan_alpha", ALPHA))
         self.seed = int(cfg.rng_seed)
+        self._train_g = data_parallel(self.generator, self.device)
+        self._train_d = data_parallel(self.discriminator, self.device)
         opt_g, self.lr_g = make_optimizer(cfg, self.generator.parameters(),
-                                          n_iter_per_epoch)
+                                          n_iter_per_epoch, world_size())
         opt_d, self.lr_d = make_optimizer(
-            cfg, self.discriminator.parameters(), n_iter_per_epoch)
+            cfg, self.discriminator.parameters(), n_iter_per_epoch,
+            world_size())
         self.blocks = {"generator": Block(self.generator, opt_g),
                        "discriminator": Block(self.discriminator, opt_d)}
 
@@ -172,32 +205,55 @@ class GANTrainer:
             (points, mask, features, offsets)
 
     def _disc(self, points: torch.Tensor, mask: torch.Tensor,
-              dropout: Optional[torch.Generator] = None,
-              keep_masks: Optional[Sequence[torch.Tensor]] = None
-              ) -> torch.Tensor:
-        """The discriminator's (B,) probabilities; its features are the
-        points themselves."""
-        return self.discriminator(points, mask, points, dropout,
-                                  keep_masks).reshape(-1)
+              keep_masks: Optional[Sequence[torch.Tensor]] = None,
+              model: Optional[nn.Module] = None) -> torch.Tensor:
+        """The discriminator's (B,) probabilities (through ``model``, the
+        module itself by default); its features are the points
+        themselves."""
+        model = self.discriminator if model is None else model
+        return model(points, mask, points, None, keep_masks).reshape(-1)
+
+    def dropout_masks(self, generator: torch.Generator, b: int
+                      ) -> List[torch.Tensor]:
+        """The D-step's three dropout keep-masks for this rank's ``b``
+        clean and ``b`` other clouds: each ``torch.rand((2 B, width),
+        generator) >= rate`` over the global batch (``B = b * W``, the
+        clean clouds first, as one process draws them in the head's
+        Dropouts), cut to this rank's clean rows and then its other
+        rows."""
+        head = self.discriminator.DiscriminatorHead_0._PooledMLPHead_0
+        world = world_size()
+        mine = process_slice(b * world)
+        rows = torch.cat([torch.arange(mine.start, mine.stop),
+                          b * world + torch.arange(mine.start, mine.stop)])
+        return [(torch.rand((2 * b * world, getattr(head, f"Dense_{i}")
+                             .out_features), generator=generator)
+                 >= getattr(head, f"Dropout_{i}").rate)[rows]
+                for i in range(3)]
 
     def _disc_train_step(self, pts2, mask2, labels2, scale: float,
                          keep_masks):
         """One train-mode step of the discriminator under ``BCE * scale``;
-        returns its output and the loss, without gradient."""
+        returns its output and the global batch's loss, without
+        gradient."""
         d = self.blocks["discriminator"]
         self.discriminator.train()
-        dropout = None if keep_masks is not None else step_generator(
-            self.seed, self.step, DROPOUT_STREAM)
-        out = self._disc(pts2, mask2, dropout, keep_masks)
+        if keep_masks is None:
+            keep_masks = self.dropout_masks(step_generator(
+                self.seed, self.step, DROPOUT_STREAM), len(pts2) // 2)
+        out = self._disc(pts2, mask2, keep_masks, self._train_d)
         loss = bce(out, labels2) * scale
         d.optimizer.zero_grad()
         loss.backward()
         d.optimizer.step()
-        return out.detach(), loss.detach()
+        return out.detach(), global_sum(loss.detach())
 
     @staticmethod
     def _accuracy(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        return 1.0 - torch.mean(torch.abs((out > 0.5).float() - labels))
+        """The accuracy at 0.5 over the global batch."""
+        wrong = global_sum(torch.sum(torch.abs((out > 0.5).float()
+                                               - labels)))
+        return 1.0 - wrong / global_sum(out.new_tensor(float(out.numel())))
 
     def update(self, batch: Batch, flip: Optional[torch.Tensor] = None,
                keep_masks: Optional[Sequence[torch.Tensor]] = None
@@ -206,12 +262,15 @@ class GANTrainer:
         ``METRICS`` as device scalars, without waiting for them.
 
         ``flip`` (B,) bool marks the G-step's flipped labels and
-        ``keep_masks`` the D-step's three dropout keep-masks; by default
-        both are drawn from :func:`step_generator` at this update."""
+        ``keep_masks`` the D-step's three dropout keep-masks (this rank's
+        rows); by default both are drawn from :func:`step_generator` at
+        this update for the global batch, and cut to this rank's rows."""
         step = self.step
         if flip is None:
-            flip = torch.rand(len(batch["points"]), generator=step_generator(
-                self.seed, step, FLIP_STREAM)) < LABEL_FLIP_P
+            b = len(batch["points"])
+            flip = (torch.rand(b * world_size(), generator=step_generator(
+                self.seed, step, FLIP_STREAM)) < LABEL_FLIP_P)[
+                    process_slice(b * world_size())]
         pts2, mask2, labels2, (points, mask, features, offsets) = \
             self._pairs(batch, fake=True)
         d_out, err_d = self._disc_train_step(pts2, mask2, labels2,
@@ -227,7 +286,8 @@ class GANTrainer:
                 (kept_batch_stats(self.generator) if frozen
                  else contextlib.nullcontext()), \
                 torch.set_grad_enabled(not frozen):
-            pred = self.generator(points, mask, features)
+            pred = (self.generator if frozen else self._train_g)(
+                points, mask, features)
             err_g1 = bce(self._disc(points + pred, mask), g_labels)
             err_g2 = self.gen_loss(pred, offsets, mask, points)
             err_g = err_g1 * self.alpha + err_g2
@@ -236,14 +296,16 @@ class GANTrainer:
                 err_g.backward()
                 g.optimizer.step()
         return {"disc_accuracy": d_acc, "err_d": err_d,
-                "err_g1": err_g1.detach(), "err_g2": err_g2.detach(),
-                "err_g": err_g.detach()}
+                "err_g1": global_sum(err_g1.detach()),
+                "err_g2": global_sum(err_g2.detach()),
+                "err_g": global_sum(err_g.detach())}
 
     def pretrain_step(self, batch: Batch,
                       keep_masks: Optional[Sequence[torch.Tensor]] = None
                       ) -> torch.Tensor:
         """One pre-training step of the discriminator (clean against raw
-        noisy, unscaled BCE); returns the loss on the device.
+        noisy, unscaled BCE); returns the global batch's loss on the
+        device.
         ``keep_masks`` as for :meth:`update`."""
         pts2, mask2, labels2, _ = self._pairs(batch, fake=False)
         return self._disc_train_step(pts2, mask2, labels2, 1.0,

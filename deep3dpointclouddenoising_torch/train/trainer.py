@@ -7,8 +7,10 @@ predict steps (:73-367).  JAX's 1-D ``data`` mesh is a process group here
 one the Trainer wraps its model in ``DistributedDataParallel``, each rank
 steps on its rows of the global batch, and a step of W ranks equals the
 one-process step on the global batch, as JAX's sharded jit equals its
-one-device jit.  The point-sharded path and the scan-chunked dispatch have
-no counterpart here.
+one-device jit.  With ``spatial=True`` (JAX's ``Trainer(spatial=True)``,
+:91-96,119-121) the ranks split each cloud's point axis instead of the
+batch (``parallel/spatial.py``).  The scan-chunked dispatch has no
+counterpart here.
 
 The optimizer applies optax's order: clip the gradients to their global
 norm, add ``weight_decay * param`` (sgd, adam), then Adam or SGD momentum
@@ -17,6 +19,7 @@ norm, add ``weight_decay * param`` (sgd, adam), then Adam or SGD momentum
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -30,7 +33,9 @@ from ..losses.build import (get_complete_denoising_loss,
 from ..losses.masked import masked_cross_entropy
 from ..models import (build_complete_denoising, build_offset_regression,
                       build_scene_segmentation)
-from ..parallel.dist import global_sum, is_distributed, world_size
+from ..parallel.dist import (global_sum, is_distributed, point_rows,
+                             world_size)
+from ..parallel.spatial import build_spatial_model
 from ..utils.device import resolve_device
 from .lr_schedule import Schedule, get_lr_schedule
 
@@ -130,6 +135,30 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter],
 
 Batch = Dict[str, np.ndarray]
 
+# the spatial model of each loss mode
+SPATIAL_KINDS = {"offset": "offset_regression",
+                 "full_cleaning": "complete_denoising",
+                 "segmentation": "scene_segmentation"}
+
+
+def _check_spatial(cfg: Config, loss_mode: str,
+                   loss_fn: Optional[Callable]) -> None:
+    """Refuse what point-sharded training cannot do: a loss that is not
+    pointwise (the Chamfer losses read the whole cloud) and a job of
+    several hosts (torchrun's ``LOCAL_WORLD_SIZE`` below its
+    ``WORLD_SIZE``)."""
+    if loss_mode == "offset" and loss_fn is None and cfg.loss != "L1":
+        raise NotImplementedError(
+            f"point-sharded training takes pointwise losses; {cfg.loss} "
+            "reads the whole cloud")
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if is_distributed() and local is not None \
+            and int(local) < world_size():
+        raise NotImplementedError(
+            "point-sharded training splits one cloud over the cards of one "
+            "host; this job spans several (LOCAL_WORLD_SIZE "
+            f"{local} < WORLD_SIZE {world_size()})")
+
 
 class Trainer:
     """A model, its loss and its optimizer on one device, or on each rank
@@ -160,27 +189,45 @@ class Trainer:
     checkpoints keep their names across world sizes.  The losses that
     :meth:`train_step` and :meth:`eval_step` return are the global
     batch's, on every rank.
+
+    ``spatial=True`` is point-sharded training (JAX's
+    ``Trainer(spatial=True)``): every rank is given the whole batch, the
+    model is ``parallel.spatial.build_spatial_model``'s, and each rank
+    takes its ``point_rows`` of every cloud's point axis, not rows of the
+    batch.  The cross-rank BatchNorm then spans every point, the losses'
+    global denominators make the ranks' shares sum to the whole clouds'
+    loss and DDP's :func:`_sum_hook` sums the gradients; the LR counts a
+    world of 1 (JAX :120).  The losses must be pointwise (the Chamfer
+    losses read the whole cloud).  As in JAX (:226-229), a job that spans
+    several hosts is refused.
     """
 
     def __init__(self, cfg: Config, n_iter_per_epoch: int,
                  generator: Optional[torch.Generator] = None, device=None,
                  loss_fn: Optional[Callable] = None,
-                 loss_mode: str = "offset"):
+                 loss_mode: str = "offset", spatial: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loss_mode = loss_mode
+        self.spatial = spatial
         if loss_mode == "offset":
-            model = build_offset_regression(cfg, generator)
+            build = build_offset_regression
             default_loss = get_offset_regression_loss(cfg.loss)
         elif loss_mode == "full_cleaning":
-            model = build_complete_denoising(cfg, generator)
+            build = build_complete_denoising
             default_loss = get_complete_denoising_loss(
                 cfg.loss, float(cfg.in_radius))
         elif loss_mode == "segmentation":
-            model = build_scene_segmentation(cfg, generator)
+            build = build_scene_segmentation
             default_loss = masked_cross_entropy
         else:
             raise ValueError(f"loss_mode {loss_mode!r} is not ported")
+        if spatial:
+            _check_spatial(cfg, loss_mode, loss_fn)
+            model = build_spatial_model(cfg, SPATIAL_KINDS[loss_mode],
+                                        generator)
+        else:
+            model = build(cfg, generator)
         self.model = model.to(self.device)
         self._train_model = self.model
         if is_distributed():
@@ -190,7 +237,8 @@ class Trainer:
             self._train_model.register_comm_hook(None, _sum_hook)
         self.loss_fn = loss_fn or default_loss
         self.optimizer, self.lr_schedule = make_optimizer(
-            cfg, self.model.parameters(), n_iter_per_epoch, world_size())
+            cfg, self.model.parameters(), n_iter_per_epoch,
+            1 if spatial else world_size())
 
     @property
     def step(self) -> int:
@@ -208,13 +256,17 @@ class Trainer:
         points, mask, features = self._inputs(batch, "points", "mask",
                                               "features")
         pred = model(points, mask, features)
+        rows = point_rows(points.shape[1]) if self.spatial \
+            else slice(None)
+        points, mask = points[:, rows], mask[:, rows]
         if self.loss_mode == "segmentation":
             labels, = self._inputs(batch, "labels")
-            return self.loss_fn(pred, labels, mask)
+            return self.loss_fn(pred, labels[:, rows], mask)
         offsets, = self._inputs(batch, "offsets")
+        offsets = offsets[:, rows]
         if self.loss_mode == "full_cleaning":
             labels, = self._inputs(batch, "labels")
-            return self.loss_fn(pred, offsets, labels, mask)
+            return self.loss_fn(pred, offsets, labels[:, rows], mask)
         return self.loss_fn(pred, offsets, mask, points)
 
     def train_step(self, batch: Batch) -> torch.Tensor:
@@ -234,6 +286,8 @@ class Trainer:
             return global_sum(self._loss(batch, self.model))
 
     def predict(self, batch: Batch) -> torch.Tensor:
+        """The model's eval-mode output (this rank's point rows of it when
+        ``spatial``)."""
         self.model.eval()
         with torch.no_grad():
             points, mask, features = self._inputs(batch, "points", "mask",

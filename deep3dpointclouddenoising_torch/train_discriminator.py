@@ -1,4 +1,5 @@
-"""Discriminator pre-training on one card: clean against raw noisy clouds.
+"""Discriminator pre-training on one card, or data-parallel over
+torchrun's processes: clean against raw noisy clouds.
 
 Counterpart of ``scripts/train_discriminator.py``: the discriminator
 learns to tell clean patches (points plus their true offsets) from the raw
@@ -13,6 +14,10 @@ validation accuracy at the 0.5 threshold over the ``val`` split every
         --log_dir L [--num_steps S] [--epochs E] [--device cuda] \\
         [--auto_resume] [--load_path P [--start_epoch E0]]
 
+    torchrun --nproc_per_node=<cards> -m \\
+        deep3dpointclouddenoising_torch.train_discriminator --multihost \\
+        [--dist_backend nccl|gloo] ...the same flags...
+
 Checkpoints go to ``L/<experiment_name>/current.pt`` and
 ``ckpt_epoch_<E>.pt``, which ``train_gan --load_path_discriminator``
 reads.  ``--load_path P`` restores P's whole train state, else
@@ -21,6 +26,13 @@ does (``train.__main__.restore_run``).  The printed lines also go to
 ``L/<experiment_name>/log.txt``, and each epoch appends ``train/loss`` and
 ``val/accuracy`` (step = the epoch) to ``metrics.jsonl`` there, as the JAX
 script writes them.
+
+``--multihost`` runs data-parallel as the train entry point does
+(``train/__main__.py``): ``--batch_size`` stays the global batch, each
+rank assembles its ``process_slice`` of every batch (the validation
+loader drops a ragged last batch), the coordinator builds the datasets'
+caches first and writes the logs and checkpoints alone, and the losses
+and accuracies are the global batch's.
 """
 from __future__ import annotations
 
@@ -31,8 +43,9 @@ import torch
 
 from .data.loader import BatchLoader
 from .train import __main__ as _train_cli
+from .parallel.dist import (coordinator_first, host_barrier, rank,
+                            world_size)
 from .train.gan import GANTrainer
-from .utils.device import resolve_device
 from .utils.logger import run_logs
 from .utils.metrics import AverageMeter
 
@@ -42,30 +55,37 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     accuracies, ms per step of each epoch (host clock), the step count,
     the last checkpoint, what was restored and the trainer."""
     args = _train_cli.parse_args(argv, "discriminator")
-    device = resolve_device(args.device)
-    cfg = _train_cli.load_run_config(args)
-    train_ds = _train_cli.offset_dataset(cfg, "train", int(cfg.epochs))
-    val_ds = _train_cli.offset_dataset(cfg, "val", 1)
-    run = _train_cli.run_dir(cfg, args.log_dir)
-    with run_logs(run) as (logger, writer):
-        return _pretrain(cfg, args, device, train_ds, val_ds, run, logger,
-                         writer)
+    with _train_cli.run_device(args) as device:
+        cfg = _train_cli.load_run_config(args)
+        train_ds, val_ds = coordinator_first(lambda: (
+            _train_cli.offset_dataset(cfg, "train", int(cfg.epochs)),
+            _train_cli.offset_dataset(cfg, "val", 1)), "datasets")
+        run = _train_cli.run_dir(cfg, args.log_dir)
+        with run_logs(run) as (logger, writer):
+            return _pretrain(cfg, args, device, train_ds, val_ds, run,
+                             logger, writer)
 
 
 def _pretrain(cfg, args, device, train_ds, val_ds, run, logger,
               writer) -> Dict[str, Any]:
     batch_size = int(cfg.batch_size)
-    loader = BatchLoader(train_ds, batch_size, drop_last=True)
-    val_loader = BatchLoader(val_ds, batch_size)
+    rows = _train_cli.process_slice(batch_size)  # raises unless it splits
+    world = world_size()
+    loader = BatchLoader(train_ds, batch_size, drop_last=True, rank=rank(),
+                         world=world)
+    val_loader = BatchLoader(val_ds, batch_size, drop_last=world > 1,
+                             rank=rank(), world=world)
     logger.info(f"device {device}; train patches {len(train_ds)} "
                 f"({len(loader)} steps per epoch), val patches "
                 f"{len(val_ds)}")
+    _train_cli.log_data_parallel(logger, rows, batch_size)
     trainer = GANTrainer(cfg, len(loader),
                          torch.Generator().manual_seed(int(cfg.rng_seed)),
                          device)
     block = trainer.blocks["discriminator"]
     restored = _train_cli.restore_run(block, cfg, run, len(loader),
                                       auto_resume=args.auto_resume)
+    host_barrier("startup")
     summary: Dict[str, Any] = {"train_losses": [], "val_accuracy": [],
                                "ms_per_step": [], "val_batches": 0,
                                "restored": restored}
@@ -95,7 +115,8 @@ def _pretrain(cfg, args, device, train_ds, val_ds, run, logger,
         logger.info(f"epoch {epoch}: {steps} steps, loss {meter.avg:.6f}, "
                     f"{ms:.3f} ms per step (host clock, data loading "
                     f"included)")
-        writer.add_scalar("train/loss", meter.avg, epoch)
+        if writer is not None:  # the coordinator's
+            writer.add_scalar("train/loss", meter.avg, epoch)
         if epoch % int(cfg.val_freq) == 0:
             acc = AverageMeter()
             accs = [(trainer.pretrain_accuracy(b), len(b["points"]))
@@ -105,12 +126,14 @@ def _pretrain(cfg, args, device, train_ds, val_ds, run, logger,
             summary["val_batches"] += len(accs)
             summary["val_accuracy"].append(acc.avg)
             logger.info(f"val [{epoch}] accuracy {acc.avg:.4f}")
-            writer.add_scalar("val/accuracy", acc.avg, epoch)
+            if writer is not None:
+                writer.add_scalar("val/accuracy", acc.avg, epoch)
         checkpoint = _train_cli.save_epoch(run, block, epoch, cfg)
     summary.update(steps=trainer.step, checkpoint=checkpoint,
                    trainer=trainer)
     logger.info(f"trained {trainer.step} discriminator steps; checkpoint "
                 f"{checkpoint}")
+    host_barrier("shutdown")
     return summary
 
 

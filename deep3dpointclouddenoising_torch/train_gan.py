@@ -1,4 +1,5 @@
-"""Adversarial fine-tuning of the offset model on one card.
+"""Adversarial fine-tuning of the offset model on one card, or
+data-parallel over torchrun's processes.
 
 Counterpart of ``scripts/train_gan.py``: the generator (the offset U-Net)
 and the discriminator (the ResNet encoder and the discriminator head)
@@ -10,6 +11,10 @@ checkpoints written per epoch::
         --config_file cfgs/synthetic_quality_gan_tuned.yaml --data_root D \\
         --log_dir L [--load_path_generator G] [--load_path_discriminator P] \\
         [--num_steps S] [--epochs E] [--device cuda] [--auto_resume]
+
+    torchrun --nproc_per_node=<cards> -m \\
+        deep3dpointclouddenoising_torch.train_gan --multihost \\
+        [--dist_backend nccl|gloo] ...the same flags...
 
 Checkpoints go to ``L/<experiment_name>/generator/`` and
 ``.../discriminator/``, each ``current.pt`` (every epoch) and
@@ -29,6 +34,14 @@ every ``print_freq`` updates.  The printed lines also go to
 ``L/<experiment_name>/log.txt``, and each epoch appends ``train/<metric>``
 (each metric's average, step = the epoch) to ``metrics.jsonl`` there, as the
 JAX script writes them.
+
+``--multihost`` runs data-parallel as the train entry point does
+(``train/__main__.py``): ``--batch_size`` stays the global batch, each
+rank assembles its ``process_slice`` of every batch, the coordinator
+builds the dataset's cache first, writes ``log.txt``, ``metrics.jsonl``
+and both blocks' checkpoints alone, and every rank restores what it found
+(``--auto_resume``); an update of W ranks equals the one-process update on
+the global batch (``train.gan.GANTrainer``).
 """
 from __future__ import annotations
 
@@ -41,10 +54,11 @@ import torch
 from .data.loader import BatchLoader
 from .data.transforms import build_train_transforms
 from .train import __main__ as _train_cli
+from .parallel.dist import (coordinator_first, coordinator_value,
+                            host_barrier, rank, world_size)
 from .train.gan import METRICS, GANTrainer
 from .utils.checkpoint import (load_checkpoint, load_weights,
                                resume_checkpoint)
-from .utils.device import resolve_device
 from .utils.logger import get_logger, run_logs
 from .utils.metrics import AverageMeter
 
@@ -56,12 +70,15 @@ def restore_gan(trainer: GANTrainer, cfg, run: str, steps_per_epoch: int,
     """With ``auto_resume`` and a checkpoint under ``run/generator``, both
     blocks' whole train state (``cfg.start_epoch`` set from the
     discriminator's step); else the weights of ``load_path_*``.  Returns
-    what each block read."""
+    what each block read.  In a process group every rank restores the
+    files the coordinator found."""
     restored: Dict[str, Optional[str]] = {k: None for k in trainer.blocks}
     logger = get_logger()
-    if auto_resume and resume_checkpoint(os.path.join(run, "generator")):
+    found = coordinator_value({name: resume_checkpoint(os.path.join(
+        run, name)) for name in trainer.blocks}) if auto_resume else {}
+    if found.get("generator"):
         for name, block in trainer.blocks.items():
-            path = resume_checkpoint(os.path.join(run, name))
+            path = found[name]
             if path is None:
                 raise FileNotFoundError(f"--auto_resume: {run}/generator "
                                         f"has a checkpoint, {run}/{name} "
@@ -86,26 +103,33 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     update of each epoch (host clock), the update count, both blocks'
     last checkpoints, what was restored and the trainer."""
     args = _train_cli.parse_args(argv, "gan")
-    device = resolve_device(args.device)
-    cfg = _train_cli.load_run_config(args)
-    train_ds = _train_cli.offset_dataset(cfg, "train", int(cfg.epochs),
-                                         build_train_transforms(cfg))
-    run = _train_cli.run_dir(cfg, args.log_dir)
-    with run_logs(run) as (logger, writer):
-        return _fine_tune(cfg, args, device, train_ds, run, logger, writer)
+    with _train_cli.run_device(args) as device:
+        cfg = _train_cli.load_run_config(args)
+        train_ds = coordinator_first(lambda: _train_cli.offset_dataset(
+            cfg, "train", int(cfg.epochs), build_train_transforms(cfg)),
+            "datasets")
+        run = _train_cli.run_dir(cfg, args.log_dir)
+        with run_logs(run) as (logger, writer):
+            return _fine_tune(cfg, args, device, train_ds, run, logger,
+                              writer)
 
 
 def _fine_tune(cfg, args, device, train_ds, run, logger,
                writer) -> Dict[str, Any]:
-    loader = BatchLoader(train_ds, int(cfg.batch_size), drop_last=True)
+    batch_size = int(cfg.batch_size)
+    rows = _train_cli.process_slice(batch_size)  # raises unless it splits
+    loader = BatchLoader(train_ds, batch_size, drop_last=True, rank=rank(),
+                         world=world_size())
     logger.info(f"device {device}; train patches {len(train_ds)} "
                 f"({len(loader)} updates per epoch)")
+    _train_cli.log_data_parallel(logger, rows, batch_size)
     trainer = GANTrainer(cfg, len(loader),
                          torch.Generator().manual_seed(int(cfg.rng_seed)),
                          device, freeze_generator=bool(cfg.freeze_gen))
     restored = restore_gan(trainer, cfg, run, len(loader),
                            args.load_path_generator,
                            args.load_path_discriminator, args.auto_resume)
+    host_barrier("startup")
     summary: Dict[str, Any] = {"metrics": {k: [] for k in METRICS},
                                "ms_per_update": [], "restored": restored}
     checkpoints: Dict[str, str] = {}
@@ -139,7 +163,8 @@ def _fine_tune(cfg, args, device, train_ds, run, logger,
                     + f", {ms:.3f} ms per update (host clock, data loading "
                     "included)")
         for k, m in meters.items():
-            writer.add_scalar(f"train/{k}", m.avg, epoch)
+            if writer is not None:  # the coordinator's
+                writer.add_scalar(f"train/{k}", m.avg, epoch)
         for name, block in trainer.blocks.items():
             checkpoints[name] = _train_cli.save_epoch(
                 os.path.join(run, name), block, epoch, cfg)
@@ -147,6 +172,7 @@ def _fine_tune(cfg, args, device, train_ds, run, logger,
                    trainer=trainer)
     logger.info(f"trained {trainer.step} GAN updates; checkpoints "
                 f"{checkpoints}")
+    host_barrier("shutdown")
     return summary
 
 

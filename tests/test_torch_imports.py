@@ -45,7 +45,8 @@ def test_port_has_every_module_of_the_slice():
                  "train_full_cleaning", "train.gan", "train_gan",
                  "train_discriminator", "models.pcpnet", "train.pcn",
                  "train_pcn", "serving", "export_model", "utils.logger",
-                 "utils.profiling", "parallel", "parallel.dist"):
+                 "utils.profiling", "parallel", "parallel.dist",
+                 "parallel.spatial"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
