@@ -250,6 +250,32 @@ eighteen phases (phase 9b after 9), each printed with its wall time:
    process: ranks bitwise equal, the first losses within
    PAR_FIRST_LOSS_RTOL, 40 forward, 30 backward and 3 ``kpconv_bwd_drel``
    launches per update on each rank.
+19. the 2-D layout, the ``custom_cfgs`` sweep and the classification and
+   part-segmentation heads (this slice's paths): (a) in the second part
+   after 12, one torchrun job of MESH2D_DATA x MESH2D_POINTS gloo ranks
+   sharing the card (each ``chip_smoke.py --mesh2d-rank``;
+   ``make_mesh_2d``) from phase 8's checkpoint on MESH2D_BATCH clouds of
+   SPATIAL_TRAIN_POINTS points: the 2-D forward within MODEL_TOL of one
+   process's, MESH2D_STEPS Adam steps of ``Trainer(spatial="2d")`` with
+   the ranks bitwise equal and the first loss within PAR_FIRST_LOSS_RTOL
+   of one process's, per rank 10 forward launches a forward and 10
+   forward and 10 backward a step, its wall and device ms a step, its
+   all-gathers' count, bytes and ms; (b) in the first part after 13,
+   ``run_custom_sweep`` on SWEEP_CONFIGS at width 144 and 15,000-point
+   patches, one epoch of SWEEP_STEPS steps on scans of SWEEP_SCAN_POINTS
+   points written first, the test scans cut at SEG_CORNER (each of its
+   processes ``chip_smoke.py
+   --sweep-child``, which counts the launches): every metric finite, the
+   PseudoGrid config 10 forward and 10 backward launches a step and 10
+   forward a validation and evaluation batch, the PosPool config none,
+   the seconds per config and the table; (c) in the second part after
+   (a),
+   ``ClassificationModel`` (HEADS_CLASSES classes) and
+   ``MultiPartSegmentationModel`` (SHAPENET_PARTS) at width 144, B=16,
+   N=500: the eval forward and one train step's gradients on the card
+   against the CPU's plain computation of the same weights by
+   ``grad_check``'s rules, 10 and 10/10 launches, one SGD step, ms per
+   forward and per step.
 
 9b. bf16 (this slice's path), after phase 9 and on its shape tree:
    ``cfgs/synthetic_quality_diverse_bf16.yaml`` (``compute_dtype:
@@ -279,10 +305,11 @@ eighteen phases (phase 9b after 9), each printed with its wall time:
    same checkpoint; then device ms per train step (profiler) in bf16 and
    in float32 from the same weights.
 
-Phases 1-9, 9b(a), 14(a) and 18(a) run first, one after another.  Then
-five processes run the rest at once: this one runs 10 and then 16, and
-four started with ``--part`` run 13, then 11 and 12, then 9b(b-d),
-14(b-e) and 15, then 17 and 18(b-d).  Each of the first three works on a
+Phases 1-8, phase 9's trainings, 9b(a), 14(a) and 18(a) run first, one
+after another.  Then five processes run the rest at once: this one runs
+10, 16 and phase 9's voting, and four started with ``--part`` run 13 and
+19(b), then 11, 12, 19(a) and 19(c), then 9b(b-d), 14(b-e) and 15, then
+17 and 18(b-d).  Each of the first three works on a
 copy of phase 9's meshes and uses phase 9's generator; the fourth works
 on a copy of phase 8's tree.  Their output is printed when they end, and
 they are killed if this process fails.  So the kernels' times of the
@@ -306,7 +333,8 @@ alone (on a shape tree of its own) and prints the phase's numbers.
 its own and a cleaning checkpoint trained as phase 10 trains it) and prints
 the phase's numbers; ``--only-parallel`` runs phases 1, 2 and 17;
 ``--only-spatial`` runs phases 1, 2, 8 and 18 and prints the phase's
-numbers.
+numbers; ``--only-mesh2d`` runs phases 1, 2, 8 and 19 and prints the
+phase's numbers.
 
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
 15k stem call on random neighbourhoods) and prints the kernels' JSON
@@ -320,6 +348,7 @@ import contextlib
 import copy
 import gc
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -338,8 +367,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from deep3dpointclouddenoising_torch import compute_cd, \
     evaluate_outlier_seg, export_model, infer, make_synthetic_dataset, \
-    measure_performance, train_discriminator, train_full_cleaning, \
-    train_gan, train_outlier_seg, train_pcn
+    measure_performance, run_custom_sweep, train_discriminator, \
+    train_full_cleaning, train_gan, train_outlier_seg, train_pcn
 from deep3dpointclouddenoising_torch.config import load_config
 from deep3dpointclouddenoising_torch.data.device_sampler import (
     DeviceSampler, sample_generator, torch_draws)
@@ -359,11 +388,13 @@ from deep3dpointclouddenoising_torch.losses import chamfer
 from deep3dpointclouddenoising_torch.losses.build import \
     get_offset_regression_loss
 from deep3dpointclouddenoising_torch.losses.masked import (
-    masked_cross_entropy, masked_l1_loss)
+    label_smoothing_cross_entropy, masked_cross_entropy, masked_l1_loss,
+    multi_shape_cross_entropy)
 from deep3dpointclouddenoising_torch.models import layers as model_layers
 from deep3dpointclouddenoising_torch.models import local_aggregation
 from deep3dpointclouddenoising_torch.models.build import (
-    build_discriminator, build_offset_regression, build_offset_regression_PCN,
+    build_classification, build_discriminator, build_multi_part_segmentation,
+    build_offset_regression, build_offset_regression_PCN,
     build_scene_segmentation)
 from deep3dpointclouddenoising_torch.models.kernel_points import \
     create_kernel_points
@@ -374,10 +405,10 @@ from deep3dpointclouddenoising_torch.ops.kpconv import (
     invert_neighbors_plain, kpconv_aggregate, kpconv_aggregate_backward,
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
 from deep3dpointclouddenoising_torch.parallel.dist import (
-    all_gather_points, initialize_distributed, local_device, point_rows,
-    process_slice, shutdown_distributed, world_size)
-from deep3dpointclouddenoising_torch.parallel.spatial import \
-    build_spatial_model
+    all_gather_points, initialize_distributed, local_device, make_mesh_2d,
+    point_rows, process_slice, shutdown_distributed, world_size)
+from deep3dpointclouddenoising_torch.parallel.spatial import (
+    build_spatial_forward, build_spatial_model, gather_points)
 from deep3dpointclouddenoising_torch.parallel.dist import rank as dist_rank
 from deep3dpointclouddenoising_torch.profile_serving import \
     _device_events, profile_train_steps, window_summary
@@ -552,14 +583,16 @@ EXPORT_LEVEL = 0.005
 # (d)'s traced training: epochs and steps per epoch (the first traced)
 TRACE_EPOCHS = 2
 TRACE_STEPS = 3
-# the default run's phases after 9, 9b(a), 14(a) and 18(a) go in five
-# processes at once: this one (10, then 16), and four started with
+# the default run's phases after 9's trainings, 9b(a), 14(a) and 18(a) go
+# in five processes at once: this one (10, 16, then 9's voting), and four
+# started with
 # ``--part`` (name: torch CPU threads, phases), each on a copy of phase 9's
 # shape tree without its caches ("parallel" on a copy of phase 8's tree);
 # the kernels' times of the result line are taken before they start, on a
 # card nothing else uses; a part still running PART_LIMIT_S after it
 # started is killed and fails the run
-PARTS = {"aggregations": (3, "13"), "15k_seg": (2, "11, 12"),
+PARTS = {"aggregations": (3, "13, 19(b)"),
+         "15k_seg": (2, "11, 12, 19(a), 19(c)"),
          "bf16_gan_pcn": (2, "9b(b-d), 14(b-e), 15"),
          "parallel": (1, "17, 18(b-d)")}
 PART_LIMIT_S = 900
@@ -593,6 +626,26 @@ SPATIAL_TRAIN_POINTS = 16384
 SPATIAL_TRAIN_STEPS = 2
 SPATIAL_GAN_STEPS = 2
 SPATIAL_SEED = 18
+# phase 19 (the 2-D layout, the custom_cfgs sweep, the classification and
+# part-segmentation heads): (a) MESH2D_DATA x MESH2D_POINTS gloo ranks
+# sharing the card, MESH2D_BATCH clouds of SPATIAL_TRAIN_POINTS points,
+# MESH2D_STEPS Adam steps; (b) run_custom_sweep on SWEEP_CONFIGS (name,
+# whether it aggregates by the KPConv kernels), one epoch of SWEEP_STEPS
+# steps on 14 scans of SWEEP_SCAN_POINTS points; (c) HEADS_CLASSES
+# classes (ModelNet40's count) and SHAPENET_PARTS (ShapeNet-Part's 16
+# classes, 50 parts)
+MESH2D_DATA, MESH2D_POINTS = 2, 2
+MESH2D_BATCH = 2
+MESH2D_STEPS = 2
+SWEEP_CONFIGS = (("pseudogrid_intensity_katz_1_std_3.30", True),
+                 ("pospool_katz_1_std_3.30", False))
+SWEEP_STEPS = 4
+# the EDFS test scans, cut at SEG_CORNER: the voting evaluation's patches
+# (one per occupied 0.5-voxel) of whole scans would be ~2,000 a scan
+SWEEP_HELD_OUT = (11, 12, 13)
+SWEEP_SCAN_POINTS = 12000
+HEADS_CLASSES = 40
+SHAPENET_PARTS = (4, 2, 2, 4, 4, 3, 3, 2, 4, 2, 6, 2, 3, 3, 3, 3)
 FRESH_LOAD = r"""
 import json, sys, time
 import numpy as np
@@ -1494,6 +1547,15 @@ def phase_deployment(cfg, workdir):
     """This slice's path: shape tree, two short trainings, routed voting on
     host and device, the Chamfer and performance tables; returns the
     forward and backward kernel launches in it."""
+    fwd, bwd = deploy_training(cfg, workdir)
+    f, b = deploy_voting(workdir)
+    return fwd + f, bwd + b
+
+
+def deploy_training(cfg, workdir):
+    """Phase 9's shape tree, its two short trainings and its split
+    (:func:`deploy_split`); returns their forward and backward
+    launches."""
     tree = os.path.join(workdir, "shapes")
     make_synthetic_dataset.write_tree(tree, verbose=False)
     log_dir = os.path.join(workdir, "log")
@@ -1501,7 +1563,17 @@ def phase_deployment(cfg, workdir):
     for config in DEPLOY_CONFIGS:
         f, b, _ = train_short(config, tree, log_dir, cfg)
         fwd, bwd = fwd + f, bwd + b
-    deploy_root = deploy_split(tree, workdir)
+    deploy_split(tree, workdir)
+    return fwd, bwd
+
+
+def deploy_voting(workdir):
+    """Phase 9's routed voting on host and device from the checkpoints of
+    :func:`deploy_training`, the Chamfer and performance tables; returns
+    the forward and backward launches."""
+    log_dir = os.path.join(workdir, "log")
+    deploy_root = os.path.join(workdir, "deploy")
+    fwd = bwd = 0
     config = os.path.join(ROOT, "cfgs", DEPLOY_CONFIGS[0] + ".yaml")
     batch = int(load_config(config).batch_size)
     ckpt = os.path.join(log_dir, DEPLOY_CONFIGS[0], "current.pt")
@@ -3828,18 +3900,19 @@ def pcn_run(argv, kill_at_step=None):
     return summary
 
 
-def profile_window(label, step_fn, steps: int):
-    """Wall ms per call of ``step_fn`` (10 calls, synchronised), then a
-    profiler window of ``steps`` calls: device ms per call, busy share
-    and kernels per call.  Returns them as a dict."""
+def profile_window(label, step_fn, steps: int, timed: int = 10):
+    """Wall ms per call of ``step_fn`` (``timed`` calls after two,
+    synchronised), then a profiler window of ``steps`` calls: device ms
+    per call, busy share and kernels per call.  Returns them as a
+    dict."""
     for _ in range(2):
         step_fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(timed):
         step_fn()
     torch.cuda.synchronize()
-    out = {"wall_ms": (time.perf_counter() - t0) / 10 * 1e3}
+    out = {"wall_ms": (time.perf_counter() - t0) / timed * 1e3}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4999,17 +5072,19 @@ def gan_dp_runs(tree: str, log_dir: str, generator: str,
                            for name, b in gan["trainer"].blocks.items()}}}
 
 
-def allgather_ms(n: int, channels: int, device, iters: int = 5) -> float:
+def allgather_ms(n: int, channels: int, device, group=None,
+                 iters: int = 5) -> float:
     """Host ms per ``all_gather_points`` of this rank's rows of an
-    (1, n, channels) float32 level over the process group (synchronised
-    after ``iters`` calls)."""
-    x = torch.ones(1, len(range(n)[point_rows(n)]), channels, device=device)
+    (1, n, channels) float32 level over ``group`` (the process group for
+    ``None``), synchronised after ``iters`` calls."""
+    x = torch.ones(1, len(range(n)[point_rows(n, group=group)]), channels,
+                   device=device)
     for _ in range(2):
-        all_gather_points(x, n)
+        all_gather_points(x, n, group)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for _ in range(iters):
-        all_gather_points(x, n)
+        all_gather_points(x, n, group)
     torch.cuda.synchronize(device)
     return (time.perf_counter() - t0) / iters * 1e3
 
@@ -5199,6 +5274,416 @@ def phase_spatial_parallel(device, workdir, checkpoint, data_root, tree,
     return out, launches
 
 
+def mesh2d_batch() -> dict:
+    """19(a)'s global batch: MESH2D_BATCH whole clouds of
+    SPATIAL_TRAIN_POINTS points (:func:`spatial_train_batch` from
+    consecutive seeds)."""
+    clouds = [spatial_train_batch(seed=SPATIAL_SEED + i)
+              for i in range(MESH2D_BATCH)]
+    return {k: np.concatenate([c[k] for c in clouds]) for k in clouds[0]}
+
+
+def mesh2d_config():
+    """l1.yaml at width 144 for a whole cloud of SPATIAL_TRAIN_POINTS
+    slots, batch MESH2D_BATCH."""
+    cfg = infer.spatial_config(load_config(CONFIG), SPATIAL_TRAIN_POINTS)
+    cfg.batch_size = MESH2D_BATCH
+    return cfg
+
+
+def mesh2d_training(device, checkpoint: str, mesh=None) -> dict:
+    """MESH2D_STEPS Adam steps of the l1.yaml Trainer from ``checkpoint``'s
+    weights on :func:`mesh2d_batch`: with ``mesh`` ``Trainer(spatial="2d")``
+    on this rank's data rows, else one process on the whole batch; the
+    losses, launches, all-gathers and the end state's hashes, and the
+    trainer with its batch."""
+    cfg = mesh2d_config()
+    tt = Trainer(cfg, 10, torch.Generator().manual_seed(int(cfg.rng_seed)),
+                 device, spatial="2d" if mesh else False, mesh=mesh)
+    tt.model.load_state_dict(load_model_state(checkpoint))
+    batch = mesh2d_batch()
+    if mesh:
+        batch = {k: v[mesh.batch_rows(MESH2D_BATCH)] for k, v in
+                 batch.items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    reset_launches()
+    all_gather_points.calls = all_gather_points.bytes = 0
+    losses = [tt.train_step(batch).item() for _ in range(MESH2D_STEPS)]
+    return {"losses": losses, "launches": list(launch_counts()),
+            "gathers": all_gather_points.calls,
+            "gather_bytes": all_gather_points.bytes,
+            "hashes": state_hashes(tt.model.state_dict()),
+            "lr0": tt.lr_schedule(0)}, tt, batch
+
+
+def mesh2d_rank(spec_path: str) -> int:
+    """One rank of 19(a), started by torchrun: the 2-D layout
+    (``make_mesh_2d``), the eval forward of :func:`mesh2d_batch` from
+    ``spec["checkpoint"]`` (this rank's data rows gathered over its points
+    group, saved; its launches and all-gathers), :func:`mesh2d_training`
+    with the layout, then a profiler window of 2-D steps and the
+    all-gather's time at the stem's level-0 rows within the points group.
+    Writes its record to ``<out>/rank<r>.json``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    initialize_distributed(spec["device"], "gloo")
+    try:
+        r = dist_rank()
+        mesh = make_mesh_2d(MESH2D_DATA, MESH2D_POINTS)
+        device = local_device(spec["device"])
+        torch.cuda.set_device(device)
+        out = {"rank": r, "world": world_size(),
+               "place": [mesh.data_index, mesh.points_index],
+               "backend": torch.distributed.get_backend()}
+        model, forward = build_spatial_forward(mesh2d_config(),
+                                               device=device, mesh=mesh)
+        model.load_state_dict(load_model_state(spec["checkpoint"]))
+        whole = mesh2d_batch()
+        reset_launches()
+        all_gather_points.calls = all_gather_points.bytes = 0
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        rows = forward(whole["points"], whole["mask"], whole["features"])
+        torch.cuda.synchronize(device)
+        out["forward"] = {"seconds": time.perf_counter() - t0,
+                          "launches": list(launch_counts()),
+                          "gathers": all_gather_points.calls,
+                          "gather_bytes": all_gather_points.bytes}
+        np.save(os.path.join(spec["out"], f"forward{r}.npy"), gather_points(
+            rows, SPATIAL_TRAIN_POINTS, mesh.points_group).cpu().numpy())
+        del model, forward, rows
+        out["train"], trainer, batch = mesh2d_training(
+            device, spec["checkpoint"], mesh)
+        out["window"] = profile_window(
+            f"rank {r} 2-D step", lambda: trainer.train_step(batch), 2,
+            timed=2)
+        out["gather_ms_level0_stem"] = allgather_ms(
+            SPATIAL_TRAIN_POINTS, int(load_config(CONFIG).width) // 2,
+            device, mesh.points_group)
+        with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def phase_mesh2d(device, workdir, checkpoint) -> tuple:
+    """19(a): one torchrun job of MESH2D_DATA x MESH2D_POINTS gloo ranks
+    sharing the card (each ``chip_smoke.py --mesh2d-rank``), from
+    ``checkpoint`` (phase 8's): the 2-D forward of :func:`mesh2d_batch`
+    within MODEL_TOL of one process's, 10 forward launches per rank;
+    MESH2D_STEPS Adam steps of ``Trainer(spatial="2d")``, the ranks
+    bitwise equal, the first loss within PAR_FIRST_LOSS_RTOL of one
+    process's on the whole batch, 10 forward and 10 backward launches per
+    step per rank.  Returns the phase's numbers and its launches by
+    path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_torchrun(MESH2D_DATA * MESH2D_POINTS, {
+        "device": f"{PAR_DEVICE}:0", "backend": "gloo",
+        "out": os.path.join(workdir, "mesh2d"), "checkpoint": checkpoint},
+        "19(a) 2-D layout", "--mesh2d-rank")
+    plain = build_offset_regression(mesh2d_config()).to(device).eval()
+    plain.load_state_dict(load_model_state(checkpoint))
+    whole = {k: torch.from_numpy(v).to(device)
+             for k, v in mesh2d_batch().items()}
+    with torch.no_grad():
+        want = plain(whole["points"], whole["mask"], whole["features"])
+    del plain
+    err = 0.0
+    for r in ranks:
+        d, p = r["place"]
+        if (d, p) != divmod(r["rank"], MESH2D_POINTS):
+            raise AssertionError(f"19(a): rank {r['rank']} at {(d, p)}")
+        got = torch.from_numpy(np.load(os.path.join(
+            workdir, "mesh2d", f"forward{r['rank']}.npy")))
+        rows = process_slice(MESH2D_BATCH, d, MESH2D_DATA)
+        e, _ = check_close(got, want[rows].cpu(),
+                           what=f"19(a) rank {r['rank']}'s 2-D forward "
+                           "against one process", **MODEL_TOL)
+        err = max(err, e)
+        if r["forward"]["launches"] != [10, 0, 0]:
+            raise AssertionError(f"19(a): rank {r['rank']}'s forward "
+                                 f"launched {r['forward']['launches']}")
+        t = r["train"]
+        if t["hashes"] != ranks[0]["train"]["hashes"] \
+                or t["losses"] != ranks[0]["train"]["losses"]:
+            raise AssertionError(f"19(a): rank {r['rank']} ended apart")
+        if t["launches"] != [10 * MESH2D_STEPS, 10 * MESH2D_STEPS, 0]:
+            raise AssertionError(f"19(a): rank {r['rank']}'s steps "
+                                 f"launched {t['launches']}")
+    one, _, _ = mesh2d_training(device, checkpoint)
+    t = ranks[0]["train"]
+    if t["lr0"] != one["lr0"]:  # Adam: the world does not scale the LR
+        raise AssertionError(f"19(a): LR {t['lr0']} against {one['lr0']}")
+    first, want_first = t["losses"][0], one["losses"][0]
+    if not np.isfinite(t["losses"] + one["losses"]).all() \
+            or abs(first - want_first) > PAR_FIRST_LOSS_RTOL * abs(
+                want_first):
+        raise AssertionError(f"19(a): first loss {first!r} against one "
+                             f"process {want_first!r}")
+    per_rank = [{"rank": r["rank"], "place": r["place"],
+                 "forward_s": r["forward"]["seconds"],
+                 "step_wall_ms": r["window"]["wall_ms"],
+                 "step_device_ms": r["window"].get("device_ms"),
+                 "busy": r["window"].get("busy"),
+                 "gathers_per_step": r["train"]["gathers"] // MESH2D_STEPS,
+                 "gather_bytes_per_step":
+                     r["train"]["gather_bytes"] // MESH2D_STEPS,
+                 "forward_gathers": r["forward"]["gathers"],
+                 "forward_gather_bytes": r["forward"]["gather_bytes"],
+                 "gather_ms_level0_stem": r["gather_ms_level0_stem"],
+                 "launches_forward": r["forward"]["launches"],
+                 "launches_training": r["train"]["launches"]}
+                for r in ranks]
+    print(f"19(a) {MESH2D_DATA} x {MESH2D_POINTS} gloo ranks on one card, "
+          f"B={MESH2D_BATCH} clouds of {SPATIAL_TRAIN_POINTS} points: 2-D "
+          f"forward within {err:.3e} of one process's (max abs); "
+          f"{MESH2D_STEPS} Adam steps, ranks bitwise equal, losses "
+          f"{t['losses']} against one process {one['losses']}; per rank "
+          + json.dumps(per_rank), flush=True)
+    out = {"forward_max_abs_from_one_process": err, "losses": t["losses"],
+           "one_process_losses": one["losses"], "ranks": per_rank}
+    launches = {"mesh2d_forward_rank0": ranks[0]["forward"]["launches"],
+                "mesh2d_training_rank0": ranks[0]["train"]["launches"]}
+    return out, launches
+
+
+def sweep_child(argv) -> int:
+    """A process of 19(b)'s sweep in place of ``python -m MODULE ARGS``:
+    ``MODULE.main(ARGS)`` in this process with the KPConv launches counted
+    around it, its record appended to the JSON lines file ``argv[0]``."""
+    log, module, args = argv[0], argv[1], argv[2:]
+    reset_launches()
+    summary = importlib.import_module(module).main(args)
+    torch.cuda.synchronize()
+    rec = {"module": module.rsplit(".", 1)[-1],
+           "config": os.path.splitext(os.path.basename(
+               args[args.index("--config_file") + 1]))[0],
+           "launches": list(launch_counts())}
+    for key in ("steps", "val_batches", "batches", "seconds"):
+        if key in summary:
+            rec[key] = summary[key]
+    with open(log, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    return 0
+
+
+def phase_sweep(workdir) -> tuple:
+    """19(b): ``run_custom_sweep`` on SWEEP_CONFIGS at their own width 144
+    and 15,000-point patches, one epoch of SWEEP_STEPS steps of batch 8 on
+    SWEEP_SCAN_POINTS-point scans written first (the test scans cut at
+    SEG_CORNER), each of its processes
+    ``chip_smoke.py --sweep-child`` (:func:`sweep_child`): every config
+    scored with all seven metrics finite; the PseudoGrid config launched
+    10 forward and 10 backward kernels a train step, 10 forward a
+    validation and an evaluation batch, the PosPool config none.  Returns
+    the seconds per config, the table and the launches by path."""
+    out_dir = os.path.join(workdir, "sweep")
+    make_scans(os.path.join(out_dir, "scans"), n=SWEEP_SCAN_POINTS,
+               cut=SWEEP_HELD_OUT, corner=SEG_CORNER)
+    log = os.path.join(workdir, "sweep_children.jsonl")
+
+    def run(argv):
+        return subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sweep-child", log,
+             *argv], capture_output=True, text=True, cwd=ROOT,
+            timeout=run_custom_sweep.RUN_TIMEOUT_S)
+
+    kept = run_custom_sweep._run
+    run_custom_sweep._run = run
+    try:
+        res = run_custom_sweep.main([
+            "--out_dir", out_dir, "--configs",
+            *(os.path.join(ROOT, "cfgs", "custom_cfgs", c + ".yaml")
+              for c, _ in SWEEP_CONFIGS),
+            "--epochs", "1", "--num_steps", str(SWEEP_STEPS * 8),
+            "--width", "144", "--num_points", "15000", "--batch_size", "8",
+            "--device", "cuda"])
+    finally:
+        run_custom_sweep._run = kept
+    with open(log) as f:
+        children = [json.loads(line) for line in f]
+    launches, rows = {}, dict(res["rows"])
+    for config, kpconv in SWEEP_CONFIGS:
+        met = rows[config]
+        if met is None or not all(math.isfinite(met[k])
+                                  for k in run_custom_sweep.METRIC_KEYS):
+            raise AssertionError(f"19(b): {config} scored {met}")
+        train, ev = (next(c for c in children if c["config"] == config
+                          and c["module"] == m)
+                     for m in ("train_outlier_seg", "evaluate_outlier_seg"))
+        if train["steps"] != SWEEP_STEPS:
+            raise AssertionError(f"19(b): {config} took {train['steps']} "
+                                 "steps")
+        want_train = [10 * (SWEEP_STEPS + train["val_batches"]),
+                      10 * SWEEP_STEPS, 0] if kpconv else [0, 0, 0]
+        want_eval = [10 * ev["batches"], 0, 0] if kpconv else [0, 0, 0]
+        if train["launches"] != want_train or ev["launches"] != want_eval:
+            raise AssertionError(
+                f"19(b): {config} launched {train['launches']} training "
+                f"and {ev['launches']} evaluating, not {want_train} and "
+                f"{want_eval}")
+        launches[f"sweep_{config}_training"] = train["launches"]
+        launches[f"sweep_{config}_eval"] = ev["launches"]
+    with open(res["table"]) as f:
+        table = f.read()
+    print(f"19(b) run_custom_sweep, {len(SWEEP_CONFIGS)} configs at width "
+          f"144, 15,000-point patches, 1 epoch of {SWEEP_STEPS} steps on "
+          f"14 scans of {SWEEP_SCAN_POINTS} points: seconds per config "
+          f"{json.dumps(res['seconds'])}; processes {json.dumps(children)}"
+          f"\n{table}", end="", flush=True)
+    return {"seconds": res["seconds"], "table": table,
+            "children": children}, launches
+
+
+def heads_config(kind: str):
+    """l1.yaml (width 144, depth 2, B=16, N=500) with the classifier's
+    HEADS_CLASSES classes or the part segmentation's SHAPENET_PARTS."""
+    cfg = load_config(CONFIG)
+    cfg.num_classes = HEADS_CLASSES if kind == "classification" \
+        else len(SHAPENET_PARTS)
+    cfg.num_parts = list(SHAPENET_PARTS)
+    return cfg
+
+
+def heads_targets(kind: str, rng, B: int, N: int):
+    """The loss's targets: class labels, or (part labels, shape labels)
+    with every cloud's part labels inside its class's part count."""
+    if kind == "classification":
+        return (torch.from_numpy(rng.integers(0, HEADS_CLASSES, B)),)
+    shapes = rng.integers(0, len(SHAPENET_PARTS), B)
+    parts = np.stack([rng.integers(0, SHAPENET_PARTS[s], N)
+                      for s in shapes])
+    return torch.from_numpy(parts), torch.from_numpy(shapes)
+
+
+def phase_heads(device) -> tuple:
+    """19(c): ``ClassificationModel`` (HEADS_CLASSES classes) and
+    ``MultiPartSegmentationModel`` (SHAPENET_PARTS) at width 144, depth 2,
+    B=16, N=500 on one pyramid built on the card: the eval forward (10
+    forward launches) by ``grad_check.check_forward_tensor`` (the whole
+    output's max-abs and L2 distances within three times the CPU float32
+    output's own from float64: one element's float32 noise does not bound
+    another sample's there) against the CPU's plain computation of the
+    same weights, every parameter's train-mode gradient under the
+    model's loss (10 forward and 10 backward launches; the classifier's
+    Dropouts from one set of keep-masks) by
+    ``grad_check.check_device_gradients`` (the card's float64 plain path
+    within 1e-6 of the CPU's, the card's float32 kernel path by the
+    full-path rule unless float32 does not pin the tensor), then one SGD
+    step on the card; ms per forward and per train step.  Returns the
+    numbers and the launches by path."""
+    out, launches = {}, {}
+    for kind, build, loss_fn in (
+            ("classification", build_classification,
+             label_smoothing_cross_entropy),
+            ("part_segmentation", build_multi_part_segmentation,
+             multi_shape_cross_entropy)):
+        cfg = heads_config(kind)
+        model = build(cfg, torch.Generator().manual_seed(19))
+        rng = np.random.default_rng(19)
+        o1_running_stats(model, rng)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in patch_batch(cfg, 19).items()}
+        B, N = batch["mask"].shape
+        targets = heads_targets(kind, rng, B, N)
+        pyramid = model.make_pyramid(batch["points"], batch["mask"])
+        w = int(cfg.width)
+        keep = [torch.rand((B, h), generator=torch.Generator().manual_seed(
+            19 + i)) >= 0.5 for i, h in enumerate((8 * w, 4 * w, 2 * w))]
+        extra = (None, keep) if kind == "classification" else ()
+        copies = {"card": copy.deepcopy(model).to(device), "cpu": model,
+                  "float64": grad_check.float64_copy(model),
+                  "card64": grad_check.float64_copy(model).to(device)}
+        res, grads = {}, {}
+        for key, m in copies.items():
+            dev, dtype = next(m.parameters()).device, \
+                next(m.parameters()).dtype
+            pyr = to_device(pyramid, dev)
+            feats = batch["features"].to(dev, dtype)
+            tg = [t.to(dev) for t in targets]
+            aggregate = local_aggregation.kpconv_aggregate
+            if key == "card64":  # the kernels take float32 and bfloat16
+                local_aggregation.kpconv_aggregate = kpconv_aggregate_plain
+            try:
+                if key == "card":
+                    reset_launches()
+                m.eval()
+                with torch.no_grad():
+                    y = m.head(pyr, m.ResNetEncoder_0(pyr, feats))
+                res[key] = (torch.cat(y, -1) if isinstance(y, list)
+                            else y).cpu().double()
+                if key == "card":
+                    eval_launches = launch_counts()
+                    reset_launches()
+                m.train()
+                with batch_norm_kernel_on_cpu(dev.type == "cpu"):
+                    y = m.head(pyr, m.ResNetEncoder_0(pyr, feats), *extra)
+                    loss = loss_fn(y, *tg)
+                    g = torch.autograd.grad(loss, list(m.parameters()))
+                if key == "card":
+                    torch.cuda.synchronize()
+                    step_launches = launch_counts()
+                grads[key] = [t.cpu().double() for t in g]
+                if key == "card":
+                    card_grads, card_loss = g, loss.item()
+            finally:
+                local_aggregation.kpconv_aggregate = aggregate
+        if (eval_launches, step_launches) != ((10, 0, 0), (10, 10, 0)):
+            raise AssertionError(f"19(c) {kind}: launched {eval_launches} "
+                                 f"in eval and {step_launches} in train")
+        fwd = grad_check.check_forward_tensor(res["card"], res["cpu"],
+                                              res["float64"])
+        held = grad_check.check_device_gradients(
+            [n for n, _ in model.named_parameters()], grads["card"],
+            grads["cpu"], grads["float64"], grads["card64"])
+        card = copies["card"]
+        opt = torch.optim.SGD(card.parameters(), lr=0.01)
+        before = [p.detach().clone() for p in card.parameters()]
+        for p, g in zip(card.parameters(), card_grads):
+            p.grad = g
+        opt.step()
+        for p, p0, g in zip(card.parameters(), before, card_grads):
+            torch.testing.assert_close(p.detach(), p0 - 0.01 * g,
+                                       msg=f"19(c) {kind}: the SGD step")
+
+        def train_step():
+            card.train()
+            opt.zero_grad(set_to_none=True)
+            y = card(batch["points"], batch["mask"], batch["features"],
+                     *extra)
+            loss_fn(y, *(t.to(device) for t in targets)).backward()
+            opt.step()
+
+        card.eval()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: card(batch["points"], batch["mask"],
+                                          batch["features"]), 10)
+        step_ms = cuda_ms(train_step, 10)
+        out[kind] = {"forward_ms": fwd_ms, "step_ms": step_ms,
+                     "loss": card_loss,
+                     "forward_from_cpu": fwd,
+                     "nearest_gradient": held["nearest"],
+                     "float64_max_l2": held["float64_max_l2"],
+                     "decided_in_float64": held["decided_in_float64"]}
+        launches[f"{kind}_forward"] = list(eval_launches)
+        launches[f"{kind}_step"] = list(step_launches)
+        print(f"19(c) {type(model).__name__} at width {w}, B={B}, N={N}: "
+              f"eval forward card vs CPU (of the largest output): max "
+              f"abs {fwd['max_abs'][0]:.3e} (limit {fwd['max_abs'][1]:.3e})"
+              f", L2 {fwd['l2'][0]:.3e} (limit {fwd['l2'][1]:.3e}); "
+              f"gradients of the loss "
+              f"({card_loss:.6f}) nearest their limit: "
+              f"{held['nearest'][1]} at {held['nearest'][0]:.3f} of it; "
+              f"float64 card vs CPU within {held['float64_max_l2']:.3e}; "
+              f"decided in float64: {held['decided_in_float64']}; "
+              f"launches eval {list(eval_launches)}, train "
+              f"{list(step_launches)}; {fwd_ms:.3f} ms per forward, "
+              f"{step_ms:.3f} ms per SGD step", flush=True)
+    return out, launches
+
+
 def run_part(name: str, ctx: dict, device, smi: str) -> dict:
     """The phases of part ``name`` of PARTS in this process, on a copy of
     ``ctx["tree"]`` (its meshes: the part processes its own clouds);
@@ -5216,6 +5701,8 @@ def run_part(name: str, ctx: dict, device, smi: str) -> dict:
                            write=SEG_SCANS, cut=SEG_HELD_OUT,
                            corner=SEG_CORNER)
                 phase_aggregations(device, workdir, tree, scans, smi)
+            with phase("custom_cfgs sweep"):  # 19(b)
+                out["sweep"], out["sweep_launches"] = phase_sweep(workdir)
         elif name == "parallel":
             # phase 8's tree without its caches: phase 16(d) trains on
             # the original meanwhile
@@ -5240,6 +5727,11 @@ def run_part(name: str, ctx: dict, device, smi: str) -> dict:
                 with phase(title):
                     out[f"records_{key}"], out[f"path_{key}"] = fn(device,
                                                                    sub)
+            with phase("2-D layout"):  # 19(a), from phase 8's checkpoint
+                out["mesh2d"], out["mesh2d_launches"] = phase_mesh2d(
+                    device, workdir, ctx["l1_ckpt"])
+            with phase("classification and part-segmentation heads"):
+                out["heads"], out["heads_launches"] = phase_heads(device)
         else:
             for key in ("bf16", "gan", "pcn"):
                 os.makedirs(os.path.join(workdir, key))
@@ -5319,22 +5811,25 @@ def stop_parts(parts: dict) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     part = len(argv) == 3 and argv[0] == "--part" and argv[1] in PARTS
-    rank_job = len(argv) == 2 and argv[0] in ("--parallel-rank",
-                                                "--spatial-rank")
-    if not (part or rank_job) and argv not in (
+    rank_jobs = {"--parallel-rank": parallel_rank,
+                 "--spatial-rank": spatial_rank, "--mesh2d-rank": mesh2d_rank}
+    rank_job = len(argv) == 2 and argv[0] in rank_jobs
+    child = len(argv) >= 3 and argv[0] == "--sweep-child"
+    if not (part or rank_job or child) and argv not in (
             [], ["--only-kernels"], ["--only-aggregations"], ["--only-gan"],
             ["--only-pcn"], ["--only-export"], ["--only-parallel"],
-            ["--only-spatial"]):
+            ["--only-spatial"], ["--only-mesh2d"]):
         print("usage: chip_smoke.py [--only-kernels | --only-aggregations "
               "| --only-gan | --only-pcn | --only-export | --only-parallel "
-              "| --only-spatial]", file=sys.stderr)
+              "| --only-spatial | --only-mesh2d]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if rank_job:  # a rank of phase 17 or 18, started by torchrun
-        return (parallel_rank if argv[0] == "--parallel-rank"
-                else spatial_rank)(argv[1])
+    if rank_job:  # a rank of phase 17, 18 or 19(a), started by torchrun
+        return rank_jobs[argv[0]](argv[1])
+    if child:  # a process of 19(b)'s sweep
+        return sweep_child(argv[1:])
     with phase("device"):
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5422,6 +5917,23 @@ def main(argv=None) -> int:
         print(json.dumps({"spatial": dict(par, serving=serving),
                           "kernels_level0": kernels, "launches": launches}))
         return 0
+    if argv == ["--only-mesh2d"]:
+        # phase 19 alone, after phase 8's training (its checkpoint)
+        with tempfile.TemporaryDirectory() as workdir, phase("2-D layout"):
+            with phase("training"):
+                phase_training(cfg, device, workdir)
+            ckpt = os.path.join(workdir, "log", cfg.experiment_name,
+                                "current.pt")
+            mesh2d, launches = phase_mesh2d(device, workdir, ckpt)
+            with phase("custom_cfgs sweep"):
+                sweep, sweep_launches = phase_sweep(workdir)
+            with phase("classification and part-segmentation heads"):
+                heads, heads_launches = phase_heads(device)
+        print(smi)
+        print(json.dumps({"mesh2d": mesh2d, "sweep": sweep, "heads": heads,
+                          "launches": {**launches, **sweep_launches,
+                                       **heads_launches}}))
+        return 0
     if argv == ["--only-export"]:
         # phase 16 alone, after phase 8's training and a short cleaning
         # training on a tree of its own
@@ -5470,8 +5982,8 @@ def main(argv=None) -> int:
             train_fwd, train_bwd, phase8_window = phase_training(
                 cfg, device, train_dir)
         tree = os.path.join(deploy_dir, "shapes")
-        with phase("deployment"):
-            deploy_fwd, deploy_bwd = phase_deployment(cfg, deploy_dir)
+        with phase("deployment training"):  # its voting: after 16
+            deploy_fwd, deploy_bwd = deploy_training(cfg, deploy_dir)
         gen_ckpt = os.path.join(deploy_dir, "log", DEPLOY_CONFIGS[0],
                                 "current.pt")
         # the kernels' phases of 9b and 14 here, before the parts start
@@ -5513,6 +6025,9 @@ def main(argv=None) -> int:
                                  "current.pt"), os.path.join(
                         deploy_dir, "log_cleaning", CLEANING_CONFIG,
                         "current.pt"), os.path.join(train_dir, "train_data"))
+            with phase("deployment voting"):  # phase 9's, on its split
+                f, b = deploy_voting(deploy_dir)
+                deploy_fwd, deploy_bwd = deploy_fwd + f, deploy_bwd + b
             res = finish_parts(parts, started)
         finally:
             stop_parts(parts)
@@ -5529,6 +6044,10 @@ def main(argv=None) -> int:
     # rank 0; each rank launches as many); every path's in the detail
     ds_fwd, ds_bwd, _ = path_pcn["device_sampled_training"]
     spatial_par["serving"] = spatial_serving
+    # phase 19's paths: 19(a) rank 0's 2-D forward and steps, 19(b)'s
+    # sweep processes, 19(c)'s heads; each (forward, backward, d_rel)
+    slice19 = {**res["mesh2d_launches"], **res["sweep_launches"],
+               **res["heads_launches"]}
     record.update(
         launches=spatial_serving["forward_launches"],
         launches_by_path={
@@ -5547,11 +6066,13 @@ def main(argv=None) -> int:
             "15k_training": path_15k["training"][0],
             "15k_serving": path_15k["serving"],
             "outlier_seg_training": path_seg["training"][0],
-            "outlier_seg_eval": path_seg["eval"]},
+            "outlier_seg_eval": path_seg["eval"],
+            **{k: v[0] for k, v in slice19.items()}},
         shapes_15k=records_15k["fwd"], shapes_seg=records_seg["fwd"],
         spatial_level0=spatial_kernels["fwd"],
         pcn=pcn_summary, export=export_summary, data_parallel=par,
-        spatial=spatial_par,
+        spatial=spatial_par, mesh2d=res["mesh2d"], sweep=res["sweep"],
+        heads=res["heads"],
         device_us_by_cuda_events=device_us.by_cuda_events)
     bwd_record.update(
         launches=spatial_launches["spatial_training_gloo_rank0"][1],
@@ -5569,7 +6090,7 @@ def main(argv=None) -> int:
             "chamfer": cleaning["chamfer"][1],
             "15k_training": path_15k["training"][1], "15k_serving": 0,
             "outlier_seg_training": path_seg["training"][1],
-            "outlier_seg_eval": 0},
+            "outlier_seg_eval": 0, **{k: v[1] for k, v in slice19.items()}},
         shapes_15k=records_15k["bwd"], shapes_seg=records_seg["bwd"],
         spatial_level0=spatial_kernels["bwd"])
     # the bf16 forms: their slice's path (bf16 training with its resume,
@@ -5586,7 +6107,8 @@ def main(argv=None) -> int:
         launches=spatial_launches["gan_dp_gloo_rank0"][2],
         launches_by_path={**{k: v[2] for k, v in spatial_launches.items()},
                           "gan_training": path_gan["gan_training"][2],
-                          "disc_pretraining": 0, "gan_serving": 0})
+                          "disc_pretraining": 0, "gan_serving": 0,
+                          **{k: v[2] for k, v in slice19.items()}})
     print(smi)
     print(json.dumps({"kernels": [record, bwd_record] + bf16_records
                       + [drel_record]}))

@@ -14,8 +14,11 @@ PseudoGrid ``kernel_weights``  as is, (P, C)
 attention ``gamma``/``alpha``  as is, (1,)
 ============================  ======================================
 
-BatchNorm's ``num_batches_tracked`` has no Flax counterpart and is set to
-0.  A leaf that fits none of these raises; so does, when ``model`` is given,
+The heads of every model convert by these rules alone: the part
+segmentation's per-class ``MultiPartSegHead_0/ConvBN_i`` and ``Dense_i``,
+and the classifier's ``ClassifierHead_0/_PooledMLPHead_0`` (Dense and
+BatchNorm layers, as the discriminator's).  BatchNorm's
+``num_batches_tracked`` has no Flax counterpart and is set to 0.  A leaf that fits none of these raises; so does, when ``model`` is given,
 a key that the model lacks or leaves unfilled.
 
 :func:`adam_state_from_optax` carries an optax Adam state (``count``,

@@ -1,9 +1,10 @@
-"""The offset-regression, full-cleaning and scene-segmentation models and
-the GAN discriminator.
+"""The offset-regression, full-cleaning, scene-segmentation, shape
+classification and part-segmentation models and the GAN discriminator.
 
 Counterpart of ``OffsetRegressionModel``, ``CompleteDenoisingModel``,
-``SceneSegmentationModel``, ``DiscriminatorModel`` and their builders in
-``deep3dpointclouddenoising_tpu/models/build.py``: pyramid -> ResNet
+``SceneSegmentationModel``, ``ClassificationModel``,
+``MultiPartSegmentationModel``, ``DiscriminatorModel`` and their builders
+in ``deep3dpointclouddenoising_tpu/models/build.py``: pyramid -> ResNet
 encoder -> U-Net head, on padded ``(xyz, mask, features)`` batches.  The
 module names follow the Flax tree, so a Flax tree of any of them converts
 by ``convert.params_from_flax``.
@@ -16,6 +17,7 @@ buffers are those of the plain model.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import torch
@@ -24,7 +26,8 @@ from torch import nn
 from ..config import Config
 from ..parallel.dist import point_rows
 from ..parallel.spatial import point_sharded_pyramid
-from .heads import DiscriminatorHead, MultiDimHead, SceneSegHead
+from .heads import (ClassifierHead, DiscriminatorHead, MultiDimHead,
+                    MultiPartSegHead, SceneSegHead)
 from .pyramid import Pyramid, build_pyramid
 from .resnet import ResNetEncoder
 
@@ -42,6 +45,8 @@ class PyramidModel(nn.Module):
 
     build_up = True
     spatial = False
+    # the spatial model's points group (None: every rank)
+    points_group = None
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None):
@@ -59,7 +64,9 @@ class PyramidModel(nn.Module):
     def make_pyramid(self, xyz: torch.Tensor, mask: torch.Tensor
                      ) -> Pyramid:
         cfg = self.cfg
-        build = point_sharded_pyramid if self.spatial else build_pyramid
+        build = functools.partial(point_sharded_pyramid,
+                                  group=self.points_group) \
+            if self.spatial else build_pyramid
         return build(
             xyz, mask, radius=float(cfg.radius),
             sample_dl=float(cfg.sampleDl), nsamples=list(cfg.nsamples),
@@ -74,7 +81,8 @@ class PyramidModel(nn.Module):
                 features: torch.Tensor) -> torch.Tensor:
         pyramid = self.make_pyramid(xyz, mask)
         if self.spatial:
-            features = features[:, point_rows(features.shape[1])]
+            features = features[:, point_rows(features.shape[1],
+                                              group=self.points_group)]
         return self.head(pyramid, self.ResNetEncoder_0(pyramid, features))
 
 
@@ -124,14 +132,63 @@ class SceneSegmentationModel(PyramidModel):
         return self.SceneSegHead_0(pyramid, feats)
 
 
-class DiscriminatorModel(PyramidModel):
-    """The GAN discriminator: (B, 1) probabilities that each cloud is clean,
-    from the encoder's deepest features (:class:`heads.DiscriminatorHead`).
-    Like the JAX model, it reads no ``cfg.head`` and builds no upsampling
-    indices.  In train mode its Dropouts draw from ``generator``, or take
-    ``keep_masks`` (:class:`heads.PooledMLPHead`)."""
+class PooledHeadModel(PyramidModel):
+    """A model whose head pools the encoder's deepest features over each
+    cloud (the classifier and the discriminator): it builds no upsampling
+    indices, and in train mode its head's Dropouts draw from
+    ``generator``, or take ``keep_masks`` (:class:`heads.PooledMLPHead`)."""
 
     build_up = False
+
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
+                features: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep_masks: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        pyramid = self.make_pyramid(xyz, mask)
+        return self.head(pyramid, self.ResNetEncoder_0(pyramid, features),
+                         generator, keep_masks)
+
+
+class ClassificationModel(PooledHeadModel):
+    """Shape classification: (B, ``cfg.num_classes``) logits
+    (:class:`heads.ClassifierHead`).  Like the JAX model, it reads no
+    ``cfg.head``."""
+
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        self.ClassifierHead_0 = ClassifierHead(int(cfg.num_classes), cfg,
+                                               generator)
+
+    def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             keep_masks: Optional[List[torch.Tensor]] = None
+             ) -> torch.Tensor:
+        return self.ClassifierHead_0(pyramid, feats, generator, keep_masks)
+
+
+class MultiPartSegmentationModel(PyramidModel):
+    """Part segmentation: for each of the ``cfg.num_classes`` shape
+    classes, per-point logits over its ``cfg.num_parts[i]`` parts, a list
+    of (B, N, num_parts[i]) (:class:`heads.MultiPartSegHead`).  Like the
+    JAX model, it reads no ``cfg.head``."""
+
+    def __init__(self, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        self.MultiPartSegHead_0 = MultiPartSegHead(
+            int(cfg.num_classes), list(cfg.num_parts), cfg, generator)
+
+    def head(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
+             ) -> List[torch.Tensor]:
+        return self.MultiPartSegHead_0(pyramid, feats)
+
+
+class DiscriminatorModel(PooledHeadModel):
+    """The GAN discriminator: (B, 1) probabilities that each cloud is clean,
+    from the encoder's deepest features (:class:`heads.DiscriminatorHead`).
+    Like the JAX model, it reads no ``cfg.head``."""
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None):
@@ -144,15 +201,6 @@ class DiscriminatorModel(PyramidModel):
              ) -> torch.Tensor:
         return self.DiscriminatorHead_0(pyramid, feats, generator,
                                         keep_masks)
-
-    def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
-                features: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
-                keep_masks: Optional[List[torch.Tensor]] = None
-                ) -> torch.Tensor:
-        pyramid = self.make_pyramid(xyz, mask)
-        return self.head(pyramid, self.ResNetEncoder_0(pyramid, features),
-                         generator, keep_masks)
 
 
 def build_offset_regression(cfg: Config,
@@ -177,6 +225,22 @@ def build_scene_segmentation(cfg: Config,
     """The scene-segmentation model; its loss is
     ``losses.masked.masked_cross_entropy``."""
     return SceneSegmentationModel(cfg, generator)
+
+
+def build_classification(cfg: Config,
+                         generator: Optional[torch.Generator] = None
+                         ) -> ClassificationModel:
+    """The shape classifier; its loss is
+    ``losses.masked.label_smoothing_cross_entropy``."""
+    return ClassificationModel(cfg, generator)
+
+
+def build_multi_part_segmentation(cfg: Config,
+                                  generator: Optional[torch.Generator] = None
+                                  ) -> MultiPartSegmentationModel:
+    """The part-segmentation model; its loss is
+    ``losses.masked.multi_shape_cross_entropy``."""
+    return MultiPartSegmentationModel(cfg, generator)
 
 
 def build_discriminator(cfg: Config,

@@ -1,8 +1,10 @@
 """U-Net decoder, the per-point regression head, the scene-segmentation
-head and the GAN discriminator's head.
+and part-segmentation heads, the shape classifier's head and the GAN
+discriminator's head.
 
-Counterpart of ``deep3dpointclouddenoising_tpu/models/heads.py:23-124``
-and :147-196 (``_PooledMLPHead``, ``DiscriminatorHead``).
+Counterpart of ``deep3dpointclouddenoising_tpu/models/heads.py``: :23-124,
+``MultiPartSegHead`` (:127), ``_PooledMLPHead``, ``ClassifierHead`` (:173)
+and ``DiscriminatorHead``.
 Nearest-neighbour upsampling uses the 1-NN indices of the pyramid.
 """
 from __future__ import annotations
@@ -22,13 +24,15 @@ from .pyramid import Pyramid
 
 
 def nearest_upsample(coarse_features: torch.Tensor, up_idx: torch.Tensor,
-                     coarse_size: Optional[int] = None) -> torch.Tensor:
+                     coarse_size: Optional[int] = None,
+                     group=None) -> torch.Tensor:
     """(B, N_coarse, C), (B, N_fine) -> (B, N_fine, C): each fine point takes
     its nearest coarse point's feature.  With ``coarse_size`` (the spatial
-    model) the coarse rows are this rank's, and every rank's are
-    all-gathered first."""
+    model) the coarse rows are this rank's, and the rows of every rank of
+    ``group`` are all-gathered first."""
     if coarse_size is not None:
-        coarse_features = all_gather_points(coarse_features, coarse_size)
+        coarse_features = all_gather_points(coarse_features, coarse_size,
+                                            group)
     return gather_rows(coarse_features, up_idx)
 
 
@@ -54,7 +58,7 @@ class UNetDecoder(nn.Module):
         for step in range(4):
             lvl = 4 - step  # upsample level -> level-1
             tr = pyramid.transitions[lvl - 1]
-            x = nearest_upsample(x, tr.up_idx, tr.coarse_size)
+            x = nearest_upsample(x, tr.up_idx, tr.coarse_size, tr.group)
             x = torch.cat([x, feats[lvl - 1]], dim=-1)
             x = getattr(self, f"ConvBN_{step}")(x)
         return x  # (B, N, w/2) at input resolution
@@ -114,6 +118,35 @@ class SceneSegHead(nn.Module):
         return self.MultiDimHead_0(pyramid, feats)
 
 
+class MultiPartSegHead(nn.Module):
+    """Part logits for every shape class: the :class:`UNetDecoder`, then
+    per shape class ``i`` a ``ConvBN(w/2)`` and a Dense (He normal, zero
+    bias) to ``num_parts[i]`` logits; returns the list of (B, N,
+    num_parts[i]).  The layers keep the Flax names ``ConvBN_i`` and
+    ``Dense_i``."""
+
+    def __init__(self, num_classes: int, num_parts: Sequence[int],
+                 cfg: Config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        w = int(cfg.width)
+        self.num_classes = int(num_classes)
+        self.num_parts = [int(n) for n in num_parts]
+        self.UNetDecoder_0 = UNetDecoder(cfg, generator)
+        for i, parts in enumerate(self.num_parts):
+            self.add_module(f"ConvBN_{i}", ConvBN(
+                w // 2, w // 2, cfg.bn_momentum, generator=generator))
+            final = linear(w // 2, parts, True, generator)
+            final_he_normal_(final.weight, generator)
+            nn.init.zeros_(final.bias)
+            self.add_module(f"Dense_{i}", final)
+
+    def forward(self, pyramid: Pyramid, feats: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+        x = self.UNetDecoder_0(pyramid, feats)
+        return [getattr(self, f"Dense_{i}")(getattr(self, f"ConvBN_{i}")(x))
+                for i in range(len(self.num_parts))]
+
+
 class PooledMLPHead(nn.Module):
     """Three blocks of Dense (He normal, zero bias), BatchNorm (torch
     momentum 0.1), the activation and Dropout(0.5), at widths 8w, 4w and
@@ -156,6 +189,26 @@ class PooledMLPHead(nn.Module):
                 x, generator, None if keep_masks is None else keep_masks[i])
         x = self.Dense_3(x)
         return torch.sigmoid(x) if self.final_sigmoid else x
+
+
+class ClassifierHead(nn.Module):
+    """The shape classifier's head: the masked global average pool of the
+    deepest level's features (16w channels), then a
+    :class:`PooledMLPHead` with ReLU: (B, ``num_classes``) logits.  The
+    submodule keeps the Flax name ``_PooledMLPHead_0``."""
+
+    def __init__(self, num_classes: int, cfg: Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._PooledMLPHead_0 = PooledMLPHead(
+            16 * int(cfg.width), int(num_classes), cfg, generator=generator)
+
+    def forward(self, pyramid: Pyramid, feats: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                keep_masks: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        pooled = masked_global_avg_pool(feats[-1], pyramid.levels[-1].mask)
+        return self._PooledMLPHead_0(pooled, generator, keep_masks)
 
 
 class DiscriminatorHead(nn.Module):

@@ -141,7 +141,8 @@ class PseudoGrid(nn.Module):
             out = kpconv_aggregate(support_features.contiguous(), *args)
         else:
             out = kpconv_aggregate_sharded(support_features,
-                                           nbr.support_size, *args)
+                                           nbr.support_size, *args,
+                                           group=nbr.group)
         return getattr(self, self.post)(out)
 
 

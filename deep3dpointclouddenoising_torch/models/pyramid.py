@@ -18,11 +18,13 @@ pyramid keeps only this rank's query rows of each level, of each
 neighbourhood and of each upsample table, whose indices stay global
 indices into the whole support level; ``Neighborhood.support_size`` and
 ``Transition.coarse_size`` then give the whole support's count, which the
-layers all-gather before they read support rows.
+layers all-gather before they read support rows, and ``group`` the ranks
+that split the level (``None``: every rank; the points group of a 2-D
+``(data, points)`` layout).
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,6 +45,8 @@ class Neighborhood(NamedTuple):
     # the whole support level's count when the queries are one rank's rows
     # (the point-sharded spatial pyramid), else None
     support_size: Optional[int] = None
+    # the process group whose ranks hold the support rows (None: all)
+    group: Any = None
 
 
 class Level(NamedTuple):
@@ -58,6 +62,8 @@ class Transition(NamedTuple):
     # the whole coarse level's count when the fine queries are one rank's
     # rows (the point-sharded spatial pyramid), else None
     coarse_size: Optional[int] = None
+    # the process group whose ranks hold the coarse rows (None: all)
+    group: Any = None
 
 
 class Pyramid(NamedTuple):
@@ -68,13 +74,14 @@ class Pyramid(NamedTuple):
 def _neighborhood(query_xyz, support_xyz, query_mask, support_mask,
                   radius: float, nsample: int,
                   chunk_size: Optional[int],
-                  support_size: Optional[int] = None) -> Neighborhood:
+                  support_size: Optional[int] = None,
+                  group: Any = None) -> Neighborhood:
     idx, msk = masked_ordered_ball_query(
         query_xyz, support_xyz, query_mask, support_mask,
         radius=radius, nsample=nsample, chunk_size=chunk_size)
     rel = group_xyz(support_xyz, query_xyz, idx).contiguous()
     return Neighborhood(idx=idx, mask=msk, rel_xyz=rel, radius=radius,
-                        support_size=support_size)
+                        support_size=support_size, group=group)
 
 
 def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
@@ -83,7 +90,8 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
                   build_self: bool = True,
                   build_up: bool = True,
                   chunk_size: Optional[int] = None,
-                  rows: Optional[Callable[[int], slice]] = None) -> Pyramid:
+                  rows: Optional[Callable[[int], slice]] = None,
+                  group: Any = None) -> Pyramid:
     """Build the geometry pyramid for one batch of padded clouds.
 
     Indices, masks and subsampled positions carry no gradient (the JAX
@@ -106,6 +114,8 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
       rows: this rank's query rows of a level of n points (the spatial
         pyramid); each level, neighbourhood and upsample table then holds
         those rows only, against the whole support level.
+      group: the process group whose ranks ``rows`` splits a level over,
+        recorded for the layers' all-gathers (``None``: every rank).
     """
     mask = mask.float()
 
@@ -120,7 +130,7 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
     levels: List[Level] = [
         Level(xyz=q_xyz, mask=q_mask,
               self_nbr=_neighborhood(q_xyz, xyz, q_mask, mask, radius,
-                                     nsamples[0], chunk_size, size))
+                                     nsamples[0], chunk_size, size, group))
     ]
     transitions: List[Transition] = []
     cur_xyz, cur_mask = xyz, mask
@@ -134,7 +144,7 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
         sub_q_mask, _ = mine(sub_mask)
         pool_nbr = _neighborhood(sub_q_xyz, cur_xyz, sub_q_mask, cur_mask,
                                  pool_radius, nsamples[i - 1], chunk_size,
-                                 size)
+                                 size, group)
         if build_up:
             up_idx, up_mask = masked_nearest_query(
                 cur_q_xyz, sub_xyz, cur_q_mask, sub_mask,
@@ -147,12 +157,13 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
         if build_self:
             self_nbr = _neighborhood(sub_q_xyz, sub_xyz, sub_q_mask,
                                      sub_mask, radius * (2.0 ** i),
-                                     nsamples[i], chunk_size, sub_size)
+                                     nsamples[i], chunk_size, sub_size,
+                                     group)
         levels.append(Level(xyz=sub_q_xyz, mask=sub_q_mask,
                             self_nbr=self_nbr))
         transitions.append(Transition(pool_nbr=pool_nbr, up_idx=up_idx,
                                       up_mask=up_mask,
-                                      coarse_size=sub_size))
+                                      coarse_size=sub_size, group=group))
         cur_xyz, cur_mask = sub_xyz, sub_mask
         cur_q_xyz, cur_q_mask, size = sub_q_xyz, sub_q_mask, sub_size
     return Pyramid(levels=tuple(levels), transitions=tuple(transitions))

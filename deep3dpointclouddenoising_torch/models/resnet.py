@@ -37,7 +37,7 @@ def masked_max_pool(features: torch.Tensor, nbr: Neighborhood
     neighbours, so no mask is needed).  In the spatial model the fine
     rows of every rank are all-gathered first."""
     if nbr.support_size is not None:
-        features = all_gather_points(features, nbr.support_size)
+        features = all_gather_points(features, nbr.support_size, nbr.group)
     return group_features(features, nbr.idx).amax(dim=2)
 
 

@@ -20,7 +20,12 @@ equals the one-process step on the global batch:
 * :func:`all_gather_points` joins every rank's rows of a point axis into
   the whole axis, and its backward gives each rank the sum over the ranks
   of the gradient to its own rows (the point-sharded spatial forward,
-  ``parallel/spatial.py``); :func:`point_rows` names each rank's rows.
+  ``parallel/spatial.py``); :func:`point_rows` names each rank's rows;
+* :func:`make_mesh_2d` lays the ranks out as JAX's 2-D ``(data, points)``
+  mesh (``parallel/mesh.py:31``) and makes the subgroups of its two axes:
+  :func:`point_rows` and :func:`all_gather_points` then take the points
+  group of a rank, while the BatchNorm statistics, the loss denominators
+  and the gradient sum still span every rank.
 
 A loss is then each rank's *share*: its own numerator over the global
 denominator, so that the shares sum to the global loss, and the gradients
@@ -40,7 +45,8 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Callable, Optional, TypeVar, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, TypeVar, \
+    Union
 
 import torch
 import torch.distributed as dist
@@ -265,66 +271,80 @@ def replicated_share(x: torch.Tensor) -> torch.Tensor:
     return x / world_size() if is_distributed() else x
 
 
+def _group_place(group) -> Tuple[int, int]:
+    """(this rank's index in ``group``, the group's size); the default
+    group's (the whole world) for ``None``."""
+    if group is None:
+        return rank(), world_size()
+    return dist.get_group_rank(group, dist.get_rank()), \
+        dist.get_world_size(group)
+
+
 def point_rows(n: int, rank_: Optional[int] = None,
-               world: Optional[int] = None) -> slice:
+               world: Optional[int] = None, group=None) -> slice:
     """This rank's contiguous rows of a point axis of ``n`` points: blocks
     of ``ceil(n / W)`` in rank order, the last ones shorter or empty where
     W does not divide ``n`` (GSPMD's split of a padded axis); ``rank_`` and
-    ``world`` default to the process group's."""
-    world = world_size() if world is None else world
-    rank_ = rank() if rank_ is None else rank_
+    ``world`` default to this rank's index in ``group`` and its size (the
+    whole process group's when ``group`` is ``None``)."""
+    if rank_ is None or world is None:
+        here, size = _group_place(group)
+        rank_ = here if rank_ is None else rank_
+        world = size if world is None else world
     per = -(-n // world)
     return slice(min(rank_ * per, n), min((rank_ + 1) * per, n))
 
 
 class _AllGatherPoints(torch.autograd.Function):
-    """Every rank's rows of axis 1 joined in rank order; the backward sums
-    the ranks' gradients to this rank's rows, in rank order."""
+    """Every rank's rows of axis 1 joined in rank order within ``group``;
+    the backward sums the group's gradients to this rank's rows, in rank
+    order."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, n: int) -> torch.Tensor:
-        world, r = world_size(), rank()
+    def forward(ctx, x: torch.Tensor, n: int, group) -> torch.Tensor:
+        r, world = _group_place(group)
         per = -(-n // world)
         rows = [point_rows(n, q, world) for q in range(world)]
         if x.shape[1] != rows[r].stop - rows[r].start:
             raise ValueError(f"all_gather_points: rank {r} holds "
                              f"{x.shape[1]} rows of {n}, not "
                              f"{rows[r].stop - rows[r].start}")
-        ctx.n, ctx.rows = n, rows
+        ctx.n, ctx.rows, ctx.group, ctx.mine = n, rows, group, rows[r]
         padded = x.new_zeros((x.shape[0], per) + tuple(x.shape[2:]))
         padded[:, :x.shape[1]] = x
         parts = [torch.empty_like(padded) for _ in range(world)]
-        dist.all_gather(parts, padded)
-        _record_gather(padded)
+        dist.all_gather(parts, padded, group=group)
+        _record_gather(padded, world)
         return torch.cat([p[:, :sl.stop - sl.start]
                           for p, sl in zip(parts, rows)], dim=1)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         grad = grad.contiguous()
-        parts = [torch.empty_like(grad) for _ in range(world_size())]
-        dist.all_gather(parts, grad)
-        mine = ctx.rows[rank()]
+        parts = [torch.empty_like(grad) for _ in ctx.rows]
+        dist.all_gather(parts, grad, group=ctx.group)
+        mine = ctx.mine
         out = parts[0][:, mine].clone()
         for p in parts[1:]:
             out += p[:, mine]
-        return out, None
+        return out, None, None
 
 
-def _record_gather(padded: torch.Tensor) -> None:
+def _record_gather(padded: torch.Tensor, world: int) -> None:
     all_gather_points.calls += 1
     all_gather_points.bytes += padded.numel() * padded.element_size() \
-        * world_size()
+        * world
 
 
-def all_gather_points(x: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, n_r, ...) rows of this rank (:func:`point_rows` of ``n``) ->
-    (B, n, ...) the whole point axis, every rank's rows in rank order:
-    one ``all_gather`` of the rows padded to ``ceil(n / W)``, trimmed
-    after.  Its gradient is, on each rank, the sum over the ranks of the
+def all_gather_points(x: torch.Tensor, n: int, group=None) -> torch.Tensor:
+    """(B, n_r, ...) rows of this rank (:func:`point_rows` of ``n`` in
+    ``group``) -> (B, n, ...) the whole point axis, every rank's rows of
+    ``group`` (the whole process group for ``None``) in rank order: one
+    ``all_gather`` of the rows padded to ``ceil(n / W)``, trimmed after.
+    Its gradient is, on each rank, the sum over the group's ranks of the
     gradient to this rank's rows, added in rank order (a reduce-scatter
     written as an ``all_gather``, which gloo also has), so every rank's
-    result is the same bits.  ``x`` itself outside a group.
+    result is the same bits.  ``x`` itself outside a process group.
     ``all_gather_points.calls`` and ``.bytes`` count the forward gathers
     and the bytes they bring in (every rank's padded rows)."""
     if not is_distributed():
@@ -332,8 +352,51 @@ def all_gather_points(x: torch.Tensor, n: int) -> torch.Tensor:
             raise ValueError(f"all_gather_points: {x.shape[1]} rows of {n} "
                              "outside a process group")
         return x
-    return _AllGatherPoints.apply(x, n)
+    return _AllGatherPoints.apply(x, n, group)
 
 
 all_gather_points.calls = 0
 all_gather_points.bytes = 0
+
+
+class Mesh2D(NamedTuple):
+    """This rank's place in the 2-D ``(data, points)`` layout of
+    :func:`make_mesh_2d`: ``n_data`` by ``n_points`` ranks, row-major, and
+    the two subgroups this rank belongs to (``None`` outside a process
+    group)."""
+    n_data: int
+    n_points: int
+    data_index: int
+    points_index: int
+    points_group: Any
+    data_group: Any
+
+    def batch_rows(self, n_total: int) -> slice:
+        """This rank's rows of a global batch of ``n_total`` clouds: those
+        of its data index (:func:`process_slice` over ``n_data``), as
+        JAX's ``P(DATA_AXIS, POINTS_AXIS)`` places them."""
+        return process_slice(n_total, self.data_index, self.n_data)
+
+
+def make_mesh_2d(n_data: int, n_points: int) -> Mesh2D:
+    """The process group as JAX's ``make_mesh_2d(n_data, n_points)``
+    (``parallel/mesh.py:31``): rank ``r`` at data index ``r // n_points``
+    and points index ``r % n_points`` (``reshape(n_data, n_points)``), one
+    points group per data index (the ranks that split the same clouds'
+    points) and one data group per points index, made by every rank in
+    one order, as gloo and NCCL require.  Raises unless ``n_data *
+    n_points`` is the world size.  Outside a process group, the 1 x 1
+    layout without groups."""
+    world = world_size()
+    if n_data < 1 or n_points < 1 or n_data * n_points != world:
+        raise ValueError(f"a {n_data} x {n_points} mesh needs "
+                         f"{n_data * n_points} ranks; the world has {world}")
+    if not is_distributed():
+        return Mesh2D(1, 1, 0, 0, None, None)
+    d, p = divmod(rank(), n_points)
+    points_groups = [dist.new_group([i * n_points + j
+                                     for j in range(n_points)])
+                     for i in range(n_data)]
+    data_groups = [dist.new_group([i * n_points + j for i in range(n_data)])
+                   for j in range(n_points)]
+    return Mesh2D(n_data, n_points, d, p, points_groups[d], data_groups[p])

@@ -30,54 +30,71 @@ rank of a ``torch.distributed`` group (``parallel/dist.py``) holds its
   dense-prediction models with that pyramid; their parameters and buffers
   are the plain model's, so a patch-trained checkpoint loads unchanged.
 
+With a 2-D layout (``mesh``, :func:`..parallel.dist.make_mesh_2d`; JAX's
+``axis=POINTS_AXIS, batch_axis=DATA_AXIS``, :140-208) each rank is given
+the clouds of its data index (``mesh.batch_rows``) and splits their point
+axes within its points group: the pyramid's rows and every all-gather
+above are the points group's, while train-mode BatchNorm, the losses'
+denominators and the gradient sum span every rank, as JAX's statistics
+span its batch sharded over both axes.
+
 Only PseudoGrid aggregates in the spatial model: the other operators are
 refused (JAX's ``shard_map`` route serves PseudoGrid alone; its GSPMD
 route takes any operator).  Outside a process group, or in a group of one,
 every rank's rows are the whole cloud and the spatial forward is the
-plain forward.  JAX's 2-D (data x points) mesh has no counterpart yet.
+plain forward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..ops.kpconv import kpconv_aggregate
-from .dist import all_gather_points, point_rows
+from .dist import Mesh2D, all_gather_points, point_rows
 
 KINDS = ("offset_regression", "complete_denoising", "scene_segmentation")
 
 
-def point_sharded_pyramid(xyz: torch.Tensor, mask: torch.Tensor, **kw):
+def point_sharded_pyramid(xyz: torch.Tensor, mask: torch.Tensor,
+                          group=None, **kw):
     """``models.pyramid.build_pyramid`` (same keywords) with this rank's
-    query rows (:func:`..parallel.dist.point_rows`) of every level."""
+    query rows (:func:`..parallel.dist.point_rows` in ``group``, every
+    rank for ``None``) of every level."""
     from ..models.pyramid import build_pyramid
-    return build_pyramid(xyz, mask, rows=point_rows, **kw)
+    return build_pyramid(xyz, mask, group=group,
+                         rows=functools.partial(point_rows, group=group), **kw)
 
 
 def kpconv_aggregate_sharded(features: torch.Tensor, support_size: int,
                              idx: torch.Tensor, rel: torch.Tensor,
                              mask: torch.Tensor, kpoints: torch.Tensor,
                              kernel_weights: torch.Tensor, extent: float,
-                             influence: str = "linear") -> torch.Tensor:
+                             influence: str = "linear",
+                             group=None) -> torch.Tensor:
     """KPConv over a point-sharded level: ``features`` (B, n_r, C) this
     rank's rows of a support level of ``support_size`` points, ``idx``
     (B, m_r, K) global indices into it for this rank's query rows, ``rel``
     and ``mask`` those rows'; returns (B, m_r, C).  One all-gather of the
-    support rows, then ``kpconv_aggregate``; differentiable as both are."""
-    full = all_gather_points(features, support_size)
+    support rows over ``group`` (every rank for ``None``), then
+    ``kpconv_aggregate``; differentiable as both are."""
+    full = all_gather_points(features, support_size, group)
     return kpconv_aggregate(full.contiguous(), idx, rel, mask, kpoints,
                             kernel_weights, extent, influence)
 
 
 def build_spatial_model(cfg, kind: str = "offset_regression",
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        mesh: Optional[Mesh2D] = None):
     """The model of ``kind`` (``offset_regression``, ``complete_denoising``
     or ``scene_segmentation``) with the point-sharded pyramid: called on
-    the whole cloud's ``(xyz, mask, features)`` by every rank, it returns
-    this rank's :func:`..parallel.dist.point_rows` of the output.  Its
-    ``state_dict`` has the plain model's keys and shapes.  Raises for an
-    aggregation other than PseudoGrid."""
+    the whole clouds' ``(xyz, mask, features)`` by every rank, it returns
+    this rank's :func:`..parallel.dist.point_rows` of the output.  With
+    ``mesh`` (a 2-D layout) it is called on the clouds of this rank's data
+    index (``mesh.batch_rows``) and its rows are those of ``mesh``'s
+    points group.  Its ``state_dict`` has the plain model's keys and
+    shapes.  Raises for an aggregation other than PseudoGrid."""
     from ..models import (build_complete_denoising, build_offset_regression,
                           build_scene_segmentation)
     if kind not in KINDS:
@@ -92,34 +109,42 @@ def build_spatial_model(cfg, kind: str = "offset_regression",
              "scene_segmentation": build_scene_segmentation}[kind]
     model = build(cfg, generator)
     model.spatial = True
+    model.points_group = None if mesh is None else mesh.points_group
     return model
 
 
 def build_spatial_forward(cfg, kind: str = "offset_regression",
                           device=None,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None,
+                          mesh: Optional[Mesh2D] = None
                           ) -> Tuple[torch.nn.Module, Callable]:
     """``(model, forward)``: the spatial model of ``kind`` in eval mode on
     ``device`` and ``forward(points, mask, features)``, which takes the
     whole clouds (arrays or tensors, moved to the model's device) and
     returns this rank's rows of the output without gradient; gather them
-    whole with :func:`gather_points`."""
-    model = build_spatial_model(cfg, kind, generator)
+    whole with :func:`gather_points`.  With ``mesh`` (a 2-D layout, JAX's
+    ``axis=POINTS_AXIS, batch_axis=DATA_AXIS``) ``forward`` takes the
+    whole batch, as JAX's does, and returns this rank's point rows of the
+    clouds of its data index (``mesh.batch_rows``)."""
+    model = build_spatial_model(cfg, kind, generator, mesh)
     if device is not None:
         model = model.to(device)
     model.eval()
 
     def forward(points, mask, features) -> torch.Tensor:
         dev = next(model.parameters()).device
+        batch = slice(None) if mesh is None \
+            else mesh.batch_rows(len(points))
         with torch.no_grad():
-            return model(*(torch.as_tensor(x).to(dev)
+            return model(*(torch.as_tensor(x)[batch].to(dev)
                            for x in (points, mask, features)))
 
     return model, forward
 
 
-def gather_points(rows: torch.Tensor, n: int) -> torch.Tensor:
+def gather_points(rows: torch.Tensor, n: int, group=None) -> torch.Tensor:
     """Every rank's rows (this rank's ``rows``) of an (B, n, ...) output,
-    whole on every rank, without gradient."""
+    whole on every rank of ``group`` (every rank for ``None``; a 2-D
+    layout's ``points_group``), without gradient."""
     with torch.no_grad():
-        return all_gather_points(rows.contiguous(), n)
+        return all_gather_points(rows.contiguous(), n, group)

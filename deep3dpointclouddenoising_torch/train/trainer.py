@@ -9,8 +9,10 @@ steps on its rows of the global batch, and a step of W ranks equals the
 one-process step on the global batch, as JAX's sharded jit equals its
 one-device jit.  With ``spatial=True`` (JAX's ``Trainer(spatial=True)``,
 :91-96,119-121) the ranks split each cloud's point axis instead of the
-batch (``parallel/spatial.py``).  The scan-chunked dispatch has no
-counterpart here.
+batch (``parallel/spatial.py``); with ``spatial="2d"`` and a
+``parallel.dist.make_mesh_2d`` layout (JAX :97-104,113-118) they split
+the batch over the data axis and each cloud's points within the points
+axis.  The scan-chunked dispatch has no counterpart here.
 
 The optimizer applies optax's order: clip the gradients to their global
 norm, add ``weight_decay * param`` (sgd, adam), then Adam or SGD momentum
@@ -33,8 +35,8 @@ from ..losses.build import (get_complete_denoising_loss,
 from ..losses.masked import masked_cross_entropy
 from ..models import (build_complete_denoising, build_offset_regression,
                       build_scene_segmentation)
-from ..parallel.dist import (global_sum, is_distributed, point_rows,
-                             world_size)
+from ..parallel.dist import (Mesh2D, global_sum, is_distributed,
+                             point_rows, world_size)
 from ..parallel.spatial import build_spatial_model
 from ..utils.device import resolve_device
 from .lr_schedule import Schedule, get_lr_schedule
@@ -200,16 +202,32 @@ class Trainer:
     world of 1 (JAX :120).  The losses must be pointwise (the Chamfer
     losses read the whole cloud).  As in JAX (:226-229), a job that spans
     several hosts is refused.
+
+    ``spatial="2d"`` with ``mesh`` (``parallel.dist.make_mesh_2d``) is
+    JAX's ``Trainer(spatial="2d")`` on its ``(data, points)`` mesh:
+    ``batch`` is this rank's ``mesh.batch_rows`` of the global batch, and
+    each rank takes the ``point_rows`` of its points group of those
+    clouds.  BatchNorm, the losses' denominators and the gradient sum
+    still span every rank (JAX's batch is sharded over both axes); the LR
+    of SGD counts ``mesh.n_data`` (JAX :113-114).
     """
 
     def __init__(self, cfg: Config, n_iter_per_epoch: int,
                  generator: Optional[torch.Generator] = None, device=None,
                  loss_fn: Optional[Callable] = None,
-                 loss_mode: str = "offset", spatial: bool = False):
+                 loss_mode: str = "offset", spatial=False,
+                 mesh: Optional[Mesh2D] = None):
+        if spatial not in (False, True, "2d"):
+            raise ValueError(f"spatial {spatial!r}: False, True or '2d'")
+        if (spatial == "2d") != (mesh is not None):
+            raise ValueError("spatial='2d' takes the 2-D layout of "
+                             "parallel.dist.make_mesh_2d as mesh, and only "
+                             "it does")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loss_mode = loss_mode
         self.spatial = spatial
+        self.points_group = None if mesh is None else mesh.points_group
         if loss_mode == "offset":
             build = build_offset_regression
             default_loss = get_offset_regression_loss(cfg.loss)
@@ -225,7 +243,7 @@ class Trainer:
         if spatial:
             _check_spatial(cfg, loss_mode, loss_fn)
             model = build_spatial_model(cfg, SPATIAL_KINDS[loss_mode],
-                                        generator)
+                                        generator, mesh)
         else:
             model = build(cfg, generator)
         self.model = model.to(self.device)
@@ -236,9 +254,10 @@ class Trainer:
                 else [self.device], broadcast_buffers=False)
             self._train_model.register_comm_hook(None, _sum_hook)
         self.loss_fn = loss_fn or default_loss
+        lr_world = mesh.n_data if mesh is not None \
+            else 1 if spatial else world_size()
         self.optimizer, self.lr_schedule = make_optimizer(
-            cfg, self.model.parameters(), n_iter_per_epoch,
-            1 if spatial else world_size())
+            cfg, self.model.parameters(), n_iter_per_epoch, lr_world)
 
     @property
     def step(self) -> int:
@@ -256,8 +275,8 @@ class Trainer:
         points, mask, features = self._inputs(batch, "points", "mask",
                                               "features")
         pred = model(points, mask, features)
-        rows = point_rows(points.shape[1]) if self.spatial \
-            else slice(None)
+        rows = point_rows(points.shape[1], group=self.points_group) \
+            if self.spatial else slice(None)
         points, mask = points[:, rows], mask[:, rows]
         if self.loss_mode == "segmentation":
             labels, = self._inputs(batch, "labels")

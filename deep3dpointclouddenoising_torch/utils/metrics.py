@@ -1,9 +1,12 @@
-"""Running meters and the outlier-segmentation confusion metrics.
+"""Running meters, the outlier-segmentation confusion metrics and the
+classification and part-segmentation metrics.
 
-Counterpart of ``AverageMeter``, ``confusion_matrix``, ``iou_per_class``,
-``mean_iou``, ``metrics_from_confusion`` and ``format_metric_table`` in
-``deep3dpointclouddenoising_tpu/utils/metrics.py``, with the same
-arithmetic in float64 numpy.
+Counterpart of ``deep3dpointclouddenoising_tpu/utils/metrics.py``:
+``AverageMeter``, ``confusion_matrix``, ``iou_per_class``, ``mean_iou``,
+``metrics_from_confusion``, ``format_metric_table``, and (:99-209)
+``topk_accuracy``, ``iou_from_confusions``, ``s3dis_metrics``,
+``sub_s3dis_metrics``, ``partnet_metrics`` and ``shapenetpart_metrics``,
+with the same arithmetic in float64 numpy.
 """
 from __future__ import annotations
 
@@ -104,3 +107,116 @@ def format_metric_table(metrics: Dict[str, float], name: str = "") -> str:
         lines.append(f"{name:^100}")
     lines += [head, sep, vals, sep]
     return "\n".join(lines)
+
+
+def topk_accuracy(logits: np.ndarray, targets: np.ndarray,
+                  topk=(1,)):
+    """Top-k accuracies for (B, C) logits (util.py:65-80)."""
+    order = np.argsort(-logits, axis=1)
+    res = []
+    for k in topk:
+        hit = (order[:, :k] == targets[:, None]).any(axis=1)
+        res.append(float(hit.mean()))
+    return res
+
+
+def iou_from_confusions(confusions: np.ndarray) -> np.ndarray:
+    """Per-class IoU from stacked confusion matrices [..., C, C]
+    (util.py:146-174): absent classes get the present-class mIoU so later
+    means are unbiased."""
+    confusions = np.asarray(confusions, dtype=np.float64)
+    tp = np.diagonal(confusions, axis1=-2, axis2=-1)
+    tp_fn = confusions.sum(axis=-1)
+    tp_fp = confusions.sum(axis=-2)
+    iou = tp / (tp_fp + tp_fn - tp + 1e-6)
+    absent = tp_fn < 1e-3
+    counts = np.sum(~absent, axis=-1, keepdims=True)
+    miou = iou.sum(axis=-1, keepdims=True) / (counts + 1e-6)
+    return iou + absent * miou
+
+
+def s3dis_metrics(num_classes, vote_logits, validation_proj,
+                  validation_labels):
+    """Full-cloud voting mIoU: logits (C, n_sub) projected per cloud
+    (util.py:175-186)."""
+    conf = np.zeros((num_classes, num_classes), np.int64)
+    for logits, proj, targets in zip(vote_logits, validation_proj,
+                                     validation_labels):
+        preds = np.argmax(logits[:, proj], axis=0).astype(np.int64)
+        conf += confusion_matrix(targets, preds, num_classes)
+    ious = iou_from_confusions(conf)
+    return ious, float(np.mean(ious))
+
+
+def sub_s3dis_metrics(num_classes, validation_logits, validation_labels,
+                      val_proportions):
+    """Subsampled-cloud mIoU rescaled to true class proportions
+    (util.py:188-201)."""
+    conf = np.zeros((num_classes, num_classes), np.float64)
+    for logits, targets in zip(validation_logits, validation_labels):
+        preds = np.argmax(logits, axis=0).astype(np.int64)
+        conf += confusion_matrix(targets, preds, num_classes)
+    conf *= (np.asarray(val_proportions) /
+             (conf.sum(axis=1) + 1e-6))[:, None]
+    ious = iou_from_confusions(conf)
+    return ious, float(np.mean(ious))
+
+
+def partnet_metrics(num_classes, num_parts, objects, preds, targets):
+    """PartNet msIoU / mpIoU (util.py:89-143); preds are (num_parts, N)
+    scores per shape, part 0 is 'ignore'."""
+    shape_iou_tot = [0.0] * num_classes
+    shape_iou_cnt = [0] * num_classes
+    part_i = [np.zeros(num_parts[o], np.float64) for o in range(num_classes)]
+    part_u = [np.zeros(num_parts[o], np.float64) + 1e-6
+              for o in range(num_classes)]
+    for obj, pred, gt in zip(objects, preds, targets):
+        obj = int(obj)
+        cur = np.argmax(pred[1:, :], axis=0) + 1
+        cur[gt == 0] = 0
+        tot, cnt = 0.0, 0
+        for j in range(1, num_parts[obj]):
+            gt_m, pr_m = gt == j, cur == j
+            if gt_m.any() or pr_m.any():
+                inter = np.sum(gt_m & pr_m)
+                union = np.sum(gt_m | pr_m)
+                tot += inter / union
+                cnt += 1
+                part_i[obj][j] += inter
+                part_u[obj][j] += union
+        if cnt:
+            shape_iou_tot[obj] += tot / cnt
+            shape_iou_cnt[obj] += 1
+    ms_iou = [shape_iou_tot[o] / max(shape_iou_cnt[o], 1)
+              for o in range(num_classes)]
+    mp_iou = [float(np.mean(part_i[o][1:] / part_u[o][1:]))
+              for o in range(num_classes)]
+    return ms_iou, mp_iou, float(np.mean(ms_iou)), float(np.mean(mp_iou))
+
+
+def shapenetpart_metrics(num_classes, num_parts, objects, preds, targets,
+                         masks):
+    """ShapeNet-Part accuracy + class/instance average mIoU
+    (util.py:222-268)."""
+    total_correct = total_seen = 0.0
+    confs, objs = [], np.asarray([int(o) for o in objects])
+    for obj, pred, gt, m in zip(objs, preds, targets, masks):
+        p = np.argmax(pred, axis=0)[m]
+        g = np.asarray(gt)[m]
+        total_correct += np.sum(p == g)
+        total_seen += len(p)
+        confs.append(confusion_matrix(g, p, num_parts[obj]))
+    obj_mious = []
+    for c in range(num_classes):
+        idx = np.nonzero(objs == c)[0]
+        if len(idx) == 0:
+            obj_mious.append(np.zeros(0))
+            continue
+        ious = iou_from_confusions(np.stack([confs[i] for i in idx]))
+        obj_mious.append(np.mean(ious, axis=-1))
+    objs_average = [float(np.mean(m)) if len(m) else 0.0 for m in obj_mious]
+    instance_average = float(np.mean(np.hstack(
+        [m for m in obj_mious if len(m)])))
+    class_average = float(np.mean(objs_average))
+    acc = total_correct / max(total_seen, 1.0)
+    return acc, objs_average, class_average, instance_average

@@ -46,7 +46,7 @@ def test_port_has_every_module_of_the_slice():
                  "train_discriminator", "models.pcpnet", "train.pcn",
                  "train_pcn", "serving", "export_model", "utils.logger",
                  "utils.profiling", "parallel", "parallel.dist",
-                 "parallel.spatial"):
+                 "parallel.spatial", "run_custom_sweep"):
         assert f"deep3dpointclouddenoising_torch.{name}" in mods
 
 
