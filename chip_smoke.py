@@ -96,10 +96,12 @@ eighteen phases (phase 9b after 9), each printed with its wall time:
    kernels against plain at the ten 15k calls of a real pyramid of
    validation patches (sparse: mostly padding), as in phases 3 and 6,
    each call with its live edges, in-degrees, device us and bounds over
-   the live edges; (b) the whole model's forward and gradients there, as
-   in phases 4 and 7; (c) one train step with ``remat: 1`` against one
-   without, from the same weights on one pyramid: the same loss,
-   gradients, running statistics and ``num_batches_tracked``, bitwise
+   the live edges, d_rel bitwise over two calls, and d_rel alone's device
+   us and bound at the stem call; (b) the whole model's forward and
+   gradients there, as in phases 4 and 7; (c) one train step with
+   ``remat: 1`` against one without, from the same weights on one
+   pyramid: the same loss, gradients, running statistics and
+   ``num_batches_tracked``, bitwise
    (and a second step without remat bitwise equal to the first), 19
    forward launches against 10 (nine bottlenecks recomputed) and 10
    backward each, and the peak memory of each; (d)
@@ -167,11 +169,14 @@ eighteen phases (phase 9b after 9), each printed with its wall time:
    flagship shapes and at the discriminator's ten calls on the pyramid of
    a real batch denoised by that generator: d_rel, d_features and
    d_kernel_weights bitwise equal over two calls and within the
-   backward's tolerances of plain, and the whole discriminator's gradient
-   in its input points, kernel against plain, by ``grad_check``'s rule,
-   with 3 d_rel launches; (b) ``train_discriminator`` on
-   ``cfgs/synthetic_quality_disc.yaml``, DISC_EPOCHS epochs of GAN_STEPS
-   steps, the validation accuracy printed; (c) ``train_gan`` on
+   backward's tolerances of plain, d_rel alone's device time at each of
+   the three level-0 calls beside its bound (at 3xTF32, as the kernel
+   computes it), and the whole discriminator's gradient in its input
+   points, kernel against plain, by ``grad_check``'s rule, with 3 d_rel
+   launches; (b)
+   ``train_discriminator`` on ``cfgs/synthetic_quality_disc.yaml``,
+   DISC_EPOCHS epochs of GAN_STEPS steps, the validation accuracy
+   printed; (c) ``train_gan`` on
    ``cfgs/synthetic_quality_gan_tuned.yaml`` from (b)'s discriminator and
    phase 9's generator, GAN_EPOCHS epochs of GAN_STEPS updates unbroken,
    and killed one update into its last epoch and run again with
@@ -346,6 +351,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import gc
 import hashlib
 import importlib
@@ -418,7 +424,9 @@ from deep3dpointclouddenoising_torch.train.pcn import PCNTrainer, rotate_back
 from deep3dpointclouddenoising_torch.train.trainer import Trainer
 from deep3dpointclouddenoising_torch.utils import grad_check
 from deep3dpointclouddenoising_torch.utils.checkpoint import load_model_state
-from deep3dpointclouddenoising_torch.utils.profiling import TRACE_NAME
+from deep3dpointclouddenoising_torch.utils.profiling import (TRACE_NAME,
+                                                             cuda_ms,
+                                                             device_us)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "cfgs", "l1.yaml")
@@ -429,8 +437,6 @@ PEAK_F32_FLOP_S = 67e12
 # dense TF32 tensor-core FLOP/s (same sheet); 3xTF32 spends three of them
 # on each float32 multiply-add of the neighbour contraction
 PEAK_TF32_FLOP_S = 495e12
-# profiler windows device_us takes before it gives up on an empty one
-PROFILER_WINDOWS = 5
 # the kernels of one backward call that computes d_features and d_kw
 BWD_KERNELS = ("kpconv_bwd_invert", "kpconv_bwd_kernel", "kpconv_bwd_reduce")
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -737,21 +743,6 @@ def check_close(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return max_abs, max_rel
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def kpconv_bound(B, M, N, K, C, P, live=None, feat_bytes=4):
     """Least times (ms) for one aggregation: each input read once and the
     output written once at the HBM rate, and its float32 operations at the
@@ -780,60 +771,6 @@ def kpconv_bound_tf32(B, M, N, K, C, P, live=None, feat_bytes=4, passes=3):
     t_ops = (passes * 2 * live * P * C / PEAK_TF32_FLOP_S
              + (12 * live * P + 2 * B * M * P * C) / PEAK_F32_FLOP_S)
     return t_bytes, t_ops * 1e3
-
-
-def device_us(fn, kernel: str, iters: int, by_kernel: bool = False,
-              expect=()):
-    """Device microseconds per call of the CUDA kernels whose name holds
-    ``kernel`` ("" for every kernel), from torch.profiler over ``iters``
-    calls of ``fn``: for each such kernel the mean over the launches the
-    profiler recorded, summed over the kernels (with ``by_kernel``, also
-    the means by kernel name).  The profiler does not always record every
-    launch of a window (on the H100 machine it once kept 21 of 50, now and
-    then none, and once the backward's invert and reduce kernels without
-    its main one), so the mean is over those it kept, and a window that
-    kept no launch of some kernel named in ``expect`` (or none at all) is
-    taken again, up to PROFILER_WINDOWS times.  When no window kept them
-    all it raises with ``by_kernel``, and else returns the microseconds
-    per call of ``fn`` by CUDA events, noted in ``device_us.by_cuda_events``
-    and printed."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILER_WINDOWS):
-        by_name = {}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.events():
-            if kernel in e.name \
-                    and e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
-                    getattr(e, "device_time_total", 0.0))
-        if by_name and all(any(x in name for name in by_name)
-                           for x in expect):
-            break
-    else:
-        if by_kernel:
-            raise AssertionError(
-                f"the profiler saw no {kernel} kernel (or not each of "
-                f"{expect}) in {PROFILER_WINDOWS} windows")
-        # late in a run the profiler can stop keeping kernels for good
-        # (seen at phase 11 or 12 of a whole run, after some 60-120 windows):
-        # CUDA events over the calls instead, every kernel of a call and
-        # the gaps between them
-        us = cuda_ms(fn, iters, warmup=1) * 1e3
-        device_us.by_cuda_events.append({"kernel": kernel, "us": us})
-        print(f"device_us: the profiler kept no {kernel} kernel in "
-              f"{PROFILER_WINDOWS} windows; CUDA events over {iters} calls "
-              f"instead: {us:.2f} us per call", flush=True)
-        return us
-    means = {name: sum(us) / len(us) for name, us in by_name.items()}
-    total = sum(means.values())
-    return (total, means) if by_kernel else total
-
-
-device_us.by_cuda_events = []
 
 
 def kpconv_inputs(rng, B, M, N, K, C, P, radius, device):
@@ -2363,9 +2300,11 @@ def phase_15k_kernels(cfg, device, batch, source: str,
     ``source``): the forward at KERNEL_TOL, the backward's training
     variant and d_rel variant at BWD_RTOL and BWD_ATOL_FRAC of the largest
     gradient (with ``float64``, against the plain backward in float64 as
-    ``check_grad_float64`` says), bitwise reproducible; each call's live
-    edges, in-degrees, device us and bounds over the live edges.  Returns
-    the 15k block of each kernel's JSON record."""
+    ``check_grad_float64`` says), bitwise reproducible (d_rel alone equal
+    to the d_rel variant's); each call's live edges, in-degrees, device us
+    and bounds over the live edges, and at the stem call d_rel alone's
+    device us and bound.  Returns the 15k block of each kernel's JSON
+    record ("fwd", "bwd", and "drel_stem" for ``kpconv_bwd_drel``)."""
     rng = np.random.default_rng(11)
     B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
     r0 = float(cfg.radius)
@@ -2426,7 +2365,15 @@ def phase_15k_kernels(cfg, device, batch, source: str,
                      for a, b, what in zip(got_rel, want,
                                            ("d_feat", "d_kw", "d_rel"))]
             errs = [max(errs[0], errs[2]), max(errs[1], errs[3]), errs[4]]
-        del got, got_rel, want
+        alone = kpconv_aggregate_backward(
+            *args, g, extent, "linear", need_features=False,
+            need_kernel_weights=False, need_rel=True)[2]
+        torch.cuda.synchronize()
+        if not torch.equal(alone, got_rel[2]):
+            raise AssertionError(f"15k backward {name}: d_rel alone differs "
+                                 "from the d_rel of a second call with "
+                                 "d_features and d_kernel_weights")
+        del got, got_rel, want, alone
         check_reproducible(args, g, extent, "linear", f"15k {name}")
 
         def fwd():
@@ -2452,6 +2399,25 @@ def phase_15k_kernels(cfg, device, batch, source: str,
         live, mean_deg, max_deg = in_degrees(fmask, idx, N)
         bounds = dict(fwd=kpconv_bound(B, M, N, K, C, P, live),
                       bwd=kpconv_bwd_bound(B, M, N, K, C, P, live))
+        if name == "stem LA":  # d_rel alone (kpconv_bwd_drel) at the stem
+            d_us = device_us(lambda: kpconv_aggregate_backward(
+                *args, g, extent, "linear", need_features=False,
+                need_kernel_weights=False, need_rel=True),
+                "kpconv_bwd_drel", 10)
+            d_bytes, d_ops = kpconv_drel_bound_tf32(B, M, N, K, C, P, live)
+            d_bound = max(d_bytes, d_ops) * 1e3
+            drel_stem = {
+                "call": name, "device_us": d_us, "bound_us": d_bound,
+                "bound_by": "bytes" if d_bytes >= d_ops else "operations",
+                "bound_us_fma": max(kpconv_drel_bound(
+                    B, M, N, K, C, P, live)) * 1e3,
+                "times_bound": d_us / d_bound, "live_edges": live,
+                "max_in_degree": max_deg}
+            print(f"{name}: d_rel alone (kpconv_bwd_drel) device "
+                  f"{d_us:.2f} us, bound {d_bound:.2f} us at 3xTF32 "
+                  f"({drel_stem['bound_by']}; "
+                  f"{drel_stem['bound_us_fma']:.2f} at the FMA rate), "
+                  f"{d_us / d_bound:.1f}x", flush=True)
         line = []
         for k, err in (("fwd", fwd_err), ("bwd", max(errs))):
             ms, us, plain_ms = timed[k]
@@ -2481,6 +2447,7 @@ def phase_15k_kernels(cfg, device, batch, source: str,
               f"{rec['device_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
               flush=True)
+    recs["drel_stem"] = drel_stem
     return recs
 
 
@@ -3283,6 +3250,17 @@ def kpconv_drel_bound(B, M, N, K, C, P, live):
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
 
 
+def kpconv_drel_bound_tf32(B, M, N, K, C, P, live, passes=3):
+    """kpconv_drel_bound with each edge's contraction (2 per (live edge, p,
+    c)) on the tensor cores in ``passes`` TF32 operations for each (3xTF32,
+    as kpconv_bwd_drel runs it); q = kw * g and the slopes on the float32
+    units.  The least time of d_rel as the kernel computes it."""
+    t_bytes, _ = kpconv_drel_bound(B, M, N, K, C, P, live)
+    t_ops = (passes * 2 * live * P * C / PEAK_TF32_FLOP_S
+             + (2 * B * M * P * C + 20 * live * P) / PEAK_F32_FLOP_S)
+    return t_bytes, t_ops * 1e3
+
+
 def seeded_discriminator(cfg, device, seed: int = 0):
     """The discriminator with seeded weights and O(1) BatchNorm running
     statistics, in eval mode."""
@@ -3355,9 +3333,9 @@ def phase_gan_kernels(cfg, device, batch):
     BWD_RTOL / BWD_ATOL_FRAC of plain, d_rel alone equal to d_rel with the
     others; times of the three GAN_DREL_CALLS on the real pyramid (the
     call with and without d_rel, d_rel alone, its plain version, its
-    device time and bound); then the whole discriminator's gradient in its
-    input points by grad_check's rule.  Returns the d_rel kernel's record,
-    less launches."""
+    device time, bound and their ratio per call); then the whole
+    discriminator's gradient in its input points by grad_check's rule.
+    Returns the d_rel kernel's record, less launches."""
     rng = np.random.default_rng(12)
     B, P = int(cfg.batch_size), int(cfg.pseudo_grid.num_kernel_points)
     r0 = float(cfg.radius)
@@ -3377,10 +3355,12 @@ def phase_gan_kernels(cfg, device, batch):
         rows.append((name, M, N, K, C, (feat, idx, rel, fmask, kp, kw),
                      extent))
     worst_abs = 0.0
-    sums = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+    sums = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bound=0.0,
+                bound_fma=0.0)
     timed = []
     print("call M N K C | d_feat d_kw d_rel max_abs | with d_rel ms, "
-          "without ms, d_rel alone ms, its plain ms, bound ms bound_by")
+          "without ms, d_rel alone ms, its plain ms, bound ms at 3xTF32 "
+          "bound_by, bound ms at the FMA rate")
     for name, M, N, K, C, args, extent in rows:
         g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(
             np.float32)).to(device)
@@ -3413,25 +3393,41 @@ def phase_gan_kernels(cfg, device, batch):
                 *args, g, extent, "linear", need_rel=True), 20)
             base = cuda_ms(lambda: kpconv_aggregate_backward(
                 *args, g, extent, "linear"), 20)
-            drel = lambda: kpconv_aggregate_backward(  # noqa: E731
-                *args, g, extent, "linear", need_features=False,
-                need_kernel_weights=False, need_rel=True)
+            # bound now: drel is timed again after the loop
+            drel = functools.partial(
+                kpconv_aggregate_backward, *args, g, extent, "linear",
+                need_features=False, need_kernel_weights=False,
+                need_rel=True)
             drel_ms = cuda_ms(drel, 20)
             plain_ms = cuda_ms(lambda: kpconv_aggregate_backward_plain(
                 *args, g, extent, "linear", need_features=False,
                 need_kernel_weights=False, need_rel=True), 5)
             live = int((args[3] != 0).sum().item())
-            t_bytes, t_ops = kpconv_drel_bound(B, M, N, K, C, P, live)
+            t_bytes, t_ops = kpconv_drel_bound_tf32(B, M, N, K, C, P, live)
+            bound_fma = max(kpconv_drel_bound(B, M, N, K, C, P, live))
             line += (f" | {full:.5f} {base:.5f} {drel_ms:.5f} "
                      f"{plain_ms:.5f} {max(t_bytes, t_ops):.5f} "
-                     + ("bytes" if t_bytes >= t_ops else "operations"))
+                     + ("bytes" if t_bytes >= t_ops else "operations")
+                     + f" {bound_fma:.5f}")
             if not name.startswith("random "):
-                timed.append(drel)
+                timed.append((name, drel, max(t_bytes, t_ops) * 1e3,
+                              bound_fma * 1e3))
                 for key, v in (("ms", drel_ms), ("plain_ms", plain_ms),
-                               ("bytes", t_bytes), ("ops", t_ops)):
+                               ("bytes", t_bytes), ("ops", t_ops),
+                               ("bound", max(t_bytes, t_ops)),
+                               ("bound_fma", bound_fma)):
                     sums[key] += v
         print(line, flush=True)
-    dev_us = device_us(lambda: [f() for f in timed], "kpconv_bwd_drel", 10)
+    per_call = {}
+    for name, drel, bound_us, bound_fma_us in timed:
+        us = device_us(drel, "kpconv_bwd_drel", 10)
+        per_call[name] = {"device_us": us, "bound_us": bound_us,
+                          "bound_us_fma": bound_fma_us,
+                          "times_bound": us / bound_us}
+        print(f"d_rel alone at {name}: device {us:.2f} us, bound "
+              f"{bound_us:.2f} us at 3xTF32 ({bound_fma_us:.2f} at the FMA "
+              f"rate), {us / bound_us:.1f}x", flush=True)
+    dev_us = sum(c["device_us"] for c in per_call.values()) / len(timed)
     disc = seeded_discriminator(cfg, device)
     worst, counts = disc_input_gradient(disc, batch, device)
     if counts != (10, 10, len(GAN_DREL_CALLS)):
@@ -3440,8 +3436,9 @@ def phase_gan_kernels(cfg, device, batch):
     print(f"d_rel at the {len(timed)} level-0 calls of the real pyramid: "
           f"{sums['ms']:.5f} ms (CUDA events), device "
           f"{dev_us * len(timed) / 1e3:.5f} ms ({dev_us:.2f} us a call), "
-          f"plain {sums['plain_ms']:.5f} ms, bound "
-          f"{max(sums['bytes'], sums['ops']):.5f} ms; the discriminator's "
+          f"plain {sums['plain_ms']:.5f} ms, bound {sums['bound']:.5f} ms "
+          f"at 3xTF32 ({sums['bound_fma']:.5f} at the FMA rate); the "
+          "discriminator's "
           "gradient in its input points (launches forward, backward, "
           f"d_rel {counts}): " + "; ".join(
               f"{what}: {d:.3e} of limit {limit:.3e}"
@@ -3452,14 +3449,16 @@ def phase_gan_kernels(cfg, device, batch):
         "replaces": "deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:361",
         "max_abs_err": worst_abs, "ms": sums["ms"],
         "plain_ms": sums["plain_ms"],
-        "bound_ms": max(sums["bytes"], sums["ops"]),
+        "bound_ms": sums["bound"],
         "bound_by": "bytes" if sums["bytes"] >= sums["ops"]
         else "operations",
+        "bound_ms_fma": sums["bound_fma"],
         "library_ms": None, "device_ms": dev_us * len(timed) / 1e3,
+        "per_call": per_call,
         "timed_at": "d_rel alone (need_rel only) at the discriminator's "
                     "three level-0 calls (stem LA, Bottleneck_0, T1) on a "
                     "real pyramid of denoised points, B=16, width 144; "
-                    "device_ms: torch.profiler",
+                    "device_ms: torch.profiler, summed over the calls",
         "launches_are": "backward calls that launch kpconv_bwd_drel (the "
                         "G-step's discriminator calls whose support set is "
                         "the input points)",
@@ -6104,6 +6103,8 @@ def main(argv=None) -> int:
         launches_by_path={"bf16_training": path_bf16["training"][1],
                           "bf16_serving": 0})
     drel_record.update(
+        shapes_15k=records_15k["drel_stem"],
+        shapes_seg=records_seg["drel_stem"],
         launches=spatial_launches["gan_dp_gloo_rank0"][2],
         launches_by_path={**{k: v[2] for k, v in spatial_launches.items()},
                           "gan_training": path_gan["gan_training"][2],

@@ -16,9 +16,20 @@ end (the host sets a step's time).  Prints the median and the range of
 each, and, round by round, the median of this minus other and the rounds
 in which this was slower.  Host clocks on a shared machine drift, so only
 turns taken side by side compare.
+
+    python -m deep3dpointclouddenoising_torch.compare_host OTHER --drel
+
+times the gradient in rel alone (``kpconv_bwd_drel``) of both instead, at
+the pyramid's level-0 calls that the GAN's G-step differentiates in rel
+(the stem's self neighbourhoods at C = 72, the first strided block's pool
+neighbourhoods at C = 144): device microseconds per launch from
+torch.profiler windows of ``DREL_CALLS`` calls (``utils.profiling``'s
+``device_us``), in turns as above, and the two packages' d_rel against
+each other.
 """
 from __future__ import annotations
 
+import functools
 import importlib
 import importlib.util
 import os
@@ -33,6 +44,7 @@ from .config import load_config
 from .models.build import build_offset_regression
 from .ops import kpconv
 from .train.trainer import Trainer
+from .utils.profiling import device_us
 
 PACKAGE = "deep3dpointclouddenoising_torch"
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
@@ -41,6 +53,7 @@ ROUNDS = 10
 CALLS = 100
 TRAIN_ROUNDS = 40
 STEPS = 5
+DREL_CALLS = 20
 
 
 def load_other(checkout: str):
@@ -93,10 +106,40 @@ def summary(times, scale: float = 1.0) -> str:
             f"this slower in {int((diff > 0).sum())} of {diff.size}")
 
 
+def compare_drel(other_kpconv, pyr, la, B, gen, device) -> None:
+    """d_rel alone of this package and ``other_kpconv`` at the level-0
+    calls of ``pyr``: device us per launch in turns, and their distance."""
+    calls = (("stem", pyr.levels[0].self_nbr, pyr.levels[0], 72),
+             ("T1 strided", pyr.transitions[0].pool_nbr, pyr.levels[1], 144))
+    for name, nbr, qlevel, C in calls:
+        M, N = nbr.idx.shape[1], pyr.levels[0].xyz.shape[1]
+        fmask = (nbr.mask + (1.0 - qlevel.mask[:, :, None])).contiguous()
+        feats = torch.randn(B, N, C, generator=gen).to(device)
+        g = torch.randn(B, M, C, generator=gen).to(device)
+        kw = torch.randn(la.kpoints.shape[0], C, generator=gen).to(device)
+        args = (feats, nbr.idx, nbr.rel_xyz, fmask, la.kpoints, kw, g,
+                la.extent, la.influence, False, False, True)
+        fns = {"this": kpconv.kpconv_aggregate_backward,
+               "other": other_kpconv.kpconv_aggregate_backward}
+        got = {key: fn(*args)[2] for key, fn in fns.items()}
+        torch.cuda.synchronize()
+        scale = got["other"].abs().max().item()
+        times = {key: [] for key in fns}
+        for _ in range(ROUNDS):
+            for key in ("this", "other", "other", "this"):
+                times[key].append(device_us(
+                    functools.partial(fns[key], *args), "kpconv_bwd_drel",
+                    DREL_CALLS))
+        diff = (got["this"] - got["other"]).abs().max().item()
+        print(f"d_rel alone, {name} M={M} N={N} K={nbr.idx.shape[2]} C={C}: "
+              "device us per launch, median (range) " + summary(times)
+              + f"; max |this - other| {diff:.3e} of max |other| {scale:.3e}")
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
-        raise SystemExit("usage: compare_host OTHER_CHECKOUT")
+    if len(argv) not in (1, 2) or argv[1:] not in ([], ["--drel"]):
+        raise SystemExit("usage: compare_host OTHER_CHECKOUT [--drel]")
     if not torch.cuda.is_available():
         raise SystemExit("compare_host: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,6 +158,9 @@ def main(argv=None) -> None:
     with torch.no_grad():
         pyr = model.make_pyramid(xyz, mask)
     la = model.ResNetEncoder_0.LocalAggregation_0.PseudoGrid_0
+    if argv[1:] == ["--drel"]:
+        compare_drel(other_kpconv, pyr, la, B, gen, device)
+        return
     for level, C in ((pyr.levels[0], 72), (pyr.levels[-1], 1152)):
         nbr = level.self_nbr
         M = nbr.idx.shape[1]

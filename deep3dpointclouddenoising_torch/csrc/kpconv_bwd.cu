@@ -119,11 +119,13 @@
 // kpconv_bwd_bf16 refuses want_drel.
 //
 // The gradient in rel (need_rel; the GAN's G-step asks for it at the
-// discriminator's level-0 calls) comes from kpconv_bwd_drel: one block per
-// query tile, each edge's sum over the channels taken by one warp in a
+// discriminator's level-0 calls) comes from kpconv_bwd_drel, a fourth
+// kernel built from the forward's parts: one warp per query gathers its
+// neighbours' rows by cp.async and contracts them with kw * g on the
+// tensor cores (3xTF32), each edge's sum over the channels taken in one
 // fixed order and stored once, so d_rel is bitwise reproducible and free
-// of float atomics too.  d_feat and d_kw come from the kernels above on
-// that route too.
+// of float atomics too (its own note, below).  d_feat and d_kw come from
+// the kernels above on that route too.
 //
 // What bounds it on this card.  Counted as chip_smoke.kpconv_bwd_bound
 // counts it (every input byte read once), the float32 operation rate, and
@@ -140,9 +142,9 @@
 // (153 registers) were both slower.  Registers and spills are printed by
 // the build (-Xptxas -v): on the H100 machine (CUDA 12.8) kpconv_bwd_kernel
 // uses 128 registers for each influence (held there by its launch bounds
-// of 4 blocks per SM, which the per-chunk adds need), kpconv_bwd_invert 64,
-// kpconv_bwd_reduce 30, kpconv_bwd_drel 72 (32 for constant influence),
-// none spills.
+// of 4 blocks per SM, which the per-chunk adds need; 124 for constant
+// influence), kpconv_bwd_invert 52, kpconv_bwd_reduce 32, kpconv_bwd_drel
+// 118 (13 for constant influence), none spills.
 
 #include <cuda_runtime.h>
 
@@ -817,154 +819,352 @@ kpconv_bwd_reduce(const float* __restrict__ part, float* __restrict__ dkw,
 
 // ------------------------------------------------------- the gradient in rel
 //
-//   d_rel[b,m,k] = sum_p dw[b,m,k,p] (rel[b,m,k] - kp[p])
-//                        * sum_c kw[p,c] g[b,m,c] feat[b, idx[b,m,k], c]
+//   d_rel[b,m,k] = sum_p dw[b,m,k,p] (rel[b,m,k] - kp[p]) S[b,m,p,k]
+//   S[b,m,p,k]   = sum_c kw[p,c] g[b,m,c] feat[b, idx[b,m,k], c]
 //
 // with dw = mask * (d infl / d rel) / (rel - kp): -1 / (extent d) for linear
-// influence where 0 < d < extent (0 where the influence is clamped, and 0
-// at d = 0, the where-guarded sqrt's subgradient), -2 infl / gauss_denom
-// for gaussian, 0 for constant.
+// influence where 0 < d and 1 - d / extent > 0 (0 where the influence is
+// clamped, and 0 at d = 0, the where-guarded sqrt's subgradient),
+// -2 infl / gauss_denom for gaussian, 0 for constant.
 //
-// Deterministic: each edge's 3-vector is a sum over all C channels, and
-// one warp computes it whole, in one fixed order.  A block owns
-// kRelTileM queries of one cloud and every channel; warp w owns queries
-// w, w + kRelRows, ...  For each of its queries the warp walks the channel
-// tiles of 32 in order (one channel a lane, kw and g of the tile in
-// registers), and for each neighbour sums the tile's 32 lanes by a
-// butterfly of shuffles (a fixed tree) and adds that to the edge's sum in
-// shared memory (lane 0, the only writer of that edge's sum).  The block
-// then stores its edges' rows once, coalesced, with plain stores: no float
-// atomics, and nothing for the wrapper to zero.  (An earlier design spread
-// the channel tiles over blocks and added them into d_rel by float32
-// atomics, so d_rel changed in its last bits from run to run.)
+// Replaces the gradient in rel of _vjp_bwd's jnp path
+// (deep3dpointclouddenoising_tpu/ops/pallas_kpconv.py:545-572: jax.grad
+// through kpconv_aggregate_reference; the Pallas VJP itself returns zeros
+// for rel, :539-541).
 //
-// What bounds it: every edge reads its neighbour's feature row (the same
-// bytes as the forward's gather) and does 3 multiply-adds per (p, c); at
-// the GAN's level-0 calls (C = 72 and 144) that is far below both the
-// card's memory and float32 rates, and the time is the dependent chain of
-// each warp's shuffles, edge after edge.
+// What bounds it.  Counted as chip_smoke.kpconv_drel_bound_tf32 counts it
+// (every input byte read once; S's 2 operations per (live edge, p, c) at
+// the 3xTF32 rate, kw * g and the slopes at the float32 rate): ~0.016 ms
+// for the GAN's three level-0 calls, the stems bound by operations and T1
+// by bytes (0.032 ms with S at the float32 FMA rate, kpconv_drel_bound).
+// What the formula does not count is
+// the forward's cost: each live edge reads its neighbour's row by index
+// (the same B*M*K*C*4 bytes from L2 as the forward's gather), and S is a
+// (16 x C) by (C x K) product per query.
+//
+// The design is the forward's (kpconv_fwd.cu) with A and B swapped in role:
+// 1. Grid (ceil(M / kRelTileM), B), one warp per query.  Each edge's sum
+//    over all C channels stays in one warp and is taken in one fixed order;
+//    channels are not split across blocks (an earlier design did, and
+//    needed float atomics).
+// 2. Gather: each warp runs its own ring of kRelStages cp.async stages; a
+//    stage is its query's 8 neighbour rows (a chunk, the mma's n) cut to a
+//    channel tile of at most 72 (pick_groups), 16-byte copies where
+//    C % 4 == 0 and feat is 16-byte aligned, else 4-byte copies.  Slots
+//    past K, past C, and of masked edges (dw = 0 there) are zero fills, so
+//    a masked edge reads nothing.  Steps run channel tile by tile and chunk
+//    by chunk within a tile, so the ring flows on across tiles.  Rows are
+//    tc + 4 floats apart, so the B fragment's reads (8 rows, 4 channels a
+//    read) are free of bank conflicts.  TMA does not fit, as in the
+//    forward: the rows are picked one by one by idx.
+// 3. Tensor cores for S: mma.sync.m16n8k8 TF32 as 3xTF32 (float32
+//    accuracy), A = kw[p, c..c+8] * g[m, c..c+8] (16 rows, P padded to 16,
+//    the product rounded once in float32 as the plain version rounds it,
+//    kept in registers for the tile and split hi/lo at each use), B = the
+//    staged chunk read as (channel, edge).  Each 8-channel group's product
+//    starts from zero in the tensor core and the groups are added by
+//    float32 adds in order, then to the earlier tiles' S (kept per lane in
+//    shared memory when C spans several tiles): no chain in the mma's
+//    accumulator spans more than one group's three steps (a long chain
+//    drifts, kpconv_bwd_kernel's note), and the groups' mma are
+//    independent, so they overlap.
+// 4. Epilogue on the CUDA cores in full float32, per chunk at the last
+//    tile: each lane holds S at rows p = g, g + 8 and edges 2t, 2t + 1,
+//    computes dw (exact subtract-square distances, the plain version's
+//    roundings: weight_slope) times S times (rel - kp), and the eight row
+//    groups are
+//    summed by a fixed butterfly (xor 4, 8, 16).  24 lanes store the
+//    chunk's 8 x 3 values once, with plain stores: no float atomics, so
+//    d_rel is bitwise reproducible.  Constant influence writes zeros.
+// The kernel is query-major, so a sink support costs it nothing extra.
+// On the H100 (PERF.md, section 6) the GAN's stem call takes 94-100 us,
+// ~14x its bound and a fifth of the design before it, against the
+// forward's ~68 us at the same shape.  Measured against variants: an
+// epilogue cut to one add and a store takes 18.5 us off the stem's 94;
+// splitting A once a tile instead of at every chunk needs 128-137
+// registers and was slower (99.5 us at 4 blocks per SM with a spill,
+// 131.3 at 3), as were a fourth stage and 5 blocks per SM (96 registers).
+// Of the two costs suspected, the epilogue is a fifth of the stem's time;
+// hoisting the A splits does not pay for its registers.
+// Registers (-Xptxas -v on the H100 machine, CUDA 12.8): 118 for linear
+// and gaussian influence (launch bounds of 4 blocks per SM allow 128), 13
+// for constant; no spills.  A block of 4 queries at C = 72, K = 52 holds
+// 32.8 KB of shared memory (the ring 29.2 KB).
 
-constexpr int kRelTileM = 8;
-constexpr int kRelTileC = 32;
-constexpr int kRelRows = 4;
-constexpr int kRelThreads = kRelTileC * kRelRows;
+constexpr int kRelTileM = 4;  // queries per block, one per warp
+constexpr int kRelThreads = 32 * kRelTileM;
+constexpr int kRelStages = 3;  // depth of each warp's cp.async ring
 
-size_t drel_smem_bytes(int K) {
-  return sizeof(float) * (static_cast<size_t>(kRelTileM) * K * kPPad +
-                          kRelTileM * K + kPPad * 3 + kRelTileM * K * 3);
+// Shared-memory carve-up of a d_rel block, in 4-byte words:
+//   stages [kRelStages][kRelTileM][kChunk][tcp]  gathered rows, tcp = tc + 4
+//   part   [kRelTileM][nchunk][32][4]            each lane's S over the
+//                                                tiles so far (only when C
+//                                                spans several tiles)
+//   kp     [kPPad][3]
+//   rel    [kRelTileM][K][3]
+//   mask   [kRelTileM][K]
+//   idx    [kRelTileM][K]
+struct RelTile {
+  int tc, tcp, nchunk, ntiles, K;
+  __host__ __device__ RelTile(int ng, int C, int k)
+      : tc(8 * ng), tcp(8 * ng + 4), nchunk((k + kChunk - 1) / kChunk),
+        ntiles((C + 8 * ng - 1) / (8 * ng)), K(k) {}
+  __host__ __device__ int stage_words() const {
+    return kRelTileM * kChunk * tcp;
+  }
+  __host__ __device__ int part_offset() const {
+    return kRelStages * stage_words();
+  }
+  __host__ __device__ int kp_offset() const {
+    return part_offset() + (ntiles > 1 ? kRelTileM * nchunk * 128 : 0);
+  }
+  __host__ __device__ int rel_offset() const { return kp_offset() + kPPad * 3; }
+  __host__ __device__ int mask_offset() const {
+    return rel_offset() + kRelTileM * K * 3;
+  }
+  __host__ __device__ int idx_offset() const {
+    return mask_offset() + kRelTileM * K;
+  }
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) *
+           (static_cast<size_t>(idx_offset()) + kRelTileM * K);
+  }
+};
+
+// dw of one (edge, kernel point), diff = rel - kp, as
+// kpconv_aggregate_backward_plain's _weight_slopes computes it.  Linear:
+// its test 1 - d / extent > 0 holds exactly when d < extent (for floats
+// d < extent, d / extent rounds to at most 1 - 2^-24), and __frcp_rn is
+// the correctly rounded 1 / x that its division gives; both cost less
+// than a division (4% of the GAN's stem call on the H100).
+template <int INFL>
+__device__ __forceinline__ float weight_slope(const float3& diff, float msk,
+                                              float extent,
+                                              float gauss_denom) {
+  const float sq = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
+  if (INFL == kLinear) {
+    if (!(sq > 0.f)) return 0.f;
+    const float d = sqrtf(sq);
+    return d < extent ? -__frcp_rn(extent * d) * msk : 0.f;
+  }
+  return -2.f * expf(-sq / gauss_denom) / gauss_denom * msk;
 }
 
 template <int INFL>
-__global__ void __launch_bounds__(kRelThreads)
+__global__ void __launch_bounds__(kRelThreads, 4)
 kpconv_bwd_drel(const float* __restrict__ feat, const int* __restrict__ idx,
                 const float* __restrict__ rel, const float* __restrict__ mask,
                 const float* __restrict__ kp, const float* __restrict__ kw,
                 const float* __restrict__ gout, float* __restrict__ drel,
-                int N, int M, int K, int C, int P, float extent,
-                float gauss_denom) {
-  extern __shared__ float4 rsmem4[];
-  float* dw_s = reinterpret_cast<float*>(rsmem4);  // [kRelTileM][K][kPPad]
-  int* idx_s = reinterpret_cast<int*>(dw_s + kRelTileM * K * kPPad);
-  float* kp_s = reinterpret_cast<float*>(idx_s + kRelTileM * K);  // [kPPad][3]
-  float* acc_s = kp_s + kPPad * 3;  // [kRelTileM][K][3], the edges' sums
-
+                int N, int M, int K, int C, int P, int ng, int vec,
+                float extent, float gauss_denom) {
+  extern __shared__ __align__(16) float smem[];
   const int m0 = blockIdx.x * kRelTileM;
   const int b = blockIdx.y;
   const int tm = min(kRelTileM, M - m0);
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kRelTileC + tx;
+  const int tid = threadIdx.x;
   const size_t row0 = (static_cast<size_t>(b) * M + m0) * K;
+  if (INFL == kConstant) {  // d infl / d rel = 0
+    for (int i = tid; i < tm * K * 3; i += kRelThreads)
+      drel[row0 * 3 + i] = 0.f;
+    return;
+  }
+  const RelTile tl(ng, C, K);
+  const int tc = tl.tc, tcp = tl.tcp, nchunk = tl.nchunk;
+  float* stage_s = smem;
+  float4* part_s = reinterpret_cast<float4*>(smem + tl.part_offset());
+  float* kp_s = smem + tl.kp_offset();
+  float* rel_s = smem + tl.rel_offset();
+  float* mask_s = smem + tl.mask_offset();
+  int* idx_s = reinterpret_cast<int*>(smem + tl.idx_offset());
 
+  // the tile's indices, positions, masks and kernel points: one group of
+  // copies (zeros past P)
+  for (int i = tid; i < tm * K; i += kRelThreads) {
+    cp_async<4>(idx_s + i, idx + row0 + i, 4);
+    cp_async<4>(mask_s + i, mask + row0 + i, 4);
+  }
+  for (int i = tid; i < tm * K * 3; i += kRelThreads)
+    cp_async<4>(rel_s + i, rel + row0 * 3 + i, 4);
   for (int i = tid; i < kPPad * 3; i += kRelThreads)
-    kp_s[i] = i < P * 3 ? kp[i] : 0.f;
-  for (int i = tid; i < tm * K; i += kRelThreads) idx_s[i] = idx[row0 + i];
-  for (int i = tid; i < tm * K * 3; i += kRelThreads) acc_s[i] = 0.f;
+    cp_async<4>(kp_s + i, i < P * 3 ? kp + i : kp, i < P * 3 ? 4 : 0);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  if (INFL != kConstant) {
-    for (int e = tid; e < tm * K * kPPad; e += kRelThreads) {
-      const int p = e % kPPad;
-      const size_t row = row0 + e / kPPad;
-      float dw = 0.f;
-      if (p < P) {
-        const float msk = mask[row];
-        const float dx = rel[row * 3 + 0] - kp_s[p * 3 + 0];
-        const float dy = rel[row * 3 + 1] - kp_s[p * 3 + 1];
-        const float dz = rel[row * 3 + 2] - kp_s[p * 3 + 2];
-        const float sq = dx * dx + dy * dy + dz * dz;
-        if (INFL == kLinear) {
-          const float d = sq > 0.f ? sqrtf(sq) : 0.f;
-          const float infl = fmaxf(1.f - d / extent, 0.f);
-          if (d > 0.f && infl > 0.f) dw = -msk / (extent * d);
-        } else {
-          dw = -2.f * expf(-sq / gauss_denom) * msk / gauss_denom;
-        }
-      }
-      dw_s[e] = dw;
-    }
-    __syncthreads();
+  // From here on each warp is its own pipeline over its query's rows.
+  const int lane = tid & 31;
+  const int m = tid >> 5;
+  if (m >= tm) return;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int* im = idx_s + m * K;
+  const float* mask_m = mask_s + m * K;
+  const float* rel_m = rel_s + m * K * 3;
+  float* stage_m = stage_s + m * kChunk * tcp;
+  const float* fb = feat + static_cast<size_t>(b) * N * C;
+  const float* gq = gout + (static_cast<size_t>(b) * M + m0 + m) * C;
+  float* out_m = drel + (row0 + static_cast<size_t>(m) * K) * 3;
 
-    const float* fb = feat + static_cast<size_t>(b) * N * C;
-    // every lane walks the queries and tiles (its shuffles need the whole
-    // warp); a lane past C adds zeros
-    for (int m = ty; m < tm; m += kRelRows) {
-      const int* im = idx_s + m * K;
-      float* am = acc_s + m * K * 3;
-      const size_t grow = (static_cast<size_t>(b) * M + m0 + m) * C;
-      for (int c0 = 0; c0 < C; c0 += kRelTileC) {
-        const int c = c0 + tx;
-        const bool c_ok = c < C;
-        float kw_r[kPPad];
+  // the lane's 16-byte copy slots, the same in every chunk: (row r,
+  // column c) of the 8 x tc stage
+  constexpr int kSlots = kVecSlots<float>;
+  const int per_row = tc / 4;
+  int slot_row[kSlots], slot_col[kSlots];
 #pragma unroll
-        for (int p = 0; p < kPPad; ++p)
-          kw_r[p] = (c_ok && p < P) ? __ldg(kw + p * C + c) : 0.f;
-        const float gv = c_ok ? __ldg(gout + grow + c) : 0.f;
-        for (int k = 0; k < K; ++k) {
-          const float f =
-              c_ok ? __ldg(fb + static_cast<size_t>(im[k]) * C + c) : 0.f;
-          const size_t row = row0 + static_cast<size_t>(m) * K + k;
-          const float4* dwm =
-              reinterpret_cast<const float4*>(dw_s) + (m * K + k) * (kPPad / 4);
-          const float rx = __ldg(rel + row * 3 + 0);
-          const float ry = __ldg(rel + row * 3 + 1);
-          const float rz = __ldg(rel + row * 3 + 2);
-          float zx = 0.f, zy = 0.f, zz = 0.f;
+  for (int i = 0; i < kSlots; ++i) {
+    const int e = lane + 32 * i;
+    const int r = e / per_row;
+    slot_row[i] = e < kChunk * per_row ? r : -1;
+    slot_col[i] = 4 * (e - r * per_row);
+  }
+
+  // step s: chunk j = s % nchunk (edges 8j .. 8j+7) of channel tile
+  // s / nchunk into stage s % kRelStages; zeros past K, past C and for
+  // masked edges
+  const int steps = tl.ntiles * nchunk;
+  auto load_step = [&](int s) {
+    const int tile = s / nchunk;
+    const int j = s - tile * nchunk;
+    const int c0 = tile * tc;
+    const int cw = min(tc, C - c0);
+    float* dst = stage_m + (s % kRelStages) * tl.stage_words();
+    if (vec) {
 #pragma unroll
-          for (int q = 0; q < kPPad / 4; ++q) {
-            const float4 d4 = dwm[q];
-            const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+      for (int i = 0; i < kSlots; ++i) {
+        if (slot_row[i] < 0) break;
+        const int k = j * kChunk + slot_row[i];
+        const int c = slot_col[i];
+        const bool ok = k < K && c < cw && mask_m[k] != 0.f;
+        const float* src =
+            ok ? fb + static_cast<size_t>(im[k]) * C + c0 + c : feat;
+        cp_async<16>(dst + slot_row[i] * tcp + c, src, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = lane; e < kChunk * tc; e += 32) {
+        const int r = e / tc;
+        const int c = e - r * tc;
+        const int k = j * kChunk + r;
+        const bool ok = k < K && c < cw && mask_m[k] != 0.f;
+        const float* src =
+            ok ? fb + static_cast<size_t>(im[k]) * C + c0 + c : feat;
+        cp_async<4>(dst + r * tcp + c, src, ok ? 4 : 0);
+      }
+    }
+  };
+  for (int s = 0; s < kRelStages - 1; ++s) {
+    if (s < steps) load_step(s);
+    cp_async_commit();
+  }
+
+  float3 q[2];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int p = 4 * q + i;
-              const float a = dq[i] * kw_r[p];
-              zx = fmaf(a, rx - kp_s[p * 3 + 0], zx);
-              zy = fmaf(a, ry - kp_s[p * 3 + 1], zy);
-              zz = fmaf(a, rz - kp_s[p * 3 + 2], zz);
-            }
-          }
-          const float s = gv * f;
-          zx *= s;
-          zy *= s;
-          zz *= s;
+  for (int h = 0; h < 2; ++h)
+    q[h] = make_float3(kp_s[(g + 8 * h) * 3], kp_s[(g + 8 * h) * 3 + 1],
+                       kp_s[(g + 8 * h) * 3 + 2]);
+  // A of the current tile: lane (g, t) holds A[p][c] = kw[p,c] g[m,c] for
+  // (p, c) = (g, t), (g+8, t), (g, t+4), (g+8, t+4) of each group; zero
+  // past P and C
+  float a[kMaxGroups][4];
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kRelStages - 2>();  // this lane's copies of step s landed
+    __syncwarp();                     // the warp's, and step s-1 is consumed
+    if (s + kRelStages - 1 < steps) load_step(s + kRelStages - 1);
+    cp_async_commit();
+    const int tile = s / nchunk;
+    const int j = s - tile * nchunk;
+    if (j == 0) {
+      const int c0 = tile * tc;
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            zx += __shfl_xor_sync(kFull, zx, o);
-            zy += __shfl_xor_sync(kFull, zy, o);
-            zz += __shfl_xor_sync(kFull, zz, o);
-          }
-          if (tx == 0) {  // this warp alone writes query m's edges
-            am[k * 3 + 0] += zx;
-            am[k * 3 + 1] += zy;
-            am[k * 3 + 2] += zz;
-          }
+      for (int grp = 0; grp < kMaxGroups; ++grp) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = g + 8 * (i & 1);
+          const int c = c0 + grp * 8 + t + 4 * (i >> 1);
+          a[grp][i] = grp < ng && p < P && c < C
+                          ? __ldg(kw + p * C + c) * __ldg(gq + c)
+                          : 0.f;
         }
       }
+    }
+    // S of this chunk and tile: lane (g, t) gets rows g, g+8 at edges 2t,
+    // 2t+1; B[c][e] = stage[e][c] at bs[e * tcp + c]
+    const float* bs =
+        stage_m + (s % kRelStages) * tl.stage_words() + g * tcp + t;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int grp = 0; grp < kMaxGroups; ++grp) {
+      if (grp < ng) {
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(a[grp][i], ahi[i], alo[i]);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(d, ahi, alo, bs[grp * 8], bs[grp * 8 + 4]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[i] += d[i];
+      }
+    }
+    if (tl.ntiles > 1) {
+      float4* part = part_s + (m * nchunk + j) * 32 + lane;
+      if (tile > 0) {
+        const float4 prev = *part;
+        sum[0] = prev.x + sum[0];
+        sum[1] = prev.y + sum[1];
+        sum[2] = prev.z + sum[2];
+        sum[3] = prev.w + sum[3];
+      }
+      if (tile + 1 < tl.ntiles) {
+        *part = make_float4(sum[0], sum[1], sum[2], sum[3]);
+        continue;
+      }
+    }
+
+    // the epilogue of chunk j: z[h] = sum over this lane's p of
+    // dw[k,p] S[p,k] (rel[k] - kp[p]) at edge k = 8j + 2t + h, then over
+    // the eight row groups
+    float z[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      z[h][0] = z[h][1] = z[h][2] = 0.f;
+      const int k = j * kChunk + 2 * t + h;
+      if (k >= K) continue;
+      const float msk = mask_m[k];
+      const float3 r =
+          make_float3(rel_m[k * 3], rel_m[k * 3 + 1], rel_m[k * 3 + 2]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (g + 8 * i >= P) continue;
+        const float3 diff =
+            make_float3(r.x - q[i].x, r.y - q[i].y, r.z - q[i].z);
+        const float v =
+            weight_slope<INFL>(diff, msk, extent, gauss_denom) * sum[2 * i + h];
+        z[h][0] += v * diff.x;
+        z[h][1] += v * diff.y;
+        z[h][2] += v * diff.z;
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 0; x < 3; ++x)
+          z[h][x] += __shfl_xor_sync(kFull, z[h][x], o);
+      }
+    }
+    // lane (g, t), g < 6: component g % 3 of edge 8j + 2t + g / 3
+    if (g < 6) {
+      const int h = g >= 3;
+      const int x = g - 3 * h;
+      const int k = j * kChunk + 2 * t + h;
+      const float v0 = h ? z[1][0] : z[0][0];
+      const float v1 = h ? z[1][1] : z[0][1];
+      const float v2 = h ? z[1][2] : z[0][2];
+      if (k < K) out_m[k * 3 + x] = x == 0 ? v0 : (x == 1 ? v1 : v2);
     }
   }
-  __syncthreads();
-  float* out = drel + row0 * 3;
-  for (int i = tid; i < tm * K * 3; i += kRelThreads) out[i] = acc_s[i];
+  cp_async_wait<0>();
 }
 
 // ------------------------------------------------------------------ launches
@@ -1048,15 +1248,17 @@ cudaError_t launch(const T* feat, const int* idx, const float* rel,
   // zeros
   if constexpr (sizeof(T) == sizeof(float)) {
     if (want_drel) {
-      const size_t smem = drel_smem_bytes(K);
+      const int ng = pick_groups(C);
+      const size_t smem = INFL == kConstant ? 0 : RelTile(ng, C, K).bytes();
       if (smem > kMaxSmem) return cudaErrorInvalidValue;
       err = set_smem(kpconv_bwd_drel<INFL>, smem);
       if (err != cudaSuccess) return err;
+      const int vec =
+          C % 4 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
       const dim3 grid((M + kRelTileM - 1) / kRelTileM, B);
-      kpconv_bwd_drel<INFL>
-          <<<grid, dim3(kRelTileC, kRelRows), smem, stream>>>(
-              feat, idx, rel, mask, kp, kw, g, drel, N, M, K, C, P, extent,
-              gauss_denom);
+      kpconv_bwd_drel<INFL><<<grid, kRelThreads, smem, stream>>>(
+          feat, idx, rel, mask, kp, kw, g, drel, N, M, K, C, P, ng, vec,
+          extent, gauss_denom);
       err = cudaGetLastError();
     }
   }

@@ -284,7 +284,11 @@ def _backward_edge_inputs(rng, influence, case):
     layout); layout "sink" sends every edge of the first half of the
     queries (more than half of the live edges) to support 3, "holes" keeps
     every index in the lower half of the supports (the upper half has
-    in-degree 0); the first query row of each cloud has its mask all zero."""
+    in-degree 0), "coincide" puts query 1's first and last neighbours
+    exactly on the first and the last kernel point (d = 0, live), "clamp"
+    moves every other neighbour four times as far out (most past the
+    extent, where linear influence is clamped); the first query row of
+    each cloud has its mask all zero."""
     B, M, N, K, C, P, layout = case
     arrays = _inputs(rng, B, M, N, K, C, P)
     if layout == "sink":
@@ -292,6 +296,12 @@ def _backward_edge_inputs(rng, influence, case):
         arrays[3][:, :M // 2 + 1] = 1.0
     elif layout == "holes":
         arrays[1] = arrays[1] % max(1, N // 2)
+    elif layout == "coincide":
+        arrays[2][:, 1, 0] = arrays[4][0]
+        arrays[2][:, 1, -1] = arrays[4][-1]
+        arrays[3][:, 1] = 1.0
+    elif layout == "clamp":
+        arrays[2][:, :, ::2] *= 4.0
     arrays[3][:, 0] = 0.0
     g = torch.from_numpy(rng.normal(size=(B, M, C)).astype(np.float32))
     return arrays, g
@@ -799,20 +809,38 @@ def test_attention_train_steps_are_bitwise_reproducible(card, name):
 
 # -- the GAN: the gradient in rel ---------------------------------------------
 
+DREL_CASES = [
+    # (B, M, N, K, C, P, layout): the GAN's level-0 shapes and a deep one;
+    # a sink; chunks of 8 edges cut ragged (K = 1, 7, 9, 65); 4-byte copies
+    # and ragged 8-channel groups (C = 6, 13); a long channel chain (C =
+    # 1160, 17 tiles); P = 1; a ragged last query tile (M = 18); a query
+    # with every edge masked (query 0, every case); rel exactly at a
+    # kernel point; edges past the extent; N = 2100 with a sink
+    (16, 500, 500, 52, 72, 15, "random"),
+    (16, 500, 500, 52, 144, 15, "random"),
+    (16, 3, 3, 26, 1152, 15, "random"), (2, 200, 40, 30, 72, 15, "sink"),
+    (2, 17, 30, 1, 40, 15, "random"), (2, 17, 30, 7, 40, 15, "random"),
+    (2, 17, 30, 9, 40, 15, "random"), (2, 17, 70, 65, 40, 15, "random"),
+    (2, 17, 30, 10, 6, 15, "random"), (2, 17, 30, 10, 13, 15, "random"),
+    (2, 5, 30, 10, 1160, 15, "random"), (2, 17, 30, 10, 40, 1, "random"),
+    (2, 18, 30, 10, 40, 15, "random"), (2, 17, 30, 10, 40, 15, "coincide"),
+    (2, 17, 30, 10, 40, 15, "clamp"), (2, 400, 2100, 12, 24, 15, "sink"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
-@pytest.mark.parametrize("case", [(16, 500, 500, 52, 72, 15, "random"),
-                                  (16, 500, 500, 52, 144, 15, "random"),
-                                  (16, 3, 3, 26, 1152, 15, "random"),
-                                  (2, 200, 40, 30, 72, 15, "sink")])
+@pytest.mark.parametrize("case", DREL_CASES)
 def test_kpconv_drel_is_deterministic_and_matches_plain(card, influence,
                                                         case):
-    """``kpconv_bwd_drel`` (C = 72 and 144, the GAN's level-0 widths, three
-    and five channel tiles, and 1152): d_rel, d_features and
-    d_kernel_weights bitwise equal over two calls (d_rel has no float
-    atomics), each within rtol 3e-4 and an atol of 1e-5 of its largest of
-    the plain version; constant influence gives exact zeros (written by
-    the kernel: the wrapper zeroes nothing); one d_rel launch a call."""
+    """``kpconv_bwd_drel`` (C = 72 and 144, the GAN's level-0 widths, one
+    and two channel tiles, and 1152, 16 tiles) and the edges of its tiling
+    (DREL_CASES): d_rel, d_features and d_kernel_weights bitwise equal over
+    two calls (d_rel has no float atomics), each within rtol 3e-4 and an
+    atol of 1e-5 of its largest of the plain version, and d_rel so of the
+    plain version in float64 too; constant influence gives exact zeros
+    (written by the kernel: the wrapper zeroes nothing); one d_rel launch
+    a call."""
     arrays, g = _backward_edge_inputs(np.random.default_rng(46), influence,
                                       case)
     arrays, g = [a.to(card) for a in arrays], g.to(card)
@@ -823,11 +851,16 @@ def test_kpconv_drel_is_deterministic_and_matches_plain(card, influence,
                                            need_rel=True)
     want = tkp.kpconv_aggregate_backward_plain(*arrays, g, 0.12, influence,
                                                need_rel=True)
+    want64 = tkp.kpconv_aggregate_backward_plain(
+        *[a.double() if a.is_floating_point() else a for a in arrays],
+        g.double(), 0.12, influence, need_features=False,
+        need_kernel_weights=False, need_rel=True)[2]
     torch.cuda.synchronize()
     assert tkp.kpconv_aggregate_backward.launches_drel == before + 2
     for a, b, w in zip(first, second, want):
         assert torch.equal(a, b)
         _assert_grad_close(a, w, 3e-4, 1e-5)
+    _assert_grad_close(first[2], want64.float(), 3e-4, 1e-5)
     if influence == "constant":
         assert first[2].abs().max().item() == 0
     else:

@@ -137,15 +137,55 @@ def _coincident_inputs(rng):
     return arrays
 
 
-@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
-def test_rel_gradient_matches_jax_grad_of_reference(influence):
-    """d_rel against jax.grad of kpconv_aggregate_reference (the oracle
-    path, which the JAX model takes with use_pallas off), rtol 3e-4 and an
-    atol of 3e-5 of the largest entry: d_rel scales with 1 / extent."""
-    rng = np.random.default_rng(15)
-    arrays = _coincident_inputs(rng)
+# corners of kpconv_bwd_drel's tiling, where its chunks of 8 edges and
+# groups of 8 channels are cut ragged: name -> (K, C, P, layout) on B=2,
+# M=6, N=11; "clamp" puts every other neighbour far out (the linear
+# influence clamped), "coincide" puts two neighbours exactly on kernel
+# points (d = 0), "masked" masks every edge of one query
+REL_CORNERS = {
+    "K1": (1, 8, 15, "random"),
+    "K8": (8, 8, 15, "random"),
+    "K9": (9, 13, 15, "random"),
+    "C13": (7, 13, 15, "random"),
+    "P1": (9, 8, 1, "random"),
+    "clamp": (9, 13, 15, "clamp"),
+    "coincide": (8, 8, 15, "coincide"),
+    "masked_query": (9, 8, 15, "masked"),
+}
+INFLUENCES = ("linear", "gaussian", "constant")
+REL_CASES = ([pytest.param(None, i, id=i) for i in INFLUENCES]
+             + [pytest.param(c, i, id=f"{c}-{i}")
+                for c in sorted(REL_CORNERS) for i in INFLUENCES])
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _corner_inputs(rng, K, C, P, layout):
+    arrays = list(_inputs(rng, B=2, M=6, K=K, C=C, P=P, N=11))
+    rel, mask, kp = arrays[2], arrays[3], arrays[4]
+    if layout == "clamp":
+        rel[:, :, ::2] *= 4.0
+        assert (np.linalg.norm(rel[..., None, :] - kp, axis=-1)
+                >= 0.12).mean() > 0.3
+    elif layout == "coincide":  # on the first and the last kernel point
+        rel[:, 1, 0] = kp[0]
+        rel[:, 1, -1] = kp[-1]
+        mask[:, 1] = 1.0
+    elif layout == "masked":
+        mask[:, 2] = 0.0
+    return arrays
+
+
+def _rel_grads(arrays, g, influence):
+    """d_rel of jax.grad of kpconv_aggregate_reference and of the port's
+    autograd (its plain backward on the CPU)."""
     feat, idx, rel, mask, kp, kw = arrays
-    g = rng.normal(size=(2, 12, 5)).astype(np.float32)
 
     def ref(r):
         grouped = jnp.take_along_axis(
@@ -162,15 +202,46 @@ def test_rel_gradient_matches_jax_grad_of_reference(influence):
                                         for a in (mask, kp, kw)),
                                0.12, influence)
     out.backward(torch.from_numpy(g))
-    got = t_rel.grad.numpy()
+    return t_rel.grad.numpy(), want
+
+
+@pytest.mark.parametrize("corner,influence", REL_CASES)
+def test_rel_gradient_matches_jax_grad_of_reference(corner, influence,
+                                                    one_thread):
+    """d_rel against jax.grad of kpconv_aggregate_reference (the oracle
+    path, which the JAX model takes with use_pallas off), rtol 3e-4 and an
+    atol of 3e-5 of the largest entry: d_rel scales with 1 / extent.  On
+    inputs with two coincident neighbours, and at REL_CORNERS, the shapes
+    and layouts that cut kpconv_bwd_drel's tiling ragged (the plain d_rel
+    here is what the card holds the kernel to)."""
+    if corner is None:
+        rng = np.random.default_rng(15)
+        arrays = _coincident_inputs(rng)
+        g = rng.normal(size=(2, 12, 5)).astype(np.float32)
+    else:
+        rng = np.random.default_rng(31)
+        K, C, P, layout = REL_CORNERS[corner]
+        arrays = _corner_inputs(rng, K, C, P, layout)
+        g = rng.normal(size=(2, 6, C)).astype(np.float32)
+    got, want = _rel_grads(arrays, g, influence)
     assert np.isfinite(want).all()
     if influence == "constant":
         assert np.abs(want).max() == 0 and np.abs(got).max() == 0
         return
-    assert np.abs(want).max() > 1.0
+    assert np.abs(want).max() > (1.0 if corner is None else 0.0)
     np.testing.assert_allclose(got, want, rtol=3e-4,
                                atol=3e-5 * np.abs(want).max())
-    np.testing.assert_array_equal(got[0, 0, 0] == 0, want[0, 0, 0] == 0)
+    if corner is None:
+        np.testing.assert_array_equal(got[0, 0, 0] == 0, want[0, 0, 0] == 0)
+    elif corner == "masked_query":
+        assert np.abs(got[:, 2]).max() == 0 and np.abs(want[:, 2]).max() == 0
+    elif corner == "coincide" and influence == "linear":
+        # kernel point 0's term vanishes (zero subgradient at d = 0) in both
+        feat, idx, rel, mask, kp, kw = arrays
+        others, _ = _rel_grads([feat, idx, rel, mask, kp[1:], kw[1:]], g,
+                               influence)
+        np.testing.assert_allclose(got[:, 1, 0], others[:, 1, 0], rtol=1e-6,
+                                   atol=1e-6 * np.abs(got).max())
 
 
 def test_rel_gradient_float64_gradcheck():
