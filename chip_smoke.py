@@ -254,7 +254,31 @@ eighteen phases (phase 9b after 9), each printed with its wall time:
    SPATIAL_GAN_STEPS steps each, also on one NCCL rank, against one
    process: ranks bitwise equal, the first losses within
    PAR_FIRST_LOSS_RTOL, 40 forward, 30 backward and 3 ``kpconv_bwd_drel``
-   launches per update on each rank.
+   launches per update on each rank.  Every aggregation operator and the
+   Chamfer losses point-sharded (this slice's paths): (e) after (a), on
+   an idle card: the same cloud by ``infer --spatial`` of
+   SPATIAL_OP_CONFIG (PosPool, width 144, depth 2) from seeded weights
+   (``seeded_operator_model``: the gates and the head's final Dense O(1))
+   in this process: offsets finite, no KPConv launch, wall s, device ms
+   and busy share under the profiler, peak GiB beside (a)'s PseudoGrid
+   figures; then in (b-d)'s torchrun job: the same by ``infer --spatial
+   --multihost``, within MODEL_TOL of one process, the all-gathers' count,
+   bytes and ms per rank; (f) the forwards of SPATIAL_OPERATORS (adaptive
+   weight, PointWiseMLP and the ten attention types; CAA built for the
+   cloud's slots) at depth SPATIAL_OP_DEPTH on the SPATIAL_TRAIN_POINTS
+   cloud against the part's process: in float64 (positions float32)
+   within MODEL_TOL, in float32 element by element within the larger of
+   MODEL_TOL and three times the one-process float32 noise at the element
+   (``grad_check.check_forward``; every operator's result is printed
+   before a miss fails the run), but SPATIAL_FLOAT32_BY_TENSOR's by the
+   whole tensor within three times that noise; no launch, its device ms
+   and each rank's all-gathered and reduce-scattered bytes; (g)
+   point-sharded training of SPATIAL_CHAMFER_CONFIG (loss ``chamfer``,
+   PseudoGrid, width 144, depth 2) on that cloud for SPATIAL_TRAIN_STEPS
+   Adam steps: the ranks bitwise equal, the first loss within
+   PAR_FIRST_LOSS_RTOL of the part's process, 10 forward and 10 backward
+   launches a step on each rank, device ms a step and busy share under
+   the profiler.  Each rank prints the wall time of (e), (f) and (g).
 19. the 2-D layout, the ``custom_cfgs`` sweep and the classification and
    part-segmentation heads (this slice's paths): (a) in the second part
    after 12, one torchrun job of MESH2D_DATA x MESH2D_POINTS gloo ranks
@@ -310,11 +334,11 @@ eighteen phases (phase 9b after 9), each printed with its wall time:
    same checkpoint; then device ms per train step (profiler) in bf16 and
    in float32 from the same weights.
 
-Phases 1-8, phase 9's trainings, 9b(a), 14(a) and 18(a) run first, one
-after another.  Then five processes run the rest at once: this one runs
-10, 16 and phase 9's voting, and four started with ``--part`` run 13 and
-19(b), then 11, 12, 19(a) and 19(c), then 9b(b-d), 14(b-e) and 15, then
-17 and 18(b-d).  Each of the first three works on a
+Phases 1-8, phase 9's trainings, 9b(a), 14(a), 18(a) and 18(e)'s
+one-process run go first, one after another.  Then five processes run the
+rest at once: this one runs 10, 16 and phase 9's voting, and four started
+with ``--part`` run 13 and 19(b), then 11, 12, 19(a) and 19(c), then
+9b(b-d), 14(b-e) and 15, then 17 and 18(b-g).  Each of the first three works on a
 copy of phase 9's meshes and uses phase 9's generator; the fourth works
 on a copy of phase 8's tree.  Their output is printed when they end, and
 they are killed if this process fails.  So the kernels' times of the
@@ -337,8 +361,8 @@ alone (on a shape tree of its own) and prints the phase's numbers.
 ``--only-export`` runs phases 1, 2, 8 and 16 (phase 16 on a shape tree of
 its own and a cleaning checkpoint trained as phase 10 trains it) and prints
 the phase's numbers; ``--only-parallel`` runs phases 1, 2 and 17;
-``--only-spatial`` runs phases 1, 2, 8 and 18 and prints the phase's
-numbers; ``--only-mesh2d`` runs phases 1, 2, 8 and 19 and prints the
+``--only-spatial`` runs phases 1, 2, 8 and 18 (a)-(g) and prints the
+phase's numbers; ``--only-mesh2d`` runs phases 1, 2, 8 and 19 and prints the
 phase's numbers.
 
 ``python3 chip_smoke.py --only-kernels`` runs phases 1-3, 6 and 9b(a) (its
@@ -412,7 +436,8 @@ from deep3dpointclouddenoising_torch.ops.kpconv import (
     kpconv_aggregate_backward_plain, kpconv_aggregate_plain)
 from deep3dpointclouddenoising_torch.parallel.dist import (
     all_gather_points, initialize_distributed, local_device, make_mesh_2d,
-    point_rows, process_slice, shutdown_distributed, world_size)
+    point_rows, process_slice, reduce_scatter_points, shutdown_distributed,
+    world_size)
 from deep3dpointclouddenoising_torch.parallel.spatial import (
     build_spatial_forward, build_spatial_model, gather_points)
 from deep3dpointclouddenoising_torch.parallel.dist import rank as dist_rank
@@ -632,6 +657,26 @@ SPATIAL_TRAIN_POINTS = 16384
 SPATIAL_TRAIN_STEPS = 2
 SPATIAL_GAN_STEPS = 2
 SPATIAL_SEED = 18
+# 18(e)-(g) (every aggregation operator and the Chamfer losses
+# point-sharded): (e) SPATIAL_OP_CONFIG (width 144, depth 2) served by
+# ``infer --spatial`` on SPATIAL_SHAPE from seed SPATIAL_SEED's weights, in
+# one process and on PAR_WORLD gloo ranks; (f) the forwards of
+# SPATIAL_OPERATORS at width 144, depth SPATIAL_OP_DEPTH (cut from 2), on
+# the SPATIAL_TRAIN_POINTS-point cloud; (g) SPATIAL_CHAMFER_CONFIG (loss
+# ``chamfer``, PseudoGrid, width 144, depth 2) trained point-sharded for
+# SPATIAL_TRAIN_STEPS Adam steps on that cloud.  Dense attention is not
+# run at SPATIAL_PAD slots: one (N, N) float32 matrix is ~80 GB there
+SPATIAL_OP_CONFIG = "pospool_sincos_avg"
+SPATIAL_OPERATORS = ("adaptiveweight_dp_fc1_avg", "pointwisemlp_dp_fj_max",
+                     "NOLO", "CRCR", "SEAT", "CBAM", "DUAT", "ASCN", "POAT",
+                     "OFAT", "CAA", "POTR")
+# 18(f)'s operators whose float32 2-rank forward leaves MODEL_TOL and three
+# times the one-process float32 noise at an element (on the H100: Criss-cross
+# by 2.4x, Dual-attention 6.0x, Offset-attention 1.04x) while the float64
+# forwards agree element by element: held in float32 by the whole tensor
+SPATIAL_FLOAT32_BY_TENSOR = ("CRCR", "DUAT", "OFAT")
+SPATIAL_OP_DEPTH = 1
+SPATIAL_CHAMFER_CONFIG = "synthetic_quality_chamfer"
 # phase 19 (the 2-D layout, the custom_cfgs sweep, the classification and
 # part-segmentation heads): (a) MESH2D_DATA x MESH2D_POINTS gloo ranks
 # sharing the card, MESH2D_BATCH clouds of SPATIAL_TRAIN_POINTS points,
@@ -4822,10 +4867,10 @@ def spatial_tree(root: str) -> str:
 
 
 def spatial_infer_argv(data_root: str, out_dir: str, checkpoint: str,
-                       *extra):
+                       *extra, config: str = CONFIG):
     """``infer --spatial`` of SPATIAL_SHAPE at gaussian SPATIAL_LEVEL with
-    ``checkpoint`` (l1.yaml), no routing."""
-    return ["--config_file", CONFIG, "--data_root", data_root, "--out_dir",
+    ``checkpoint`` (of ``config``, l1.yaml by default), no routing."""
+    return ["--config_file", config, "--data_root", data_root, "--out_dir",
             out_dir, "--checkpoint", checkpoint, "--checkpoint_low", "none",
             "--noise_type", "gaussian", "--noise_level", str(SPATIAL_LEVEL),
             "--spatial", *extra]
@@ -5093,8 +5138,12 @@ def spatial_rank(spec_path: str) -> int:
     that command (``infer --spatial --multihost``, its launches and its
     all-gathers counted, the offsets saved), then the all-gather's time at
     the stem's level-0 rows; with ``spec["train"]`` point-sharded
-    training; with ``spec["gan"]`` :func:`gan_dp_runs` with
-    ``--multihost``.  Writes its record to ``<out>/rank<r>.json``."""
+    training; with ``spec["infer_op"]``, ``spec["operators"]`` and
+    ``spec["chamfer"]`` 18(e)'s command likewise, 18(f)'s forwards
+    (:func:`operator_forwards`, the outputs saved) and 18(g)'s training
+    (:func:`chamfer_training` with its profiler window); with
+    ``spec["gan"]`` :func:`gan_dp_runs` with ``--multihost``.  Writes its
+    record to ``<out>/rank<r>.json``."""
     with open(spec_path) as f:
         spec = json.load(f)
     initialize_distributed(spec["device"], spec["backend"])
@@ -5119,6 +5168,39 @@ def spatial_rank(spec_path: str) -> int:
                 SPATIAL_PAD, int(load_config(CONFIG).width) // 2, device)
         if spec.get("train"):
             out["train"] = spatial_training(device, True)
+        if spec.get("infer_op"):  # 18(e)
+            t0 = time.perf_counter()
+            reset_launches()
+            all_gather_points.calls = all_gather_points.bytes = 0
+            summary = infer.main(spec["infer_op"])
+            torch.cuda.synchronize(device)
+            out["infer_op"] = {"seconds": summary["seconds"],
+                               "launches": list(launch_counts()),
+                               "gathers": all_gather_points.calls,
+                               "gather_bytes": all_gather_points.bytes}
+            np.save(os.path.join(spec["out"], f"op_offsets{r}.npy"),
+                    summary["results"][0]["offsets"])
+            out["infer_op"]["gather_ms_level0_stem"] = allgather_ms(
+                SPATIAL_PAD, int(load_config(config_path(
+                    SPATIAL_OP_CONFIG)).width) // 2, device)
+            print(f"[rank {r}] 18(e): {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+        if spec.get("operators"):  # 18(f)
+            t0 = time.perf_counter()
+            ops = operator_forwards(device, True)
+            for name, rec in ops.items():
+                for key in ("output", "output64"):
+                    np.save(os.path.join(spec["out"],
+                                         f"op_{name}_{key}_{r}.npy"),
+                            rec.pop(key))
+            out["operators"] = ops
+            print(f"[rank {r}] 18(f): {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+        if spec.get("chamfer"):  # 18(g)
+            t0 = time.perf_counter()
+            out["chamfer"] = chamfer_training(device, True, window=True)
+            print(f"[rank {r}] 18(g): {time.perf_counter() - t0:.3f} s",
+                  flush=True)
         if spec.get("gan"):
             backend = ["--dist_backend", spec["backend"]] \
                 if spec["backend"] else []
@@ -5179,15 +5261,18 @@ def check_gan_dp(name: str, ranks: list, one: dict) -> dict:
 
 
 def phase_spatial_parallel(device, workdir, checkpoint, data_root, tree,
-                           offsets_one) -> tuple:
-    """18(b-d), after 18(a) (``offsets_one``, on ``data_root``): one
-    torchrun job of PAR_WORLD gloo ranks sharing the card runs (b)
-    ``infer --spatial --multihost`` of the same cloud, within MODEL_TOL of
-    (a), 10 forward launches per rank, its all-gathers' bytes and ms;
-    (c) point-sharded training on SPATIAL_TRAIN_POINTS points against
-    :func:`spatial_training` in this process, the first loss within
-    PAR_FIRST_LOSS_RTOL, the ranks bitwise equal, 10 forward and 10
-    backward launches per step per rank; (d) :func:`gan_dp_runs` on
+                           offsets_one, op_checkpoint, op_offsets_one
+                           ) -> tuple:
+    """18(b-d) and 18(e)-(g), after 18(a) (``offsets_one``) and 18(e)'s
+    one-process run (``op_checkpoint``, ``op_offsets_one``), on
+    ``data_root``: one torchrun job of PAR_WORLD gloo ranks sharing the
+    card runs (b) ``infer --spatial --multihost`` of the same cloud,
+    within MODEL_TOL of (a), 10 forward launches per rank, its
+    all-gathers' bytes and ms; (c) point-sharded training on
+    SPATIAL_TRAIN_POINTS points against :func:`spatial_training` in this
+    process, the first loss within PAR_FIRST_LOSS_RTOL, the ranks bitwise
+    equal, 10 forward and 10 backward launches per step per rank; (e)-(g)
+    (:func:`check_spatial_operators`); (d) :func:`gan_dp_runs` on
     ``tree`` (phase 8's) with ``checkpoint`` as the generator; then (d) on
     one NCCL rank, and (d) in this process, both from the gloo job's
     discriminator checkpoint: :func:`check_gan_dp`.  Returns the phase's
@@ -5201,8 +5286,14 @@ def phase_spatial_parallel(device, workdir, checkpoint, data_root, tree,
             data_root, os.path.join(workdir, "spatial_out_gloo"), checkpoint,
             "--multihost", "--dist_backend", "gloo", "--device",
             f"{PAR_DEVICE}:0"),
+        "infer_op": spatial_infer_argv(
+            data_root, os.path.join(workdir, "spatial_op_out_gloo"),
+            op_checkpoint, "--multihost", "--dist_backend", "gloo",
+            "--device", f"{PAR_DEVICE}:0",
+            config=config_path(SPATIAL_OP_CONFIG)),
+        "operators": True, "chamfer": True,
         "train": True, "gan": True, "tree": tree, "generator": checkpoint},
-        "18(b-d) gloo", "--spatial-rank")
+        "18(b-d), 18(e)-(g) gloo", "--spatial-rank")
     two = np.load(os.path.join(workdir, "spatial_gloo", "offsets0.npy"))
     other = np.load(os.path.join(workdir, "spatial_gloo", "offsets1.npy"))
     if not np.array_equal(two, other):
@@ -5243,6 +5334,7 @@ def phase_spatial_parallel(device, workdir, checkpoint, data_root, tree,
           f"bitwise equal, losses {gloo[0]['train']['losses']} against one "
           f"process {one_train['losses']}; launches per rank "
           f"{gloo[0]['train']['launches']}", flush=True)
+    operators = check_spatial_operators(gloo, device, workdir, op_offsets_one)
     disc_ckpt = gloo[0]["gan"]["disc"]["checkpoint"]
     nccl = run_torchrun(1, {
         "device": PAR_DEVICE, "backend": None,
@@ -5261,16 +5353,361 @@ def phase_spatial_parallel(device, workdir, checkpoint, data_root, tree,
         "gather_ms_level0_stem": inf["gather_ms_level0_stem"]},
         "training": {"losses": gloo[0]["train"]["losses"],
                      "one_process_losses": one_train["losses"]},
+        "operators": operators,
         "gan_gloo": check_gan_dp("18(d) gloo", gloo, one_gan),
         "gan_nccl": check_gan_dp("18(d) nccl", nccl, one_gan)}
     launches = {
         "spatial_serving_gloo_rank0": gloo[0]["infer"]["launches"],
         "spatial_training_gloo_rank0": gloo[0]["train"]["launches"],
+        "spatial_pospool_serving_gloo_rank0": gloo[0]["infer_op"]["launches"],
+        **{f"spatial_{name}_forward_gloo_rank0":
+           gloo[0]["operators"][name]["launches"]
+           for name in SPATIAL_OPERATORS},
+        "spatial_chamfer_training_gloo_rank0": gloo[0]["chamfer"]["launches"],
         "disc_dp_gloo_rank0": gloo[0]["gan"]["disc"]["launches"],
         "gan_dp_gloo_rank0": gloo[0]["gan"]["gan"]["launches"],
         "disc_dp_nccl_rank0": nccl[0]["gan"]["disc"]["launches"],
         "gan_dp_nccl_rank0": nccl[0]["gan"]["gan"]["launches"]}
     return out, launches
+
+
+def config_path(name: str) -> str:
+    return os.path.join(ROOT, "cfgs", name + ".yaml")
+
+
+def seeded_operator_model(cfg, spatial: bool = False,
+                          seed: int = SPATIAL_SEED):
+    """The offset model of ``cfg`` (``parallel.spatial``'s with
+    ``spatial``, whose parameters are the plain model's) from generator
+    seed ``seed``, its attention gates (zero at init, which would make
+    each gated operator the identity) and its head's final Dense (1e-4 at
+    init, under MODEL_TOL's atol) drawn O(1) from numpy seed ``seed``: the
+    same weights in every process."""
+    g = torch.Generator().manual_seed(seed)
+    model = build_spatial_model(cfg, generator=g) if spatial \
+        else build_offset_regression(cfg, g)
+    grad_check.draw_gates_and_head(model, np.random.default_rng(seed))
+    return model
+
+
+def operator_config(name: str):
+    """18(f)'s ``cfgs/<name>.yaml``: the spatial schedule of
+    SPATIAL_TRAIN_POINTS slots (CAA's point-axis layers built for them),
+    depth SPATIAL_OP_DEPTH."""
+    cfg = infer.spatial_config(load_config(config_path(name)),
+                               SPATIAL_TRAIN_POINTS)
+    cfg.depth = SPATIAL_OP_DEPTH
+    return cfg
+
+
+def phase_spatial_operator_serving(device, workdir, data_root,
+                                   pseudogrid: dict):
+    """18(e) in this process, on an idle card: SPATIAL_SHAPE (the split
+    ``data_root`` of 18(a)) denoised by ``infer --spatial`` of
+    SPATIAL_OP_CONFIG (PosPool, width 144, depth 2) from
+    :func:`seeded_operator_model`'s weights, written to a checkpoint that
+    18(e)'s ranks load too: every offset finite, no KPConv launch (PosPool
+    reaches no kernel); wall s, peak GiB, then a second forward under the
+    profiler (device ms, busy share), beside 18(a)'s PseudoGrid figures
+    (``pseudogrid``).  Returns the phase's numbers, the offsets and the
+    checkpoint."""
+    path = config_path(SPATIAL_OP_CONFIG)
+    cfg = load_config(path)
+    ckpt = os.path.join(workdir, SPATIAL_OP_CONFIG + "_seeded.pt")
+    torch.save(seeded_operator_model(cfg).state_dict(), ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    all_gather_points.calls = all_gather_points.bytes = 0
+    summary = infer.run(path, data_root, os.path.join(workdir,
+                                                      "spatial_op_out"),
+                        ckpt, device=device, noise_type="gaussian",
+                        noise_level=SPATIAL_LEVEL, checkpoint_low="none",
+                        spatial=True)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    dataset, res = summary["dataset"], summary["results"][0]
+    n = len(dataset.shapes[0].points)
+    if (n, -(-n // 2048) * 2048) != (SPATIAL_POINTS, SPATIAL_PAD):
+        raise AssertionError(f"18(e): {n} points")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"18(e): PosPool launched {launches}")
+    if res["offsets"].shape != (n, 3) \
+            or not np.isfinite(res["offsets"]).all():
+        raise AssertionError("18(e): bad offsets")
+    seconds = summary["seconds"]
+    state = load_model_state(ckpt)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = infer.denoise_clouds_spatial(state, cfg, dataset, device)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    if not np.array_equal(again[0]["offsets"], res["offsets"]):
+        raise AssertionError("18(e): a second spatial forward gave other "
+                             "offsets")
+    window = window_summary("18(e) PosPool spatial forward", prof, wall2, 1)
+    out = {"config": SPATIAL_OP_CONFIG, "points": n, "slots": SPATIAL_PAD,
+           "seconds": seconds, "points_per_s": n / seconds,
+           "peak_gib": peak, "forward_launches": launches[0],
+           "profiled_wall_s": wall2,
+           "offsets_max_abs": float(np.abs(res["offsets"]).max())}
+    if window is not None:
+        out["device_ms"], out["busy"] = window
+    pg = pseudogrid
+    print(f"18(e) {SPATIAL_OP_CONFIG} {SPATIAL_SHAPE}: {n} points in "
+          f"{SPATIAL_PAD} slots, one spatial forward in one process: "
+          f"{seconds:.3f} s wall = {n / seconds:.1f} points/s, device "
+          + (f"{out['device_ms']:.3f} ms (busy {out['busy']:.3f})"
+             if window is not None else "not measured")
+          + f", {launches[0]} KPConv launches, peak {peak:.3f} GiB; 18(a) "
+          f"PseudoGrid: {pg['seconds']:.3f} s, device "
+          + (f"{pg['device_ms']:.3f} ms" if "device_ms" in pg
+             else "not measured") + f", peak {pg['peak_gib']:.3f} GiB",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, res["offsets"], ckpt
+
+
+def operator_forwards(device, spatial: bool) -> dict:
+    """18(f): each of SPATIAL_OPERATORS' eval forward of
+    :func:`spatial_train_batch` from :func:`seeded_operator_model`'s
+    weights, point-sharded over the process group with ``spatial`` (the
+    output gathered whole), else in one process: {name: output, the same
+    forward in float64 (``output64``, positions float32, the head's output
+    rounded to float32), launches, seconds, the collectives' counts and
+    bytes, device ms in one process}."""
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in spatial_train_batch().items()}
+    out = {}
+    for name in SPATIAL_OPERATORS:
+        model = seeded_operator_model(operator_config(name), spatial)
+        model = model.to(device).eval()
+
+        def fwd():
+            with torch.no_grad():
+                return model(batch["points"], batch["mask"],
+                             batch["features"])
+
+        reset_launches()
+        all_gather_points.calls = all_gather_points.bytes = 0
+        reduce_scatter_points.calls = reduce_scatter_points.bytes = 0
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        y = fwd()
+        torch.cuda.synchronize(device)
+        rec = {"seconds": time.perf_counter() - t0,
+               "launches": list(launch_counts()),
+               "gathers": all_gather_points.calls,
+               "gather_bytes": all_gather_points.bytes,
+               "reduce_scatters": reduce_scatter_points.calls,
+               "reduce_scatter_bytes": reduce_scatter_points.bytes}
+        if not spatial:
+            rec["device_ms"] = cuda_ms(fwd, 2, 1)
+        model = grad_check.float64_copy(model)
+        with torch.no_grad():
+            y64 = model(batch["points"], batch["mask"],
+                        batch["features"].double())
+        for key, v in (("output", y), ("output64", y64)):
+            if spatial:
+                v = gather_points(v, SPATIAL_TRAIN_POINTS)
+            rec[key] = v.cpu().numpy()
+        out[name] = rec
+        del model, y, y64
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def chamfer_training(device, spatial: bool, window: bool = False) -> dict:
+    """18(g): SPATIAL_TRAIN_STEPS Adam steps of SPATIAL_CHAMFER_CONFIG's
+    Trainer (the spatial schedule of SPATIAL_TRAIN_POINTS slots, B=1) from
+    its seed's init on :func:`spatial_train_batch`, point-sharded over the
+    process group with ``spatial``: losses, launches, all-gathers, the end
+    state's hashes; with ``window``, then a profiler window of steps."""
+    cfg = infer.spatial_config(load_config(config_path(
+        SPATIAL_CHAMFER_CONFIG)), SPATIAL_TRAIN_POINTS)
+    cfg.batch_size = 1
+    if cfg.loss != "chamfer":
+        raise AssertionError(f"18(g): {SPATIAL_CHAMFER_CONFIG} trains "
+                             f"{cfg.loss}")
+    tt = Trainer(cfg, 10, torch.Generator().manual_seed(int(cfg.rng_seed)),
+                 device, spatial=spatial)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in spatial_train_batch().items()}
+    reset_launches()
+    all_gather_points.calls = all_gather_points.bytes = 0
+    losses = [tt.train_step(batch).item() for _ in range(SPATIAL_TRAIN_STEPS)]
+    out = {"losses": losses, "launches": list(launch_counts()),
+           "gathers": all_gather_points.calls,
+           "gather_bytes": all_gather_points.bytes,
+           "hashes": state_hashes(tt.model.state_dict())}
+    if window:
+        out["window"] = profile_window(
+            f"18(g) rank {dist_rank()} Chamfer step",
+            lambda: tt.train_step(batch), 2, timed=2)
+    return out
+
+
+def check_spatial_operators(ranks: list, device, workdir,
+                            offsets_one) -> dict:
+    """18(e)-(g)'s checks of the ranks' records against this process: (e)
+    the PosPool offsets of ``infer --spatial --multihost`` within
+    MODEL_TOL of 18(e)'s ``offsets_one``, the ranks' equal, no launch;
+    (f) each operator's float64 forward within MODEL_TOL of
+    :func:`operator_forwards`' in this process and its float32 forward
+    element by element within the larger of MODEL_TOL and three times the
+    one-process float32 noise (``grad_check.check_forward``; every
+    operator is checked and printed before the misses fail), but
+    SPATIAL_FLOAT32_BY_TENSOR's by the whole tensor
+    (``grad_check.check_forward_tensor``), no launch;
+    (g) the ranks' states and losses bitwise
+    equal, the first loss within PAR_FIRST_LOSS_RTOL of
+    :func:`chamfer_training` in this process, 10 forward and 10 backward
+    launches a step on each rank.  Returns the numbers."""
+    out = {}
+    t0 = time.perf_counter()
+    two = [np.load(os.path.join(workdir, "spatial_gloo",
+                                f"op_offsets{r['rank']}.npy"))
+           for r in ranks]
+    if not all(np.array_equal(two[0], o) for o in two):
+        raise AssertionError("18(e): the ranks' offsets differ")
+    err, _ = check_close(torch.from_numpy(two[0]),
+                         torch.from_numpy(offsets_one),
+                         what="18(e) 2 ranks against one process",
+                         **MODEL_TOL)
+    for r in ranks:
+        if r["infer_op"]["launches"] != [0, 0, 0]:
+            raise AssertionError(f"18(e): rank {r['rank']} launched "
+                                 f"{r['infer_op']['launches']}")
+    inf = ranks[0]["infer_op"]
+    out["pospool_serving_2_ranks"] = {
+        "seconds": inf["seconds"], "max_abs_from_one_process": err,
+        "offsets_max_abs": float(np.abs(offsets_one).max()),
+        "per_rank": [{k: r["infer_op"][k] for k in (
+            "seconds", "gathers", "gather_bytes", "gather_ms_level0_stem")}
+            for r in ranks]}
+    print(f"18(e) {SPATIAL_OP_CONFIG} on {PAR_WORLD} gloo ranks on one "
+          f"card: {SPATIAL_POINTS} points in {inf['seconds']:.3f} s wall; "
+          f"offsets within {err:.3e} of one process's (max abs; the "
+          f"offsets reach {np.abs(offsets_one).max():.3f}); per rank "
+          + "; ".join(f"rank {r['rank']}: {r['infer_op']['gathers']} "
+                      f"all-gathers, {r['infer_op']['gather_bytes']:,} bytes,"
+                      f" one of the stem's level-0 rows "
+                      f"{r['infer_op']['gather_ms_level0_stem']:.3f} ms"
+                      for r in ranks), flush=True)
+    one = operator_forwards(device, False)
+    ops, misses = {}, []
+    for name in SPATIAL_OPERATORS:
+        for r in ranks:
+            if r["operators"][name]["launches"] != [0, 0, 0]:
+                raise AssertionError(f"18(f) {name}: rank {r['rank']} "
+                                     f"launched "
+                                     f"{r['operators'][name]['launches']}")
+        got = {key: [torch.from_numpy(np.load(os.path.join(
+            workdir, "spatial_gloo", f"op_{name}_{key}_{r['rank']}.npy")))
+            for r in ranks] for key in ("output", "output64")}
+        if not all(torch.equal(v[0], g) for v in got.values() for g in v):
+            raise AssertionError(f"18(f) {name}: the ranks' outputs differ")
+        want = one[name]
+        want32, want64 = (torch.from_numpy(want[k])
+                          for k in ("output", "output64"))
+        # element by element: float64 within MODEL_TOL; float32 within the
+        # larger of MODEL_TOL and three times the one-process forward's own
+        # float32 noise at the element, as the ranks' (m, N) @ (N, C)
+        # products sum over the keys in another order than one process's
+        # (N, N) @ (N, C)
+        e, _ = check_close(got["output64"][0], want64,
+                           what=f"18(f) {name} on {PAR_WORLD} ranks against "
+                           "one process, float64", **MODEL_TOL)
+        try:
+            if name in SPATIAL_FLOAT32_BY_TENSOR:
+                f32 = grad_check.check_forward_tensor(got["output"][0],
+                                                      want32, want64)
+                f32_text = ("float32 by the whole tensor: max-abs "
+                            f"{f32['max_abs'][0]:.3e} (limit "
+                            f"{f32['max_abs'][1]:.3e}), L2 "
+                            f"{f32['l2'][0]:.3e} (limit {f32['l2'][1]:.3e})")
+            else:
+                f32 = grad_check.check_forward(got["output"][0], want32,
+                                               want64, **MODEL_TOL)
+                f32_text = (f"float32 worst element {f32['index']}: "
+                            f"{f32['diff']:.3e} (limit {f32['limit']:.3e})")
+        except AssertionError as exc:
+            f32 = f32_text = f"float32 MISSED: {exc}"
+            misses.append(f"{name}: {exc}")
+        rk = ranks[0]["operators"][name]
+        ops[name] = {"max_abs_from_one_process_float64": e,
+                     "float32": f32,
+                     "output_max_abs": float(np.abs(want["output"]).max()),
+                     "one_process_device_ms": want["device_ms"],
+                     "one_process_wall_s": want["seconds"],
+                     "rank_wall_s": rk["seconds"],
+                     "gathers_per_rank": rk["gathers"],
+                     "gather_bytes_per_rank": rk["gather_bytes"],
+                     "reduce_scatter_bytes_per_rank":
+                         rk["reduce_scatter_bytes"]}
+        print(f"18(f) {name} (depth {SPATIAL_OP_DEPTH}, "
+              f"{SPATIAL_TRAIN_POINTS} points): {PAR_WORLD} ranks within "
+              f"{e:.3e} of one process in float64 (output max "
+              f"{ops[name]['output_max_abs']:.3f}), {f32_text}; "
+              "one process "
+              f"{want['device_ms']:.3f} device ms a forward; a rank's "
+              f"forward {rk['seconds']:.3f} s wall, {rk['gathers']} "
+              f"all-gathers, {rk['gather_bytes']:,} bytes, "
+              f"{rk['reduce_scatter_bytes']:,} bytes reduce-scattered",
+              flush=True)
+    if misses:
+        raise AssertionError("18(f): float32 2-rank forwards off one "
+                             "process's: " + "; ".join(misses))
+    out["operators"] = ops
+    one_train = chamfer_training(device, False)
+    steps = SPATIAL_TRAIN_STEPS
+    for r in ranks:
+        t = r["chamfer"]
+        if t["hashes"] != ranks[0]["chamfer"]["hashes"] \
+                or t["losses"] != ranks[0]["chamfer"]["losses"]:
+            raise AssertionError(f"18(g): rank {r['rank']} ended apart")
+        if t["launches"] != [10 * steps, 10 * steps, 0]:
+            raise AssertionError(f"18(g): rank {r['rank']} launched "
+                                 f"{t['launches']}")
+    if one_train["launches"] != [10 * steps, 10 * steps, 0]:
+        raise AssertionError(f"18(g): one process launched "
+                             f"{one_train['launches']}")
+    first, want = ranks[0]["chamfer"]["losses"][0], one_train["losses"][0]
+    losses = ranks[0]["chamfer"]["losses"] + one_train["losses"]
+    if not np.isfinite(losses).all() \
+            or abs(first - want) > PAR_FIRST_LOSS_RTOL * abs(want):
+        raise AssertionError(f"18(g): first loss {first!r} against one "
+                             f"process {want!r}")
+    out["chamfer_training"] = {
+        "losses": ranks[0]["chamfer"]["losses"],
+        "one_process_losses": one_train["losses"],
+        "per_rank": [{"rank": r["rank"], "window": r["chamfer"]["window"],
+                      "gathers_per_step": r["chamfer"]["gathers"] // steps,
+                      "gather_bytes_per_step":
+                          r["chamfer"]["gather_bytes"] // steps}
+                     for r in ranks]}
+    print(f"18(g) point-sharded {SPATIAL_CHAMFER_CONFIG} training (loss "
+          f"chamfer), {SPATIAL_TRAIN_POINTS} points, B=1, {steps} Adam "
+          f"steps: {PAR_WORLD} ranks bitwise equal, losses "
+          f"{ranks[0]['chamfer']['losses']} against one process "
+          f"{one_train['losses']}; launches per rank "
+          f"{ranks[0]['chamfer']['launches']}; per rank "
+          + "; ".join(
+              f"rank {r['rank']}: step wall "
+              f"{r['chamfer']['window']['wall_ms']:.3f} ms, device "
+              + (f"{r['chamfer']['window']['device_ms']:.3f} ms, busy "
+                 f"{r['chamfer']['window']['busy']:.3f}"
+                 if "device_ms" in r["chamfer"]["window"]
+                 else "not measured")
+              + f", {r['chamfer']['gathers'] // steps} all-gathers a step"
+              for r in ranks), flush=True)
+    print(f"18(e)-(g) checks in this process: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return out
 
 
 def mesh2d_batch() -> dict:
@@ -5716,7 +6153,9 @@ def run_part(name: str, ctx: dict, device, smi: str) -> dict:
                     phase_spatial_parallel(
                         device, workdir, ctx["l1_ckpt"],
                         ctx["spatial_root"], train_data,
-                        np.load(ctx["spatial_offsets"]))
+                        np.load(ctx["spatial_offsets"]),
+                        ctx["spatial_op_ckpt"],
+                        np.load(ctx["spatial_op_offsets"]))
         elif name == "15k_seg":
             for key, title, fn in (("15k", "15k family", phase_15k),
                                    ("seg", "outlier segmentation",
@@ -5909,11 +6348,16 @@ def main(argv=None) -> int:
                                 "current.pt")
             serving, offsets, root, kernels = phase_spatial_serving(
                 cfg, device, workdir, ckpt)
+            op_serving, op_offsets, op_ckpt = \
+                phase_spatial_operator_serving(device, workdir, root,
+                                               serving)
             par, launches = phase_spatial_parallel(
                 device, workdir, ckpt, root,
-                os.path.join(workdir, "train_data"), offsets)
+                os.path.join(workdir, "train_data"), offsets, op_ckpt,
+                op_offsets)
         print(smi)
-        print(json.dumps({"spatial": dict(par, serving=serving),
+        print(json.dumps({"spatial": dict(par, serving=serving,
+                                          pospool_serving=op_serving),
                           "kernels_level0": kernels, "launches": launches}))
         return 0
     if argv == ["--only-mesh2d"]:
@@ -6001,10 +6445,16 @@ def main(argv=None) -> int:
                 spatial_kernels = phase_spatial_serving(
                     cfg, device, deploy_dir, l1_ckpt, serving_pps,
                     os.path.join(deploy_dir, "deploy"))
+        with phase("spatial PosPool serving"):  # 18(e), on an idle card
+            op_serving, op_offsets, op_ckpt = \
+                phase_spatial_operator_serving(device, deploy_dir,
+                                               spatial_root, spatial_serving)
         partdir = os.path.join(deploy_dir, "parts")
         os.makedirs(partdir)
         offsets_path = os.path.join(partdir, "spatial_offsets.npy")
         np.save(offsets_path, spatial_offsets)
+        op_offsets_path = os.path.join(partdir, "spatial_op_offsets.npy")
+        np.save(op_offsets_path, op_offsets)
         started = time.perf_counter()
         parts = start_parts({"tree": tree, "gen_ckpt": gen_ckpt,
                              "phase8_window": phase8_window,
@@ -6012,7 +6462,9 @@ def main(argv=None) -> int:
                                                         "train_data"),
                              "l1_ckpt": l1_ckpt,
                              "spatial_root": spatial_root,
-                             "spatial_offsets": offsets_path}, partdir)
+                             "spatial_offsets": offsets_path,
+                             "spatial_op_ckpt": op_ckpt,
+                             "spatial_op_offsets": op_offsets_path}, partdir)
         try:
             with phase("cleaning"):  # on phase 9's shape tree
                 cleaning = phase_cleaning(cfg, deploy_dir)
@@ -6038,19 +6490,22 @@ def main(argv=None) -> int:
     spatial_par, spatial_launches = res["spatial_par"], \
         res["spatial_launches"]
     drel_record.update(profile=res["gan_profile"])
-    # launches: this slice's paths (18(a)'s spatial serving, 18(c)'s
-    # point-sharded training on rank 0, 18(d)'s data-parallel GAN on gloo
-    # rank 0; each rank launches as many); every path's in the detail
+    # launches: this slice's path that reaches the kernels, 18(g)'s
+    # point-sharded Chamfer training on gloo rank 0 (each rank launches as
+    # many; 18(e) and 18(f) launch none, checked); every path's in the
+    # detail
     ds_fwd, ds_bwd, _ = path_pcn["device_sampled_training"]
     spatial_par["serving"] = spatial_serving
+    spatial_par["pospool_serving"] = op_serving
     # phase 19's paths: 19(a) rank 0's 2-D forward and steps, 19(b)'s
     # sweep processes, 19(c)'s heads; each (forward, backward, d_rel)
     slice19 = {**res["mesh2d_launches"], **res["sweep_launches"],
                **res["heads_launches"]}
     record.update(
-        launches=spatial_serving["forward_launches"],
+        launches=spatial_launches["spatial_chamfer_training_gloo_rank0"][0],
         launches_by_path={
             "spatial_serving": spatial_serving["forward_launches"],
+            "spatial_pospool_serving": op_serving["forward_launches"],
             **{k: v[0] for k, v in spatial_launches.items()},
             **{k: v[0] for k, v in par_launches.items()},
             "export_serving": export_fwd,
@@ -6074,9 +6529,9 @@ def main(argv=None) -> int:
         heads=res["heads"],
         device_us_by_cuda_events=device_us.by_cuda_events)
     bwd_record.update(
-        launches=spatial_launches["spatial_training_gloo_rank0"][1],
+        launches=spatial_launches["spatial_chamfer_training_gloo_rank0"][1],
         launches_by_path={
-            "spatial_serving": 0,
+            "spatial_serving": 0, "spatial_pospool_serving": 0,
             **{k: v[1] for k, v in spatial_launches.items()},
             **{k: v[1] for k, v in par_launches.items()},
             "export_serving": 0,

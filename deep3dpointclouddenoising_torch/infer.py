@@ -74,8 +74,9 @@ through ONE U-Net forward of the point-sharded spatial model
 (``parallel/spatial.py``), at the trained patch scale's geometry with the
 subsample capacities grown with the cloud (n/4, n/16, n/32, n/128).  Each
 point gets one prediction from the whole shape's context in place of an
-average over patches.  Offset regression only, and neither routing nor
-``--device_voting``.  It runs in one process, or split over torchrun's
+average over patches.  Every aggregation operator is served (a CAA model
+only at the slot counts it was built for).  Offset regression only, and
+neither routing nor ``--device_voting``.  It runs in one process, or split over torchrun's
 ranks with ``--multihost [--dist_backend nccl|gloo]``; then the
 coordinator alone writes the PLY trees and prints the result line::
 
@@ -424,6 +425,25 @@ def spatial_config(cfg: Config, n_pad: int) -> Config:
     return out
 
 
+def _check_slot_counts(model: torch.nn.Module,
+                       state_dict: Dict[str, torch.Tensor], n_pad: int
+                       ) -> None:
+    """Refuse weights whose shapes follow another slot count than the
+    spatial model's for ``n_pad`` slots: CAA's point-axis Dense layers
+    take the slot counts they were built for (JAX fails on the same
+    mismatch with a shape error)."""
+    mine = model.state_dict()
+    odd = [k for k, v in state_dict.items()
+           if k in mine and tuple(v.shape) != tuple(mine[k].shape)]
+    if odd:
+        raise ValueError(
+            f"a cloud of {n_pad} slots needs the spatial model's "
+            f"{tuple(mine[odd[0]].shape)} for {odd[0]}, and the weights "
+            f"hold {tuple(state_dict[odd[0]].shape)} ({len(odd)} such "
+            "tensors): a CAA model takes only the slot counts it was "
+            "built for")
+
+
 def denoise_clouds_spatial(state_dict: Dict[str, torch.Tensor], cfg: Config,
                            dataset: OffsetDataset, device=None,
                            size_bucket: int = 2048
@@ -448,6 +468,7 @@ def denoise_clouds_spatial(state_dict: Dict[str, torch.Tensor], cfg: Config,
         if n_pad not in forwards:
             model, forwards[n_pad] = build_spatial_forward(
                 spatial_config(cfg, n_pad), "offset_regression", device)
+            _check_slot_counts(model, state_dict, n_pad)
             model.load_state_dict(state_dict)
         pts = np.zeros((1, n_pad, 3), np.float32)
         pts[0, :n] = shape.points / f if f else shape.points

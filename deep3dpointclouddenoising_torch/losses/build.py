@@ -16,31 +16,38 @@ from typing import Callable
 import torch
 
 from .chamfer import (masked_adaptive_l1_chamfer_loss,
-                      masked_chamfer_l1_loss, masked_chamfer_loss)
+                      masked_chamfer_l1_loss, masked_chamfer_loss,
+                      masked_l1_term)
 from .masked import (masked_binary_cross_entropy, masked_l1_loss,
                      masked_offset_loss, masked_outlier_loss)
 
 LossFn = Callable[..., torch.Tensor]
 
 
-def get_offset_regression_loss(name: str) -> LossFn:
-    """loss(pred, target, mask, points) -> scalar."""
+def get_offset_regression_loss(name: str, spatial: bool = False,
+                               group=None) -> LossFn:
+    """loss(pred, target, mask, points) -> scalar.  With ``spatial`` (the
+    point-sharded model), ``pred`` is this rank's point rows (in
+    ``group``, every rank for ``None``) of the clouds whose whole
+    ``target``, ``mask`` and ``points`` the loss is given."""
+    sharding = dict(spatial=spatial, group=group) if spatial else {}
     if name == "L1":
         return lambda pred, target, mask, points=None: \
-            masked_l1_loss(pred, target, mask)
+            masked_l1_term(pred, target, mask, **sharding)
     if name == "chamfer_L1":
-        return masked_chamfer_l1_loss
+        return partial(masked_chamfer_l1_loss, **sharding)
     if name == "chamfer":
-        return masked_chamfer_loss
+        return partial(masked_chamfer_loss, **sharding)
     if name == "chamfer_sparse":
-        return partial(masked_chamfer_loss, norm_type="L1")
+        return partial(masked_chamfer_loss, norm_type="L1", **sharding)
     if name == "l1_chamfer_sparse":
-        return partial(masked_chamfer_l1_loss, norm_type="L1")
+        return partial(masked_chamfer_l1_loss, norm_type="L1", **sharding)
     if name == "l1_chamfer_adaptive_to_chamfer":
         return partial(masked_adaptive_l1_chamfer_loss,
-                       converging_to="chamfer")
+                       converging_to="chamfer", **sharding)
     if name == "l1_chamfer_adaptive_to_l1":
-        return partial(masked_adaptive_l1_chamfer_loss, converging_to="L1")
+        return partial(masked_adaptive_l1_chamfer_loss, converging_to="L1",
+                       **sharding)
     raise ValueError(f"The loss {name} is not implemented")
 
 

@@ -10,7 +10,14 @@ over padded (B, P, 3) clouds with float {0,1} masks:
 * each direction is a masked mean over valid points; the two directions
   add; the batch is reduced by ``batch_reduction``;
 * inside a process group the training losses are this rank's share of
-  the global batch's loss (``parallel/dist.py``).
+  the global batch's loss (``parallel/dist.py``);
+* in point-sharded training (``spatial=True``; ``train/trainer.py``)
+  ``pred`` is this rank's point rows of each cloud and ``target``,
+  ``mask`` and ``points`` are whole: the local denoised rows are matched
+  against the whole clean cloud, this rank's rows of the clean cloud
+  against the denoised cloud all-gathered whole (whose adjoint returns
+  each row's gradient to its owner), and each term is this rank's share
+  of the masked mean over the whole cloud.
 
 The nearest neighbour is searched without gradients and only the matched
 pair is recomputed with them: the gradient of ``min_j d(x, y_j)`` is that
@@ -34,8 +41,9 @@ import torch
 
 from ..ops.neighbors import (auto_chunk, auto_compact, compact_supports,
                             gather_rows, pairwise_sqdist)
-from ..parallel.dist import (all_reduce_sum, global_sum, is_distributed,
-                             replicated_share)
+from ..parallel.dist import (all_gather_points, all_reduce_sum,
+                             global_sum, group_size, is_distributed,
+                             point_rows, replicated_share)
 from .masked import masked_l1_loss
 
 _BIG = 1e10
@@ -123,14 +131,44 @@ def nearest_distances(x: torch.Tensor, y: torch.Tensor,
     return _nn_one_way(x, y, y_mask.float(), "L2", chunk)
 
 
+def _sharded_chamfer_per_item(pred: torch.Tensor, target: torch.Tensor,
+                               mask: torch.Tensor, points: torch.Tensor,
+                               norm_type: str, group) -> torch.Tensor:
+    """(B,) this rank's share of each cloud's Chamfer distance: ``pred``
+    its :func:`point_rows` in ``group`` of the clouds whose whole
+    ``target``, ``mask`` and ``points`` it is given; the shares of the
+    group's ranks sum to the per-item distance."""
+    n = points.shape[1]
+    rows = point_rows(n, group=group)
+    clean = points + target
+    denoised_rows = points[:, rows] + pred
+    denoised = all_gather_points(denoised_rows.contiguous(), n, group)
+    c_clean = _nn_one_way(clean[:, rows], denoised, mask, norm_type, None)
+    c_denoised = _nn_one_way(denoised_rows, clean, mask, norm_type, None)
+    mine = mask[:, rows]
+    count = torch.clamp(torch.sum(mask, dim=1), min=1.0)
+    return (torch.sum(c_clean * mine, dim=1) / count
+            + torch.sum(c_denoised * mine, dim=1) / count)
+
+
 def masked_chamfer_loss(pred: torch.Tensor, target: torch.Tensor,
                         mask: torch.Tensor, points: torch.Tensor,
-                        *, norm_type: str = "L2") -> torch.Tensor:
+                        *, norm_type: str = "L2", spatial: bool = False,
+                        group=None) -> torch.Tensor:
     """Chamfer distance between the clean patch (points + target) and the
     denoised one (points + pred), averaged over the batch; inside a
     process group, this rank's share: its items' sum over the number of
-    items on every rank."""
+    items on every rank.  With ``spatial``, ``pred`` is this rank's point
+    rows (in ``group``, every rank for ``None``) of the clouds whose
+    whole ``target``, ``mask`` and ``points`` it is given, and the share
+    is its rows' part of each cloud's distance over the batch's count of
+    clouds (each counted once, not once a rank of ``group``)."""
     mask = mask.float()
+    if spatial:
+        per_item = _sharded_chamfer_per_item(pred, target, mask, points,
+                                             norm_type, group)
+        items = global_sum(per_item.new_tensor(float(per_item.shape[0])))
+        return torch.sum(per_item) / (items / group_size(group))
     per_item = chamfer_distance(points + target, points + pred, mask, mask,
                                 norm_type=norm_type, batch_reduction=None)
     if not is_distributed():
@@ -139,30 +177,48 @@ def masked_chamfer_loss(pred: torch.Tensor, target: torch.Tensor,
         per_item.new_tensor(float(per_item.shape[0])))
 
 
+def masked_l1_term(pred, target, mask, *, spatial: bool = False,
+                   group=None) -> torch.Tensor:
+    """The masked L1 loss (this rank's share inside a process group);
+    with ``spatial``, of ``pred``'s rows (in ``group``) of the whole
+    ``target`` and ``mask``."""
+    if spatial:
+        rows = point_rows(target.shape[1], group=group)
+        target, mask = target[:, rows], mask[:, rows]
+    return masked_l1_loss(pred, target, mask)
+
+
 def masked_chamfer_l1_loss(pred, target, mask, points,
-                           *, norm_type: str = "L2") -> torch.Tensor:
-    """0.5 * (masked L1 + Chamfer distance)."""
+                           *, norm_type: str = "L2", spatial: bool = False,
+                           group=None) -> torch.Tensor:
+    """0.5 * (masked L1 + Chamfer distance); ``spatial`` and ``group`` as
+    :func:`masked_chamfer_loss`'s."""
     mask = mask.float()
-    l1 = masked_l1_loss(pred, target, mask)
+    l1 = masked_l1_term(pred, target, mask, spatial=spatial, group=group)
     cd = masked_chamfer_loss(pred, target, mask, points,
-                             norm_type=norm_type)
+                             norm_type=norm_type, spatial=spatial,
+                             group=group)
     return 0.5 * (l1 + cd)
 
 
 def masked_adaptive_l1_chamfer_loss(pred, target, mask, points,
-                                    *, converging_to: str = "chamfer"
+                                    *, converging_to: str = "chamfer",
+                                    spatial: bool = False, group=None
                                     ) -> torch.Tensor:
     """``l1 + exp(-l1) * cd`` (converging to the Chamfer distance) or
     ``cd + exp(-cd) * l1`` (converging to L1), with the L1-norm Chamfer
     distance so that the two terms are comparable.  Not linear in the
     batch: inside a process group both terms are summed over the ranks
-    first, and each rank returns its share of the global loss."""
+    first, and each rank returns its share of the global loss.
+    ``spatial`` and ``group`` as :func:`masked_chamfer_loss`'s."""
     if converging_to not in ("chamfer", "L1"):
         raise ValueError(f"Limit of loss {converging_to} not implemented")
     mask = mask.float()
-    l1 = all_reduce_sum(masked_l1_loss(pred, target, mask))
+    l1 = all_reduce_sum(masked_l1_term(pred, target, mask, spatial=spatial,
+                                       group=group))
     cd = all_reduce_sum(masked_chamfer_loss(pred, target, mask, points,
-                                            norm_type="L1"))
+                                            norm_type="L1", spatial=spatial,
+                                            group=group))
     if converging_to == "chamfer":
         return replicated_share(l1 + torch.exp(-l1) * cd)
     return replicated_share(cd + torch.exp(-cd) * l1)

@@ -13,6 +13,27 @@ BatchNorms use torch momentum 0.1 (Flax 0.9, ``_BN_MOM``), CBAM's spatial
 one 0.01 (Flax 0.99).  ``Dense`` layers start as Flax's default
 (``lecun_normal`` kernel, zero bias).  A max is ``amax`` (an even split of
 the gradient among ties, as ``jnp.max``).
+
+In the point-sharded spatial model (``parallel/spatial.py``) a global
+operator is given this rank's rows of a level and its
+:class:`..parallel.dist.PointShard` (``shard``), and reduces over the
+whole level, as GSPMD partitions JAX's: the row-softmax operators
+(Non-local, A-SCN, Point-attention, PAM, Criss-cross) all-gather their
+keys and values in one call and take each local query's softmax over
+every key (Criss-cross's ``-inf`` at the query's global column);
+Offset-attention all-reduces its column sums and hands each rank its rows
+of ``att^T v`` (:func:`..parallel.dist.reduce_scatter_points`); CAM
+all-reduces ``x^T x``; SE and CBAM take their mean over every slot
+(padding included) and CBAM its max by
+:func:`..parallel.dist.all_reduce_max`; CAA multiplies its rows by its
+point-axis kernels' rows and all-reduces the partial products, which every
+rank then holds whole: their train-mode BatchNorms take the statistics of
+every rank's copies, which are the batch's (equal copies leave the mean
+and variance as they are, and the points group's gradient sum gives back
+each copy's share of the statistics' gradient).  Point
+Transformer all-gathers its support rows, as the local operators do.
+Without a shard (the plain model, or one process) every operator runs its
+plain form.
 """
 from __future__ import annotations
 
@@ -24,9 +45,11 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..ops import group_features
+from ..parallel.dist import (PointShard, all_gather_points, all_reduce_max,
+                             all_reduce_sum, reduce_scatter_points)
 from .layers import ChannelsLastBatchNorm, dense
-from .local_aggregation import PointWiseMLP, closing_layer
-from .pyramid import Neighborhood
+from .local_aggregation import PointWiseMLP, closing_layer, gather_support
+from .pyramid import Neighborhood, query_shard
 
 _BN_MOMENTUM = 0.1     # torch convention; Flax 0.9
 _CBAM_BN_MOMENTUM = 0.01  # Flax 0.99
@@ -53,6 +76,26 @@ def _branch(module: nn.Module, i: int, x: torch.Tensor) -> torch.Tensor:
         getattr(module, f"Dense_{i}")(x)))
 
 
+def _whole(shard: Optional[PointShard], *xs: torch.Tensor):
+    """The point axes of ``xs`` whole: ``xs`` in the plain model, every
+    rank's rows all-gathered over ``shard.group`` in one call (joined on
+    the channels, split after) in the point-sharded one."""
+    if shard is None:
+        return xs
+    widths = [x.shape[-1] for x in xs]
+    whole = all_gather_points(torch.cat(xs, dim=-1), shard.n, shard.group)
+    return torch.split(whole, widths, dim=-1)
+
+
+def _point_mean(x: torch.Tensor, shard: Optional[PointShard],
+                keepdim: bool = False) -> torch.Tensor:
+    """The mean over every slot of the point axis (padding included)."""
+    if shard is None:
+        return x.mean(dim=1, keepdim=keepdim)
+    return all_reduce_sum(x.sum(dim=1, keepdim=keepdim),
+                          shard.group) / shard.n
+
+
 class OffsetAttention(nn.Module):
     """PCT-style offset attention: q and k share ``Dense_0`` under two
     BatchNorms; softmax over keys, then each column over its sum; the
@@ -69,14 +112,23 @@ class OffsetAttention(nn.Module):
         _add(self, "BatchNorm", [_bn(c_lat), _bn(c_lat), _bn(channels),
                                  _bn(channels)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         qk = self.Dense_0(x)
         x_q = F.relu(self.BatchNorm_0(qk))
-        x_k = F.relu(self.BatchNorm_1(qk))
+        x_k, = _whole(shard, F.relu(self.BatchNorm_1(qk)))
         x_v = F.relu(self.BatchNorm_2(self.Dense_1(x)))
         att = torch.softmax(x_q @ x_k.transpose(1, 2), dim=-1)
-        att = att / (1e-9 + att.sum(dim=1, keepdim=True))
-        x_r = att.transpose(1, 2) @ x_v
+        if shard is None:
+            att = att / (1e-9 + att.sum(dim=1, keepdim=True))
+            x_r = att.transpose(1, 2) @ x_v
+        else:
+            # columns over every rank's queries; the rows of att^T x_v
+            # are keys, summed over the ranks and handed to their owners
+            att = att / (1e-9 + all_reduce_sum(
+                att.sum(dim=1, keepdim=True), shard.group))
+            x_r = reduce_scatter_points(att.transpose(1, 2) @ x_v, shard.n,
+                                        shard.group)
         x_r = F.relu(self.BatchNorm_3(self.Dense_2(x - x_r)))
         return x + x_r
 
@@ -105,8 +157,10 @@ class PointAttentionNetwork(_QKV):
                  generator: Optional[torch.Generator] = None):
         super().__init__(channels, ratio, channels, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         a, b, d = self.qkv(x)
+        b, d = _whole(shard, b, d)
         return x + torch.softmax(a @ b.transpose(1, 2), dim=-1) @ d
 
 
@@ -117,9 +171,11 @@ class ShapeContext(_QKV):
                  generator: Optional[torch.Generator] = None):
         super().__init__(channels, ratio, channels, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         q, k, v = self.qkv(x)
-        return torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v + v
+        k_all, v_all = _whole(shard, k, v)
+        return torch.softmax(q @ k_all.transpose(1, 2), dim=-1) @ v_all + v
 
 
 class CrissCrossAttention(_QKV):
@@ -132,14 +188,20 @@ class CrissCrossAttention(_QKV):
         super().__init__(channels, ratio, channels, generator)
         _gate("gamma", self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         q, k, v = self.qkv(x)
-        n = x.shape[1]
-        eye = torch.eye(n, dtype=torch.bool, device=x.device)
-        energy_h = (q @ k.transpose(1, 2)).masked_fill(eye, float("-inf"))
+        k_all, v_all = _whole(shard, k, v)
+        n = k_all.shape[1]
+        # each query's own column: its row of the whole level
+        row0 = 0 if shard is None else shard.rows.start
+        eye = (torch.arange(x.shape[1], device=x.device) + row0)[:, None] \
+            == torch.arange(n, device=x.device)[None, :]
+        energy_h = (q @ k_all.transpose(1, 2)).masked_fill(eye,
+                                                           float("-inf"))
         energy_w = (q * k).sum(dim=-1, keepdim=True)
         att = torch.softmax(torch.cat([energy_h, energy_w], dim=-1), dim=-1)
-        out = att[..., :n] @ v + v * att[..., n:]
+        out = att[..., :n] @ v_all + v * att[..., n:]
         return self.gamma * out + x
 
 
@@ -155,10 +217,11 @@ class PAM(nn.Module):
                              for w in (c_lat, c_lat, channels)])
         _gate("gamma", self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        att = torch.softmax(self.Dense_0(x) @ self.Dense_1(x).transpose(1, 2),
-                            dim=-1)
-        return self.gamma * (att @ self.Dense_2(x)) + x
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
+        k, v = _whole(shard, self.Dense_1(x), self.Dense_2(x))
+        att = torch.softmax(self.Dense_0(x) @ k.transpose(1, 2), dim=-1)
+        return self.gamma * (att @ v) + x
 
 
 class CAM(nn.Module):
@@ -171,8 +234,11 @@ class CAM(nn.Module):
         super().__init__()
         _gate("gamma", self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         g = x.transpose(1, 2) @ x
+        if shard is not None:
+            g = all_reduce_sum(g, shard.group)
         att = torch.softmax(g.amax(dim=-1, keepdim=True) - g, dim=1)
         return self.gamma * (x @ att.transpose(1, 2)) + x
 
@@ -186,8 +252,9 @@ class DualAttention(nn.Module):
         self.CAM_0 = CAM(channels, generator)
         self.PAM_0 = PAM(channels, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.CAM_0(x) + self.PAM_0(x)
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
+        return self.CAM_0(x, shard) + self.PAM_0(x, shard)
 
 
 class CBAMAttention(nn.Module):
@@ -208,9 +275,11 @@ class CBAMAttention(nn.Module):
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(F.relu(self.Dense_0(x)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg = x.mean(dim=1, keepdim=True)
-        mx = x.amax(dim=1, keepdim=True)
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
+        avg = _point_mean(x, shard, keepdim=True)
+        mx = x.amax(dim=1, keepdim=True) if shard is None \
+            else all_reduce_max(x, 1, shard.group)
         x = x * torch.sigmoid(self._mlp(avg) + self._mlp(mx))
         stats = torch.cat([x.amax(dim=-1, keepdim=True),
                            x.mean(dim=-1, keepdim=True)], dim=-1)
@@ -229,8 +298,10 @@ class NonLocalModule(_QKV):
         self.BatchNorm_3 = _bn(channels)
         _gate("gamma", self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         q, k, v = self.qkv(x)
+        k, v = _whole(shard, k, v)
         agg = torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v
         return self.gamma * _branch(self, 3, agg) + x
 
@@ -239,7 +310,10 @@ class CAA_Module(nn.Module):  # noqa: N801 (the Flax tree's name)
     """Channel-wise affinity attention: the q and k layers run over the
     point axis of ``(B, C, N)`` (so their width depends on the level's
     ``num_points``), their BatchNorms over its ``max(N/8, 1)`` outputs;
-    ``alpha * out + x``."""
+    ``alpha * out + x``.  Point-sharded, each rank multiplies its rows by
+    its rows of the two kernels and one all-reduce adds the partial
+    products; a level of another slot count than the one it was built
+    for is refused."""
 
     def __init__(self, channels: int, num_points: int,
                  generator: Optional[torch.Generator] = None):
@@ -252,9 +326,24 @@ class CAA_Module(nn.Module):  # noqa: N801 (the Flax tree's name)
         _add(self, "BatchNorm", [_bn(n_lat), _bn(n_lat), _bn(channels)])
         _gate("alpha", self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
         xt = x.transpose(1, 2)                        # (B, C, N)
-        q, k = _branch(self, 0, xt), _branch(self, 1, xt)
+        if shard is None:
+            q, k = _branch(self, 0, xt), _branch(self, 1, xt)
+        else:
+            n, n_lat = self.Dense_0.in_features, self.Dense_0.out_features
+            if shard.n != n:
+                raise ValueError(
+                    f"CAA was built for levels of {n} slots; this one has "
+                    f"{shard.n} (its point-axis Dense layers take the slot "
+                    "count they were built for)")
+            rows = shard.rows
+            w = torch.cat([self.Dense_0.weight[:, rows],
+                           self.Dense_1.weight[:, rows]])
+            qk = all_reduce_sum(F.linear(xt, w), shard.group)
+            q, k = (F.relu(getattr(self, f"BatchNorm_{i}")(part))
+                    for i, part in enumerate(qk.split(n_lat, dim=-1)))
         sim = k @ q.transpose(1, 2)                   # (B, C, C)
         aff = torch.softmax(sim.amax(dim=-1, keepdim=True) - sim, dim=-1)
         v = _branch(self, 2, x)                       # (B, N, C)
@@ -271,8 +360,9 @@ class SE(nn.Module):
             dense(channels, channels // r, False, generator),
             dense(channels // r, channels, False, generator)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = F.relu(self.Dense_0(x.mean(dim=1)))
+    def forward(self, x: torch.Tensor,
+                shard: Optional[PointShard] = None) -> torch.Tensor:
+        s = F.relu(self.Dense_0(_point_mean(x, shard)))
         return x * torch.sigmoid(self.Dense_1(s))[:, None, :]
 
 
@@ -293,7 +383,8 @@ class PointTransformer(nn.Module):
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
-        x_j = group_features(support_features, nbr.idx)  # (B,M,K,C)
+        x_j = group_features(gather_support(support_features, nbr),
+                             nbr.idx)  # (B,M,K,C)
         rel = nbr.rel_xyz.to(x_j.dtype) / self.radius
         delta = F.relu(self.BatchNorm_0(self.Dense_1(self.Dense_0(rel))))
         # Dense_2 of the broadcast centre, taken once per query
@@ -363,6 +454,7 @@ class AttentionAggregation(nn.Module):
                 query_mask: torch.Tensor) -> torch.Tensor:
         first, *rest = self.ops
         out = getattr(self, first)(support_features, nbr, query_mask)
+        shard = query_shard(nbr)
         for name in rest:
-            out = getattr(self, name)(out)
+            out = getattr(self, name)(out, shard)
         return getattr(self, self.post)(out)

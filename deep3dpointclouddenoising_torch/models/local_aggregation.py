@@ -18,10 +18,11 @@ bfloat16 only their ``ConvBN``s compute in bfloat16, where JAX passes them
 In the point-sharded spatial model (``parallel/spatial.py``) a
 neighbourhood's queries are one rank's rows of a level and its indices
 name rows of the whole support level (``Neighborhood.support_size``):
-PseudoGrid then all-gathers the support features first
-(:func:`..parallel.spatial.kpconv_aggregate_sharded`, the JAX package's
-``shard_map`` route), and the other operators are refused, as the JAX
-package's ``shard_map`` route serves PseudoGrid alone.
+every operator then all-gathers the support features first
+(:func:`gather_support`; PseudoGrid through
+:func:`..parallel.spatial.kpconv_aggregate_sharded`, the JAX package's
+``shard_map`` route), and the rest of it works on the local query rows,
+as GSPMD partitions the JAX package's gathers over the point axis.
 
 A max over the neighbours is ``amax``: padding slots cycle real
 neighbours, so it meets exact ties, and ``amax`` splits the gradient among
@@ -40,10 +41,22 @@ import torch.nn.functional as F
 from ..config import Config
 from ..ops import group_features
 from ..ops.kpconv import kpconv_aggregate
+from ..parallel.dist import all_gather_points
 from ..parallel.spatial import kpconv_aggregate_sharded
 from .kernel_points import create_kernel_points
 from .layers import BNReLU, ConvBN, compute_dtype, dense
 from .pyramid import Neighborhood
+
+
+def gather_support(features: torch.Tensor, nbr: Neighborhood
+                   ) -> torch.Tensor:
+    """The support level's features whole: ``features`` itself in the
+    plain pyramid, every rank's rows of it all-gathered over
+    ``nbr.group`` in the point-sharded one."""
+    if nbr.support_size is None:
+        return features
+    return all_gather_points(features.contiguous(), nbr.support_size,
+                             nbr.group)
 
 
 def _feature_mask(nbr: Neighborhood, query_mask: torch.Tensor
@@ -174,7 +187,8 @@ class PosPool(nn.Module):
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
         C = self.in_channels
-        grouped = group_features(support_features, nbr.idx)  # (B,M,K,C)
+        grouped = group_features(gather_support(support_features, nbr),
+                                 nbr.idx)  # (B,M,K,C)
         B, M, K, _ = grouped.shape
         rel = _relative(nbr, self.radius, grouped)
         if self.embedding == "xyz":
@@ -223,7 +237,8 @@ class AdaptiveWeight(nn.Module):
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
-        grouped = group_features(support_features, nbr.idx)  # (B,M,K,C)
+        grouped = group_features(gather_support(support_features, nbr),
+                                 nbr.idx)  # (B,M,K,C)
         B, M, K, C = grouped.shape
         w = _relative(nbr, self.radius, grouped)
         for i in range(self.num_mlps):
@@ -271,7 +286,8 @@ class PointWiseMLP(nn.Module):
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
-        grouped = group_features(support_features, nbr.idx)  # (B,M,K,C)
+        grouped = group_features(gather_support(support_features, nbr),
+                                 nbr.idx)  # (B,M,K,C)
         rel = _relative(nbr, self.radius, grouped)
         center = grouped[:, :, :1, :]
         relative = grouped - center
@@ -317,9 +333,4 @@ class LocalAggregation(nn.Module):
 
     def forward(self, support_features: torch.Tensor, nbr: Neighborhood,
                 query_mask: torch.Tensor) -> torch.Tensor:
-        if nbr.support_size is not None and self.op != "PseudoGrid_0":
-            raise NotImplementedError(
-                f"the point-sharded spatial model aggregates by PseudoGrid "
-                f"only; {self.op[:-2]} reads neighbour rows of other ranks "
-                "(the JAX package's shard_map route is PseudoGrid's alone)")
         return getattr(self, self.op)(support_features, nbr, query_mask)

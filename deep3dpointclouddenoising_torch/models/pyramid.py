@@ -18,9 +18,11 @@ pyramid keeps only this rank's query rows of each level, of each
 neighbourhood and of each upsample table, whose indices stay global
 indices into the whole support level; ``Neighborhood.support_size`` and
 ``Transition.coarse_size`` then give the whole support's count, which the
-layers all-gather before they read support rows, and ``group`` the ranks
-that split the level (``None``: every rank; the points group of a 2-D
-``(data, points)`` layout).
+layers all-gather before they read support rows,
+``Neighborhood.query_size`` the whole query level's (the global attention
+operators' point axis) and ``group`` the ranks that split the level
+(``None``: every rank; the points group of a 2-D ``(data, points)``
+layout).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..ops import (
     masked_nearest_query,
     masked_ordered_ball_query,
 )
+from ..parallel.dist import PointShard, is_distributed
 
 
 class Neighborhood(NamedTuple):
@@ -47,6 +50,18 @@ class Neighborhood(NamedTuple):
     support_size: Optional[int] = None
     # the process group whose ranks hold the support rows (None: all)
     group: Any = None
+    # the whole query level's count when the queries are one rank's rows,
+    # else None
+    query_size: Optional[int] = None
+
+
+def query_shard(nbr: Neighborhood) -> Optional[PointShard]:
+    """The point-sharded query level of ``nbr`` (its whole count and the
+    group that splits it); ``None`` in the plain pyramid
+    and outside a process group, where the rows are the whole level."""
+    if nbr.query_size is None or not is_distributed():
+        return None
+    return PointShard(nbr.query_size, nbr.group)
 
 
 class Level(NamedTuple):
@@ -75,13 +90,15 @@ def _neighborhood(query_xyz, support_xyz, query_mask, support_mask,
                   radius: float, nsample: int,
                   chunk_size: Optional[int],
                   support_size: Optional[int] = None,
-                  group: Any = None) -> Neighborhood:
+                  group: Any = None,
+                  query_size: Optional[int] = None) -> Neighborhood:
     idx, msk = masked_ordered_ball_query(
         query_xyz, support_xyz, query_mask, support_mask,
         radius=radius, nsample=nsample, chunk_size=chunk_size)
     rel = group_xyz(support_xyz, query_xyz, idx).contiguous()
     return Neighborhood(idx=idx, mask=msk, rel_xyz=rel, radius=radius,
-                        support_size=support_size, group=group)
+                        support_size=support_size, group=group,
+                        query_size=query_size)
 
 
 def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
@@ -130,7 +147,8 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
     levels: List[Level] = [
         Level(xyz=q_xyz, mask=q_mask,
               self_nbr=_neighborhood(q_xyz, xyz, q_mask, mask, radius,
-                                     nsamples[0], chunk_size, size, group))
+                                     nsamples[0], chunk_size, size, group,
+                                     size))
     ]
     transitions: List[Transition] = []
     cur_xyz, cur_mask = xyz, mask
@@ -144,7 +162,7 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
         sub_q_mask, _ = mine(sub_mask)
         pool_nbr = _neighborhood(sub_q_xyz, cur_xyz, sub_q_mask, cur_mask,
                                  pool_radius, nsamples[i - 1], chunk_size,
-                                 size, group)
+                                 size, group, sub_size)
         if build_up:
             up_idx, up_mask = masked_nearest_query(
                 cur_q_xyz, sub_xyz, cur_q_mask, sub_mask,
@@ -158,7 +176,7 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor, *,
             self_nbr = _neighborhood(sub_q_xyz, sub_xyz, sub_q_mask,
                                      sub_mask, radius * (2.0 ** i),
                                      nsamples[i], chunk_size, sub_size,
-                                     group)
+                                     group, sub_size)
         levels.append(Level(xyz=sub_q_xyz, mask=sub_q_mask,
                             self_nbr=self_nbr))
         transitions.append(Transition(pool_nbr=pool_nbr, up_idx=up_idx,

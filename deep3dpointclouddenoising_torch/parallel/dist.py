@@ -21,6 +21,10 @@ equals the one-process step on the global batch:
   the whole axis, and its backward gives each rank the sum over the ranks
   of the gradient to its own rows (the point-sharded spatial forward,
   ``parallel/spatial.py``); :func:`point_rows` names each rank's rows;
+  :func:`reduce_scatter_points`, its adjoint, hands each rank its rows of
+  the sum of every rank's whole-axis partial, and :func:`all_reduce_max`
+  is a max over every rank's points whose gradient splits among the ties
+  on every rank (the attention operators, ``models/attention.py``);
 * :func:`make_mesh_2d` lays the ranks out as JAX's 2-D ``(data, points)``
   mesh (``parallel/mesh.py:31``) and makes the subgroups of its two axes:
   :func:`point_rows` and :func:`all_gather_points` then take the points
@@ -215,29 +219,31 @@ def coordinator_first(build: Callable[[], T], name: str = "build") -> T:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """SUM all-reduce; its backward all-reduces the incoming gradients
-    (every rank reads the sum, so the sum's gradient is the sum of the
-    ranks' gradients)."""
+    """SUM all-reduce over ``group``; its backward all-reduces the incoming
+    gradients (every rank reads the sum, so the sum's gradient is the sum
+    of the ranks' gradients)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, with the all-reduce's adjoint as its
-    gradient; ``x`` itself outside a group."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (every rank for ``None``),
+    with the all-reduce's adjoint as its gradient; ``x`` itself outside a
+    process group."""
     if not is_distributed():
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -280,6 +286,12 @@ def _group_place(group) -> Tuple[int, int]:
         dist.get_world_size(group)
 
 
+def group_size(group=None) -> int:
+    """The number of ranks in ``group`` (the whole process group for
+    ``None``; 1 outside one)."""
+    return _group_place(group)[1]
+
+
 def point_rows(n: int, rank_: Optional[int] = None,
                world: Optional[int] = None, group=None) -> slice:
     """This rank's contiguous rows of a point axis of ``n`` points: blocks
@@ -295,6 +307,34 @@ def point_rows(n: int, rank_: Optional[int] = None,
     return slice(min(rank_ * per, n), min((rank_ + 1) * per, n))
 
 
+def _gather_rows(x: torch.Tensor, n: int, group,
+                 count: bool = True) -> torch.Tensor:
+    """Every rank's rows of axis 1 within ``group`` joined in rank order:
+    one ``all_gather`` of the rows padded to ``ceil(n / W)``, trimmed
+    after; counted in ``all_gather_points``'s counters with ``count``."""
+    r, world = _group_place(group)
+    per = -(-n // world)
+    rows = [point_rows(n, q, world) for q in range(world)]
+    if x.shape[1] != rows[r].stop - rows[r].start:
+        raise ValueError(f"all_gather_points: rank {r} holds "
+                         f"{x.shape[1]} rows of {n}, not "
+                         f"{rows[r].stop - rows[r].start}")
+    padded = x.new_zeros((x.shape[0], per) + tuple(x.shape[2:]))
+    padded[:, :x.shape[1]] = x
+    parts = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(parts, padded, group=group)
+    if count:
+        _record(all_gather_points, padded.numel() * padded.element_size()
+                * world)
+    return torch.cat([p[:, :sl.stop - sl.start]
+                      for p, sl in zip(parts, rows)], dim=1)
+
+
+def _record(fn, nbytes: int) -> None:
+    fn.calls += 1
+    fn.bytes += nbytes
+
+
 class _AllGatherPoints(torch.autograd.Function):
     """Every rank's rows of axis 1 joined in rank order within ``group``;
     the backward sums the group's gradients to this rank's rows, in rank
@@ -302,38 +342,21 @@ class _AllGatherPoints(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, n: int, group) -> torch.Tensor:
-        r, world = _group_place(group)
-        per = -(-n // world)
-        rows = [point_rows(n, q, world) for q in range(world)]
-        if x.shape[1] != rows[r].stop - rows[r].start:
-            raise ValueError(f"all_gather_points: rank {r} holds "
-                             f"{x.shape[1]} rows of {n}, not "
-                             f"{rows[r].stop - rows[r].start}")
-        ctx.n, ctx.rows, ctx.group, ctx.mine = n, rows, group, rows[r]
-        padded = x.new_zeros((x.shape[0], per) + tuple(x.shape[2:]))
-        padded[:, :x.shape[1]] = x
-        parts = [torch.empty_like(padded) for _ in range(world)]
-        dist.all_gather(parts, padded, group=group)
-        _record_gather(padded, world)
-        return torch.cat([p[:, :sl.stop - sl.start]
-                          for p, sl in zip(parts, rows)], dim=1)
+        ctx.group = group
+        ctx.mine = point_rows(n, group=group)
+        ctx.world = _group_place(group)[1]
+        return _gather_rows(x, n, group)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         grad = grad.contiguous()
-        parts = [torch.empty_like(grad) for _ in ctx.rows]
+        parts = [torch.empty_like(grad) for _ in range(ctx.world)]
         dist.all_gather(parts, grad, group=ctx.group)
         mine = ctx.mine
         out = parts[0][:, mine].clone()
         for p in parts[1:]:
             out += p[:, mine]
         return out, None, None
-
-
-def _record_gather(padded: torch.Tensor, world: int) -> None:
-    all_gather_points.calls += 1
-    all_gather_points.bytes += padded.numel() * padded.element_size() \
-        * world
 
 
 def all_gather_points(x: torch.Tensor, n: int, group=None) -> torch.Tensor:
@@ -357,6 +380,99 @@ def all_gather_points(x: torch.Tensor, n: int, group=None) -> torch.Tensor:
 
 all_gather_points.calls = 0
 all_gather_points.bytes = 0
+
+
+class _ReduceScatterPoints(torch.autograd.Function):
+    """The group's sum of a whole point axis, this rank's rows of it; the
+    backward gathers the rows' gradients whole."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, n: int, group) -> torch.Tensor:
+        ctx.n, ctx.group = n, group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        _record(reduce_scatter_points, out.numel() * out.element_size())
+        return out[:, point_rows(n, group=group)].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _gather_rows(grad.contiguous(), ctx.n, ctx.group,
+                            count=False), None, None
+
+
+def reduce_scatter_points(x: torch.Tensor, n: int, group=None
+                          ) -> torch.Tensor:
+    """(B, n, ...) this rank's partial of a whole point axis -> (B, n_r,
+    ...) this rank's rows (:func:`point_rows` of ``n`` in ``group``) of
+    the sum of the partials over the ranks of ``group`` (every rank for
+    ``None``): an all-reduce, sliced.  Its gradient is the adjoint,
+    :func:`all_gather_points` of the rows' gradients.  ``x`` itself
+    outside a process group.  ``reduce_scatter_points.calls`` and
+    ``.bytes`` count the calls and the bytes each all-reduces."""
+    if x.shape[1] != n:
+        raise ValueError(f"reduce_scatter_points: {x.shape[1]} rows, not "
+                         f"the whole axis of {n}")
+    if not is_distributed():
+        return x
+    return _ReduceScatterPoints.apply(x, n, group)
+
+
+reduce_scatter_points.calls = 0
+reduce_scatter_points.bytes = 0
+
+
+class _AllReduceMax(torch.autograd.Function):
+    """The max over axis ``dim`` of every rank's slices of it within
+    ``group``; the backward splits the summed gradient evenly among the
+    ties on every rank."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] = 1
+        out = x.amax(dim=dim, keepdim=True) if x.shape[dim] \
+            else x.new_full(shape, float("-inf"))
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        ties = x == out
+        count = ties.sum(dim=dim, keepdim=True).to(x.dtype)
+        dist.all_reduce(count, group=group)
+        ctx.save_for_backward(ties, count)
+        ctx.group = group
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        ties, count = ctx.saved_tensors
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return ties * (grad / count), None, None
+
+
+def all_reduce_max(x: torch.Tensor, dim: int = 1, group=None
+                   ) -> torch.Tensor:
+    """The max over axis ``dim`` (kept, of size 1) of every rank's slices
+    of that axis within ``group`` (every rank for ``None``; a rank may
+    hold none), the same on every rank.  Its gradient, as ``amax``'s and
+    ``jnp.max``'s, is the sum of the ranks' gradients split evenly among
+    the entries equal to the max on every rank (one more all-reduce, of
+    the tie count).  ``x.amax(dim, keepdim=True)`` outside a process
+    group."""
+    if not is_distributed():
+        return x.amax(dim=dim, keepdim=True)
+    return _AllReduceMax.apply(x, dim, group)
+
+
+class PointShard(NamedTuple):
+    """This rank's share of a point axis of ``n`` slots split over the
+    ranks of ``group`` (every rank for ``None``; a 2-D layout's points
+    group), for the global operators of the point-sharded model."""
+    n: int
+    group: Any = None
+
+    @property
+    def rows(self) -> slice:
+        """This rank's rows (:func:`point_rows` in ``group``)."""
+        return point_rows(self.n, group=self.group)
 
 
 class Mesh2D(NamedTuple):

@@ -23,12 +23,27 @@ rank of a ``torch.distributed`` group (``parallel/dist.py``) holds its
   the trainer's gradient all-reduce sums; ``d_rel`` stays local;
 * the strided blocks' max-pool and the decoder's 1-NN upsample all-gather
   the rows they read the same way (``models/resnet.py``,
-  ``models/heads.py``); every per-point layer (Dense, BatchNorm, heads)
-  works on the local rows, train-mode BatchNorm with statistics over
-  every rank's rows (``models/layers.py``);
+  ``models/heads.py``), as do PosPool, AdaptiveWeight, PointWiseMLP and
+  Point Transformer before their neighbour gathers
+  (``models/local_aggregation.py``, ``models/attention.py``); every
+  per-point layer (Dense, BatchNorm, heads) works on the local rows,
+  train-mode BatchNorm with statistics over every rank's rows
+  (``models/layers.py``);
+* the global attention operators (``models/attention.py``) reduce over
+  the whole point axis of a level (``Neighborhood.query_size``): the
+  row-softmax ones all-gather their keys and values, Offset-attention
+  all-reduces its column sums and reduce-scatters ``att^T v``
+  (:func:`..parallel.dist.reduce_scatter_points`), CAM all-reduces its
+  Gram matrix, SE and CBAM their sums and maxima over points
+  (:func:`..parallel.dist.all_reduce_max`), CAA the partial products of
+  its point-axis Dense layers, whose results every rank of the group
+  then holds whole;
 * :func:`build_spatial_model` / :func:`build_spatial_forward`: the three
-  dense-prediction models with that pyramid; their parameters and buffers
-  are the plain model's, so a patch-trained checkpoint loads unchanged.
+  dense-prediction models with that pyramid, for every aggregation
+  operator; their parameters and buffers are the plain model's, so a
+  patch-trained checkpoint loads unchanged (but CAA's, whose point-axis
+  layers take the slot counts they were built for, as a Flax CAA takes
+  the width it was initialised at).
 
 With a 2-D layout (``mesh``, :func:`..parallel.dist.make_mesh_2d`; JAX's
 ``axis=POINTS_AXIS, batch_axis=DATA_AXIS``, :140-208) each rank is given
@@ -38,11 +53,11 @@ above are the points group's, while train-mode BatchNorm, the losses'
 denominators and the gradient sum span every rank, as JAX's statistics
 span its batch sharded over both axes.
 
-Only PseudoGrid aggregates in the spatial model: the other operators are
-refused (JAX's ``shard_map`` route serves PseudoGrid alone; its GSPMD
-route takes any operator).  Outside a process group, or in a group of one,
-every rank's rows are the whole cloud and the spatial forward is the
-plain forward.
+JAX's GSPMD route takes every operator as this module does; its
+``shard_map`` route is how its Pallas KPConv kernel enters the sharded
+model, the counterpart of :func:`kpconv_aggregate_sharded`.  Outside a
+process group, or in a group of one, every rank's rows are the whole cloud
+and the spatial forward is the plain forward.
 """
 from __future__ import annotations
 
@@ -93,17 +108,12 @@ def build_spatial_model(cfg, kind: str = "offset_regression",
     this rank's :func:`..parallel.dist.point_rows` of the output.  With
     ``mesh`` (a 2-D layout) it is called on the clouds of this rank's data
     index (``mesh.batch_rows``) and its rows are those of ``mesh``'s
-    points group.  Its ``state_dict`` has the plain model's keys and
-    shapes.  Raises for an aggregation other than PseudoGrid."""
+    points group.  Every aggregation operator is taken.  Its
+    ``state_dict`` has the plain model's keys and shapes."""
     from ..models import (build_complete_denoising, build_offset_regression,
                           build_scene_segmentation)
     if kind not in KINDS:
         raise ValueError(f"spatial model kind {kind!r}: one of {KINDS}")
-    if cfg.local_aggregation_type != "pseudo_grid":
-        raise NotImplementedError(
-            f"the point-sharded spatial model aggregates by PseudoGrid only, "
-            f"not {cfg.local_aggregation_type} (the JAX package's shard_map "
-            "route is PseudoGrid's alone)")
     build = {"offset_regression": build_offset_regression,
              "complete_denoising": build_complete_denoising,
              "scene_segmentation": build_scene_segmentation}[kind]

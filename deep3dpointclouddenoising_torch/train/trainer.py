@@ -143,16 +143,10 @@ SPATIAL_KINDS = {"offset": "offset_regression",
                  "segmentation": "scene_segmentation"}
 
 
-def _check_spatial(cfg: Config, loss_mode: str,
-                   loss_fn: Optional[Callable]) -> None:
-    """Refuse what point-sharded training cannot do: a loss that is not
-    pointwise (the Chamfer losses read the whole cloud) and a job of
-    several hosts (torchrun's ``LOCAL_WORLD_SIZE`` below its
-    ``WORLD_SIZE``)."""
-    if loss_mode == "offset" and loss_fn is None and cfg.loss != "L1":
-        raise NotImplementedError(
-            f"point-sharded training takes pointwise losses; {cfg.loss} "
-            "reads the whole cloud")
+def _check_spatial() -> None:
+    """Refuse what point-sharded training cannot do, as JAX does
+    (``train/trainer.py:226-229``): a job of several hosts (torchrun's
+    ``LOCAL_WORLD_SIZE`` below its ``WORLD_SIZE``)."""
     local = os.environ.get("LOCAL_WORLD_SIZE")
     if is_distributed() and local is not None \
             and int(local) < world_size():
@@ -199,8 +193,12 @@ class Trainer:
     batch.  The cross-rank BatchNorm then spans every point, the losses'
     global denominators make the ranks' shares sum to the whole clouds'
     loss and DDP's :func:`_sum_hook` sums the gradients; the LR counts a
-    world of 1 (JAX :120).  The losses must be pointwise (the Chamfer
-    losses read the whole cloud).  As in JAX (:226-229), a job that spans
+    world of 1 (JAX :120).  Every loss is taken: an offset loss is given
+    this rank's rows of the prediction and the whole clouds' offsets,
+    mask and points (``losses.build.get_offset_regression_loss`` with
+    ``spatial``: the Chamfer losses search the whole clouds), the
+    full-cleaning and segmentation losses, which are pointwise, this
+    rank's rows of everything.  As in JAX (:226-229), a job that spans
     several hosts is refused.
 
     ``spatial="2d"`` with ``mesh`` (``parallel.dist.make_mesh_2d``) is
@@ -230,7 +228,8 @@ class Trainer:
         self.points_group = None if mesh is None else mesh.points_group
         if loss_mode == "offset":
             build = build_offset_regression
-            default_loss = get_offset_regression_loss(cfg.loss)
+            default_loss = get_offset_regression_loss(
+                cfg.loss, bool(spatial), self.points_group)
         elif loss_mode == "full_cleaning":
             build = build_complete_denoising
             default_loss = get_complete_denoising_loss(
@@ -241,7 +240,7 @@ class Trainer:
         else:
             raise ValueError(f"loss_mode {loss_mode!r} is not ported")
         if spatial:
-            _check_spatial(cfg, loss_mode, loss_fn)
+            _check_spatial()
             model = build_spatial_model(cfg, SPATIAL_KINDS[loss_mode],
                                         generator, mesh)
         else:
@@ -275,18 +274,17 @@ class Trainer:
         points, mask, features = self._inputs(batch, "points", "mask",
                                               "features")
         pred = model(points, mask, features)
+        if self.loss_mode == "offset":
+            offsets, = self._inputs(batch, "offsets")
+            return self.loss_fn(pred, offsets, mask, points)
         rows = point_rows(points.shape[1], group=self.points_group) \
             if self.spatial else slice(None)
-        points, mask = points[:, rows], mask[:, rows]
+        mask = mask[:, rows]
+        labels, = self._inputs(batch, "labels")
         if self.loss_mode == "segmentation":
-            labels, = self._inputs(batch, "labels")
             return self.loss_fn(pred, labels[:, rows], mask)
         offsets, = self._inputs(batch, "offsets")
-        offsets = offsets[:, rows]
-        if self.loss_mode == "full_cleaning":
-            labels, = self._inputs(batch, "labels")
-            return self.loss_fn(pred, offsets, labels[:, rows], mask)
-        return self.loss_fn(pred, offsets, mask, points)
+        return self.loss_fn(pred, offsets[:, rows], labels[:, rows], mask)
 
     def train_step(self, batch: Batch) -> torch.Tensor:
         """One update; returns the loss on the device without waiting for

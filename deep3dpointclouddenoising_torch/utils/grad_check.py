@@ -61,8 +61,9 @@ Dense or kernel-weights gradient it pins about a thousand times tighter.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..losses.masked import masked_l1_loss
@@ -80,9 +81,9 @@ def check_forward(got: torch.Tensor, plain: torch.Tensor,
     """Hold ``got`` to the float32 plain output ``plain``, element by
     element, within the larger of ``atol + rtol |plain|`` and
     ``NOISE_FACTOR |plain - float64|``; raises AssertionError naming the
-    element furthest over its limit.  Returns the element nearest its
-    limit: ``index``, ``diff``, ``limit``, ``got``, ``plain`` and the
-    largest ``max_abs`` difference."""
+    element furthest over its limit and its three readings.  Returns the
+    element nearest its limit: ``index``, ``diff``, ``limit``, ``got``,
+    ``plain``, ``float64`` and the largest ``max_abs`` difference."""
     if not torch.isfinite(got).all():
         raise AssertionError("forward: non-finite output")
     got, plain, ref = got.double(), plain.double(), float64.double()
@@ -94,12 +95,13 @@ def check_forward(got: torch.Tensor, plain: torch.Tensor,
         torch.tensor(flat), diff.shape))
     worst = dict(index=index, diff=diff[index].item(),
                  limit=limit[index].item(), got=got[index].item(),
-                 plain=plain[index].item(), max_abs=diff.max().item())
+                 plain=plain[index].item(), float64=ref[index].item(),
+                 max_abs=diff.max().item())
     if worst["diff"] > worst["limit"]:
         raise AssertionError(
             f"forward: output {index} = {worst['got']:.7g} differs from "
             f"plain {worst['plain']:.7g} by {worst['diff']:.3e} (limit "
-            f"{worst['limit']:.3e})")
+            f"{worst['limit']:.3e}; float64 {worst['float64']:.9g})")
     return worst
 
 
@@ -162,6 +164,28 @@ def float64_copy(model: torch.nn.Module) -> torch.nn.Module:
     the modules' bfloat16 compute dtype (``ConvBN``, ``PseudoGrid``)
     cleared."""
     return set_compute_dtype(copy.deepcopy(model).double(), None)
+
+
+def draw_gates_and_head(model: torch.nn.Module, rng,
+                        other: Optional[Callable] = None) -> None:
+    """Set ``model``'s parameters in place, in ``named_parameters`` order,
+    from the numpy generator ``rng``: the attention gates (``gamma``,
+    ``alpha``; zero at init, which makes each gated operator the
+    identity) from U(0.5, 1.5), the offset head's final Dense
+    (``MultiDimHead_0.Dense_0``; 1e-4 at init) from N(0, 1), and any other
+    parameter from ``other(name, shape)`` where it gives an array (left as
+    it is where it gives ``None``)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            shape = tuple(p.shape)
+            if "MultiDimHead_0.Dense_0" in name:
+                a = rng.normal(size=shape)
+            elif name.rsplit(".", 1)[-1] in ("gamma", "alpha"):
+                a = rng.uniform(0.5, 1.5, size=shape)
+            else:
+                a = None if other is None else other(name, shape)
+            if a is not None:
+                p.copy_(torch.from_numpy(a.astype(np.float32)))
 
 
 def launches() -> Tuple[int, int]:

@@ -32,8 +32,10 @@ padded tail):
   shape of 300 points, ``size_bucket=128`` (:88-114);
 * ``infer --spatial --multihost`` on 2 ranks: rank 0 alone writes the PLY
   tree the voting path writes, its denoised clouds those of ``infer
-  --spatial`` in one process; ``--spatial`` refuses ``--device_voting``
-  and the other aggregations are refused.
+  --spatial`` in one process; ``--spatial`` refuses ``--device_voting``.
+
+The other aggregation operators and the Chamfer losses in the spatial
+model: ``tests/test_torch_spatial_ops.py``.
 """
 import contextlib
 import io
@@ -402,16 +404,20 @@ def test_spatial_pyramid_rows_are_the_whole_pyramid_rows(monkeypatch,
 
 
 def test_spatial_model_has_the_plain_parameters_and_refuses_others():
-    for kind, build in BUILDS.items():
-        plain, spatial = build(_cfg()), build_spatial_model(_cfg(), kind)
+    """The spatial model of each kind, and of PosPool, has the plain
+    model's state keys and shapes; a spatial Trainer takes the Chamfer
+    losses; another kind of model is refused."""
+    pospool = dict(local_aggregation_type="pospool", width=24)
+    for kind, build, extra in [(k, b, {}) for k, b in BUILDS.items()] + [
+            ("offset_regression", build_offset_regression, pospool)]:
+        plain = build(_cfg(**extra))
+        spatial = build_spatial_model(_cfg(**extra), kind)
         assert {k: v.shape for k, v in plain.state_dict().items()} == \
             {k: v.shape for k, v in spatial.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="PseudoGrid only"):
-        build_spatial_model(_cfg(local_aggregation_type="pospool"))
     with pytest.raises(ValueError, match="kind"):
         build_spatial_model(_cfg(), "discriminator")
-    with pytest.raises(NotImplementedError, match="pointwise"):
-        Trainer(_cfg(loss="chamfer_L1"), 10, device="cpu", spatial=True)
+    tt = Trainer(_cfg(loss="chamfer_L1"), 10, device="cpu", spatial=True)
+    assert tt.loss_fn.keywords == {"spatial": True, "group": None}
 
 
 def test_spatial_forward_in_one_process_is_the_plain_forward():

@@ -22,9 +22,18 @@ depth 1, 256 points with a padded tail, B = 2 clouds):
   (losses at rtol 2e-3, ``tests/test_spatial.py:262``), the four ranks'
   states bitwise equal;
 * one SGD step's gradient against the one-process Trainer's on the
-  global batch at atol 2e-5, with the LR world equal to ``n_data``;
+  global batch at atol 2e-5, with the LR world equal to ``n_data``, also
+  with ``loss: chamfer``;
 * the 1-D spatial forward on the same four ranks (every rank one points
-  shard of the whole batch) against the one-process forward, as before.
+  shard of the whole batch) against the one-process forward, as before;
+* CAA (``cfgs/CAA.yaml`` at ``tests/test_torch_spatial_ops.py``'s
+  geometry) in train mode on the 2 x 2 layout, in float64: each rank's
+  rows of the output against the one-process forward of the two clouds
+  (rtol 2e-5 / atol 2e-6) and the gradients of ``sum(out ** 2)`` summed
+  over the four ranks against one process's (rtol 2e-4 / atol 2e-5):
+  its point-axis products, which the two ranks of a points group hold
+  whole, take their train-mode BatchNorm statistics over all four ranks'
+  copies.
 """
 import multiprocessing
 import os
@@ -45,6 +54,8 @@ from deep3dpointclouddenoising_torch.utils.grad_check import \
     state_difference
 from test_torch_spatial import (GIANT, MODEL_TOL, SGD, SPATIAL_TOL, TRAIN,
                                 _cfg, _cloud, _model, _train_batch)
+from test_torch_spatial_ops import GRAD_TOL
+from test_torch_spatial_ops import _model as _op_model
 
 N_DATA, N_POINTS = 2, 2
 WORLD = N_DATA * N_POINTS
@@ -94,6 +105,25 @@ def _trainer_run(cfg, steps, mesh):
                       tt.model.state_dict().items()}}
 
 
+def _caa_train(mesh=None):
+    """CAA's train-mode output and the gradients of sum(out ** 2) in
+    float64 (positions float32) on the B clouds: with ``mesh`` this rank's
+    point rows of its data index's clouds, gathered over its points
+    group, and its gradient share; else one process's."""
+    model = _op_model("CAA", mesh is not None, mesh=mesh).double().train()
+    xyz, mask = (torch.from_numpy(a) for a in _cloud(B=B))
+    if mesh is not None:
+        rows = mesh.batch_rows(B)
+        xyz, mask = xyz[rows], mask[rows]
+    out = model(xyz, mask, xyz.double())
+    (out ** 2).sum().backward()
+    if mesh is not None:
+        out = gather_points(out.detach(), xyz.shape[1], mesh.points_group)
+    return {"out": out.detach(),
+            "grads": {n: p.grad.clone() for n, p in
+                      model.named_parameters()}}
+
+
 def _layout(mesh):
     ranks = lambda g: dist.get_process_group_ranks(g)  # noqa: E731
     with pytest.raises(ValueError, match="needs 6 ranks"):
@@ -117,6 +147,9 @@ def rank_main(rank, world, init_file, out_dir):
                "forward_1d": _forward_1d(),
                "adam": _trainer_run(_cfg(**TRAIN), STEPS, mesh),
                "sgd": _trainer_run(_cfg(**{**TRAIN, **SGD}), 1, mesh),
+               "sgd_chamfer": _trainer_run(_cfg(**{**TRAIN, **SGD},
+                                                loss="chamfer"), 1, mesh),
+               "caa": _caa_train(mesh),
                "jax_loaded": "jax" in sys.modules}
         out["seconds"] = time.perf_counter() - t0
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -301,26 +334,56 @@ def test_mesh_2d_training_matches_jax(against_jax):
         assert not state_difference(out["adam"]["state"], first["state"])
 
 
-def test_mesh_2d_sgd_gradient_matches_one_process(job):
-    """One SGD step on 2 x 2 ranks applies the one-process gradient of the
-    global batch; its LR counts the data axis alone."""
-    ranks = job()
-    cfg = _cfg(**{**TRAIN, **SGD})
+def _check_sgd_2d(ranks, key, **extra):
+    """Each rank's SGD step ``key`` against one process's on the global
+    batch (``_cfg(**TRAIN, **SGD, **extra)``): the applied gradients at
+    atol 2e-5, the LR counting the data axis alone, the ranks bitwise
+    equal."""
+    cfg = _cfg(**{**TRAIN, **SGD, **extra})
     one = _trainer_run(cfg, 1, None)
     _, schedule = make_optimizer(cfg, [torch.zeros(1)], 10, N_DATA)
     for out in ranks:
-        run = out["sgd"]
+        run = out[key]
         assert run["lr0"] == schedule(0) == N_DATA * one["lr0"]
         for name, p0 in one["init"].items():
             g = (p0 - run["state"][name]) / run["lr0"]
             g_want = (p0 - one["state"][name]) / one["lr0"]
             np.testing.assert_allclose(g.numpy(), g_want.numpy(), atol=2e-5,
                                        rtol=0, err_msg=name)
-        assert not state_difference(out["sgd"]["state"],
-                                    ranks[0]["sgd"]["state"])
+        assert not state_difference(out[key]["state"],
+                                    ranks[0][key]["state"])
+
+
+def test_mesh_2d_sgd_gradient_matches_one_process(job):
+    """One SGD step on 2 x 2 ranks applies the one-process gradient of the
+    global batch; its LR counts the data axis alone."""
+    _check_sgd_2d(job(), "sgd")
+
+
+def test_mesh_2d_chamfer_sgd_gradient_matches_one_process(job):
+    """The same with ``loss: chamfer``: each cloud's search runs over its
+    points group, the clouds count once over the data axis."""
+    _check_sgd_2d(job(), "sgd_chamfer", loss="chamfer")
 
 
 def test_ranks_import_no_jax(job):
     ranks = job()
     assert [out["jax_loaded"] for out in ranks] == [False] * WORLD
     print("rank seconds:", [round(out["seconds"], 1) for out in ranks])
+
+
+def test_caa_2d_training_matches_one_process(job):
+    """CAA on the 2 x 2 layout in train mode: each rank's rows of its
+    clouds and the four ranks' summed gradients are one process's on the
+    two clouds."""
+    ranks = job()
+    want = _caa_train()
+    for r in ranks:
+        d = r["layout"]["place"][0]
+        np.testing.assert_allclose(r["caa"]["out"].numpy(),
+                                   want["out"][d:d + 1].numpy(),
+                                   **SPATIAL_TOL)
+    for name, g in want["grads"].items():
+        got = sum(r["caa"]["grads"][name] for r in ranks)
+        np.testing.assert_allclose(got.numpy(), g.numpy(), **GRAD_TOL,
+                                   err_msg=name)
